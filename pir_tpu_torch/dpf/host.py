@@ -1,0 +1,273 @@
+"""Host (client-side / golden) fast-mode two-party DPF (counterpart of the
+fast subset of ``pir_tpu/dpf/host.py``).
+
+Fast mode is the early-termination DPF (BGI'16 §3.2.1): the tree stops
+``log2(leaf_bits)`` levels early and each leaf seed CTR-extends with the
+4th PRF key into ``leaf_bits`` selection bits, corrected by a
+``leaf_bits``-wide final correction word. ``bits0 ^ bits1`` is one-hot at
+the target row, so answers recover exactly.
+
+Keygen draws its randomness from ``rand_bytes`` (default ``os.urandom``);
+tests pass a seeded source to make a run repeatable.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+
+from .aes_host import BLOCK_SIZE, INIT_PRF_LEN, EcbCipher, prf_blocks
+
+RandBytes = Callable[[int], bytes]
+
+
+@dataclass
+class PrfKey:
+    """16-byte AES key; the PRG seed keys."""
+
+    bytes: bytes
+
+
+@dataclass
+class Dpf:
+    """Party state: the fixed PRF keys and their ciphers."""
+
+    num_bits: int
+    prf_keys: list[PrfKey]
+    ciphers: list[EcbCipher] = field(repr=False)
+
+
+def client_initialize(num_bits: int, rand_bytes: RandBytes = os.urandom) -> Dpf:
+    """Sample the 4 fixed PRF keys."""
+    keys = [rand_bytes(BLOCK_SIZE) for _ in range(INIT_PRF_LEN)]
+    return Dpf(
+        num_bits=num_bits,
+        prf_keys=[PrfKey(k) for k in keys],
+        ciphers=[EcbCipher(k) for k in keys],
+    )
+
+
+def server_initialize(prf_keys: list[PrfKey], num_bits: int) -> Dpf:
+    """Rebuild the fixed ciphers from client-provided keys."""
+    return Dpf(
+        num_bits=num_bits,
+        prf_keys=list(prf_keys),
+        ciphers=[EcbCipher(k.bytes) for k in prf_keys],
+    )
+
+
+def _prf1(dpf: Dpf, x: bytes, num_blocks: int = 3) -> bytes:
+    out = prf_blocks(np.frombuffer(x, dtype=np.uint8)[None, :], dpf.ciphers, num_blocks)
+    return out[0].tobytes()
+
+
+LEAF_BITS = 128
+
+# client-side default leaf width for fast keygen (power of two >= 128),
+# clamped per height by fast_leaf_bits_for_height
+DEFAULT_FAST_LEAF_BITS = 1024
+
+
+@dataclass
+class FastKey2P:
+    """Early-termination two-party DPF key (bit output)."""
+
+    s_init: bytes
+    t_init: int
+    cw: list[bytes]  # depth entries of 18 bytes: 16B seed CW + tL + tR
+    final_cw_block: bytes  # 16*n bytes: leaf_bits-wide output correction
+    depth: int
+    height: int
+
+    @property
+    def leaf_bits(self) -> int:
+        return len(self.final_cw_block) * 8
+
+
+def fast_depth_for_height(height: int, leaf_bits: int = LEAF_BITS) -> int:
+    leaves = -(-height // leaf_bits)
+    return max(0, (leaves - 1).bit_length())
+
+
+def _check_leaf_bits(leaf_bits: int) -> int:
+    if leaf_bits < 128 or leaf_bits & (leaf_bits - 1):
+        raise ValueError(f"leaf_bits must be a power of two >= 128, got {leaf_bits}")
+    return leaf_bits // 128
+
+
+def fast_leaf_bits_for_height(height: int, leaf_bits: int) -> int:
+    """Clamp a requested leaf width so the tree keeps >= 5 levels (the
+    root-start serving path needs them); never below 128."""
+    _check_leaf_bits(leaf_bits)
+    while leaf_bits > LEAF_BITS and fast_depth_for_height(height, leaf_bits) < 5:
+        leaf_bits >>= 1
+    return leaf_bits
+
+
+def _leaf_blocks_wide(dpf: Dpf, seeds: np.ndarray, n_blk: int) -> np.ndarray:
+    """(n,16) leaf seeds -> (n, 16*n_blk) leaf output bytes.
+
+    Block b = AES_{k3}(seed ^ LE64(b)) ^ (seed ^ LE64(b))."""
+    out = prf_blocks(seeds, [dpf.ciphers[3]], n_blk)
+    return out.reshape(seeds.shape[0], 16 * n_blk)
+
+
+def generate_two_server_fast(
+    dpf: Dpf, a: int, height: int, leaf_bits: int = LEAF_BITS,
+    rand_bytes: RandBytes = os.urandom,
+) -> list[FastKey2P]:
+    """Keygen for f(a)=1 over [0, height) with early termination."""
+    if not 0 <= a < height:
+        raise ValueError("requesting key outside of domain")
+    n_blk = _check_leaf_bits(leaf_bits)
+    depth = fast_depth_for_height(height, leaf_bits)
+    saved_bits = dpf.num_bits
+    dpf.num_bits = depth
+
+    leaf_index = a // leaf_bits
+    temp = rand_bytes(BLOCK_SIZE + 1)
+    s0 = bytearray(temp[:BLOCK_SIZE])
+    t0 = temp[BLOCK_SIZE] % 2
+    s1 = bytearray(rand_bytes(BLOCK_SIZE))
+    t1 = t0 ^ 1
+
+    s_curr0, s_curr1 = bytearray(s0), bytearray(s1)
+    t_curr0, t_curr1 = t0, t1
+    cw = []
+    for i in range(depth):
+        out0 = _prf1(dpf, bytes(s_curr0))
+        out1 = _prf1(dpf, bytes(s_curr1))
+        t0l, t0r = out0[BLOCK_SIZE] % 2, out0[BLOCK_SIZE * 2 + 1] % 2
+        t1l, t1r = out1[BLOCK_SIZE] % 2, out1[BLOCK_SIZE * 2 + 1] % 2
+        a_bit = (leaf_index >> (depth - 1 - i)) & 1
+        keep, lose = (0, BLOCK_SIZE + 1) if a_bit == 0 else (BLOCK_SIZE + 1, 0)
+        cw_i = bytearray(BLOCK_SIZE + 2)
+        for j in range(BLOCK_SIZE):
+            cw_i[j] = out0[lose + j] ^ out1[lose + j]
+        cw_i[BLOCK_SIZE] = t0l ^ t1l ^ a_bit ^ 1
+        cw_i[BLOCK_SIZE + 1] = t0r ^ t1r ^ a_bit
+        cw.append(bytes(cw_i))
+        for j in range(BLOCK_SIZE):
+            s_curr0[j] = out0[keep + j] ^ (t_curr0 * cw_i[j])
+            s_curr1[j] = out1[keep + j] ^ (t_curr1 * cw_i[j])
+        t_cw_keep = cw_i[BLOCK_SIZE] if keep == 0 else cw_i[BLOCK_SIZE + 1]
+        t_curr0 = (out0[keep + BLOCK_SIZE] % 2) ^ (t_cw_keep * t_curr0)
+        t_curr1 = (out1[keep + BLOCK_SIZE] % 2) ^ (t_cw_keep * t_curr1)
+
+    dpf.num_bits = saved_bits
+
+    blk0 = _leaf_blocks_wide(
+        dpf, np.frombuffer(bytes(s_curr0), np.uint8)[None, :], n_blk)[0]
+    blk1 = _leaf_blocks_wide(
+        dpf, np.frombuffer(bytes(s_curr1), np.uint8)[None, :], n_blk)[0]
+    within = a % leaf_bits
+    e_a = np.zeros(16 * n_blk, dtype=np.uint8)
+    e_a[within >> 3] = 1 << (within & 7)
+    fcw = (blk0 ^ blk1 ^ e_a).tobytes()
+    # exactly one of t_curr0/t_curr1 is 1 at the target leaf, so
+    # bits0 ^ bits1 = blk0 ^ blk1 ^ fcw = e_a there, and 0 elsewhere.
+    return [
+        FastKey2P(bytes(s0), t0, list(cw), fcw, depth, height),
+        FastKey2P(bytes(s1), t1, list(cw), fcw, depth, height),
+    ]
+
+
+def generate_two_server_fast_batch(
+    dpf: Dpf, indices: "list[int]", height: int, leaf_bits: int = LEAF_BITS,
+    rand_bytes: RandBytes = os.urandom,
+) -> "list[list[FastKey2P]]":
+    """Vectorised fast-mode keygen: one tree walk for Q queries at once.
+
+    Semantically identical to Q calls of generate_two_server_fast. All Q
+    keys share the caller's ``dpf`` PRF keys — those are public (every
+    server receives them with the share), so security rests on the fresh
+    per-query seeds. Returns [ [key_server0, key_server1] per index ].
+    """
+    n_blk = _check_leaf_bits(leaf_bits)
+    depth = fast_depth_for_height(height, leaf_bits)
+    q = len(indices)
+    idx = np.asarray(indices, dtype=np.uint64)
+    if q and (idx >= height).any():
+        raise ValueError("requesting key outside of domain")
+    leaf = (idx // np.uint64(leaf_bits)).astype(np.uint64)
+
+    rnd = np.frombuffer(rand_bytes(q * 33), np.uint8).reshape(q, 33)
+    s0 = rnd[:, :16].copy()
+    t0 = (rnd[:, 32] & 1).astype(np.uint8)
+    s1 = rnd[:, 16:32].copy()
+    t1 = t0 ^ 1
+
+    s_curr0, s_curr1 = s0.copy(), s1.copy()
+    t_curr0, t_curr1 = t0.copy(), t1.copy()
+    cw = np.zeros((q, depth, 18), np.uint8)
+    cols = np.arange(16)
+    for i in range(depth):
+        out0 = prf_blocks(s_curr0, dpf.ciphers, 3).reshape(q, 48)
+        out1 = prf_blocks(s_curr1, dpf.ciphers, 3).reshape(q, 48)
+        a_bit = ((leaf >> np.uint64(depth - 1 - i)) & np.uint64(1)).astype(np.uint8)
+        # keep/lose offsets into the 48-byte PRG output: left expansion
+        # at byte 0, right at byte 17
+        keep = np.where(a_bit == 0, 0, 17).astype(np.int64)[:, None]
+        lose = 17 - keep
+        cw_seed = (np.take_along_axis(out0, lose + cols, 1)
+                   ^ np.take_along_axis(out1, lose + cols, 1))
+        cw_tl = (out0[:, 16] & 1) ^ (out1[:, 16] & 1) ^ a_bit ^ 1
+        cw_tr = (out0[:, 33] & 1) ^ (out1[:, 33] & 1) ^ a_bit
+        cw[:, i, :16] = cw_seed
+        cw[:, i, 16] = cw_tl
+        cw[:, i, 17] = cw_tr
+        s_curr0 = (np.take_along_axis(out0, keep + cols, 1)
+                   ^ (t_curr0[:, None] * cw_seed))
+        s_curr1 = (np.take_along_axis(out1, keep + cols, 1)
+                   ^ (t_curr1[:, None] * cw_seed))
+        t_cw_keep = np.where(a_bit == 0, cw_tl, cw_tr)
+        t_next0 = np.take_along_axis(out0, keep + 16, 1)[:, 0] & 1
+        t_next1 = np.take_along_axis(out1, keep + 16, 1)[:, 0] & 1
+        t_curr0 = t_next0 ^ (t_cw_keep * t_curr0)
+        t_curr1 = t_next1 ^ (t_cw_keep * t_curr1)
+
+    blk0 = _leaf_blocks_wide(dpf, s_curr0, n_blk)
+    blk1 = _leaf_blocks_wide(dpf, s_curr1, n_blk)
+    within = (idx % np.uint64(leaf_bits)).astype(np.int64)
+    e_a = np.zeros((q, 16 * n_blk), np.uint8)
+    e_a[np.arange(q), within >> 3] = (1 << (within & 7)).astype(np.uint8)
+    fcw = blk0 ^ blk1 ^ e_a
+
+    return [
+        [
+            FastKey2P(s0[j].tobytes(), int(t0[j]),
+                      [cw[j, i].tobytes() for i in range(depth)],
+                      fcw[j].tobytes(), depth, height),
+            FastKey2P(s1[j].tobytes(), int(t1[j]),
+                      [cw[j, i].tobytes() for i in range(depth)],
+                      fcw[j].tobytes(), depth, height),
+        ]
+        for j in range(q)
+    ]
+
+
+def eval_full_domain_fast_bits(dpf: Dpf, key: FastKey2P) -> np.ndarray:
+    """(height,) bool selection-bit share, natural row order (host golden)."""
+    seeds = np.frombuffer(key.s_init, dtype=np.uint8)[None, :].copy()
+    t_bits = np.array([key.t_init], dtype=np.uint8)
+    for i in range(key.depth):
+        flat = prf_blocks(seeds, dpf.ciphers, 3).reshape(seeds.shape[0], 48)
+        cw_i = key.cw[i]
+        cw_seed = np.frombuffer(cw_i[:16], dtype=np.uint8)
+        t_mask = t_bits[:, None]
+        s_l = flat[:, 0:16] ^ cw_seed[None, :] * t_mask
+        s_r = flat[:, 17:33] ^ cw_seed[None, :] * t_mask
+        t_l = (flat[:, 16] & 1) ^ (t_bits & cw_i[16])
+        t_r = (flat[:, 33] & 1) ^ (t_bits & cw_i[17])
+        seeds = np.stack([s_l, s_r], axis=1).reshape(-1, 16)
+        t_bits = np.stack([t_l, t_r], axis=1).reshape(-1).astype(np.uint8)
+
+    n_blk = key.leaf_bits // 128
+    blocks = _leaf_blocks_wide(dpf, seeds, n_blk)  # (2^depth, 16*n_blk)
+    fcw = np.frombuffer(key.final_cw_block, dtype=np.uint8)
+    blocks = blocks ^ fcw[None, :] * t_bits[:, None]
+    bits = np.unpackbits(blocks, axis=1, bitorder="little").reshape(-1)
+    return bits[: key.height].astype(bool)

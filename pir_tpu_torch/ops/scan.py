@@ -1,0 +1,93 @@
+"""Plain torch references for the batched XOR scan (counterpart of
+``pir_tpu/ops/matmul_scan.py`` and ``pir_tpu/ops/scan.py``).
+
+The 2-server PIR answer share is ``XOR over rows r with bit[r] = 1 of
+row r``. These functions compute it the straightforward way — mask the
+rows, fold them with XOR — and are the plain version that the packed
+scan kernel (``ops/packed_scan.py``) is held against.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def pad_rows_u8(table_u8: np.ndarray, block: int) -> np.ndarray:
+    """Zero rows appended up to a multiple of `block` (XOR-neutral)."""
+    h = table_u8.shape[0]
+    pad = (-h) % block
+    if not pad:
+        return table_u8
+    return np.concatenate(
+        [table_u8, np.zeros((pad, table_u8.shape[1]), dtype=np.uint8)]
+    )
+
+
+def xor_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """XOR of x along `dim` (dimension kept, size 1), by halving folds."""
+    while x.shape[dim] > 1:
+        n = x.shape[dim]
+        h = n // 2
+        y = x.narrow(dim, 0, h) ^ x.narrow(dim, h, h)
+        if n % 2:
+            y.narrow(dim, 0, 1).bitwise_xor_(x.narrow(dim, n - 1, 1))
+        x = y
+    return x
+
+
+def _word_table(table_u8: torch.Tensor) -> torch.Tensor:
+    """(H, B) uint8 -> (H, ceil(B/4)) int32 little-endian words."""
+    h, b = table_u8.shape
+    pad = (-b) % 4
+    if pad:
+        table_u8 = torch.cat(
+            [table_u8, table_u8.new_zeros((h, pad))], dim=1)
+    return table_u8.contiguous().view(torch.int32)
+
+
+def batched_xor_scan(table_u8: torch.Tensor, bits: torch.Tensor,
+                     max_elems: int = 1 << 27) -> torch.Tensor:
+    """table (H, B) uint8, bits (Q, H) {0,1} -> (Q, B) uint8: row q is the
+    XOR of the table rows r with bits[q, r] = 1.
+
+    Works in (query, row) chunks of at most `max_elems` masked words so
+    large tables stay within memory.
+    """
+    h, b = table_u8.shape
+    q = bits.shape[0]
+    words = _word_table(table_u8)  # (H, BW)
+    bw = words.shape[1]
+    out = torch.zeros((q, bw), dtype=torch.int32, device=table_u8.device)
+    qc = min(q, 256)
+    rc = max(1, min(h, max_elems // (qc * bw)))
+    for q0 in range(0, q, qc):
+        acc = out[q0:q0 + qc]
+        for r0 in range(0, h, rc):
+            mask = -bits[q0:q0 + qc, r0:r0 + rc].to(torch.int32)
+            sel = words[None, r0:r0 + rc] & mask[:, :, None]
+            acc ^= xor_reduce(sel, 1)[:, 0]
+    return out.view(torch.uint8)[:, :b]
+
+
+def pack_table_u32(data: np.ndarray, height: int, group_size: int) -> np.ndarray:
+    """(db_size, slot_bytes) uint8 -> (height, group_size * words) uint32.
+
+    Rows cover slots [r*G, (r+1)*G); each slot is zero-padded to a whole
+    number of little-endian uint32 words so slot boundaries stay aligned.
+    """
+    _, slot_bytes = data.shape
+    words = max(1, -(-slot_bytes // 4))
+    arr = np.zeros((height, group_size, words * 4), dtype=np.uint8)
+    used = height * group_size
+    arr[:, :, :slot_bytes] = data[:used].reshape(height, group_size, slot_bytes)
+    return arr.view("<u4").reshape(height, group_size * words)
+
+
+def unpack_result_u32(res: np.ndarray, group_size: int, slot_bytes: int) -> np.ndarray:
+    """(G*words,) uint32 -> (G, slot_bytes) uint8."""
+    words = max(1, -(-slot_bytes // 4))
+    b = np.ascontiguousarray(
+        np.asarray(res, dtype="<u4").reshape(group_size, words)
+    ).view(np.uint8)
+    return b.reshape(group_size, words * 4)[:, :slot_bytes]

@@ -1,0 +1,39 @@
+"""Carry the JAX package's state into the port.
+
+The "weights" of a PIR server are its table and the query shares it is
+asked to answer. Both arrive here as plain numpy arrays, bytes and ints
+(the fields of a ``pir_tpu`` database or share), so nothing of the JAX
+package is imported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .database import Database
+from .dpf.host import FastKey2P, PrfKey
+from .query import QueryShare
+
+
+def database_from_numpy(data: np.ndarray, slot_bytes: int) -> Database:
+    """A port Database over (db_size, slot_bytes) uint8 rows (no copy
+    when `data` already is a C-contiguous uint8 array)."""
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    if data.ndim != 2 or data.shape[1] != slot_bytes:
+        raise ValueError(f"rows {data.shape} do not hold {slot_bytes}-byte slots")
+    return Database(slot_bytes=slot_bytes, db_size=data.shape[0], data=data)
+
+
+def share_from_fields(*, prf_keys, s_init: bytes, t_init: int, cw, final_cw_block: bytes,
+                      depth: int, height: int, share_number: int,
+                      group_size: int) -> QueryShare:
+    """A port QueryShare from the fields of a fast-mode share: prf_keys as
+    16-byte strings (or PrfKey objects to share one list across a
+    batch), the FastKey2P fields, the share number and group size."""
+    keys = [k if isinstance(k, PrfKey) else PrfKey(bytes(k)) for k in prf_keys]
+    key = FastKey2P(bytes(s_init), int(t_init), [bytes(c) for c in cw],
+                    bytes(final_cw_block), int(depth), int(height))
+    return QueryShare(key_two_party=None, key_multi_party=None, prf_keys=keys,
+                      is_keyword_based=False, is_two_party=True,
+                      share_number=int(share_number), group_size=int(group_size),
+                      key_fast=key)

@@ -1,0 +1,110 @@
+"""pir_tpu_torch's CUDA kernels vs their plain versions, on the card.
+
+Every test here needs a CUDA device and nvcc and skips without them.
+The file imports nothing of JAX or pir_tpu, so it also runs where only
+the port is installed:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pir_tpu_torch import query as tq
+from pir_tpu_torch.database import generate_random_db
+from pir_tpu_torch.ops.expand import (
+    fast_tail_expand_stacked,
+    fast_tail_expand_stacked_plain,
+)
+from pir_tpu_torch.ops.packed_scan import packed_scan, packed_scan_plain
+from pir_tpu_torch.server import TorchPirServer
+
+pytestmark = pytest.mark.cuda
+FULL = np.uint32(0xFFFFFFFF)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _words(rng, *shape):
+    return rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
+
+
+def _tail_operands(dev, seed, s_n, w, tail, n_blk, distinct):
+    """Random words; round keys as 0/~0 masks, the form the payload
+    unpack gives them (the kernel reads bit 0 of each mask word)."""
+    rng = np.random.default_rng(seed)
+
+    def masks(*shape):
+        return rng.integers(0, 2, size=shape).astype(np.uint32) * FULL
+
+    rk, rkl = ((masks(s_n, 11, 8, 3, 16, w), masks(s_n, 11, 8, 16, w)) if distinct
+               else (masks(11, 8, 3, 16, 1), masks(11, 8, 16, 1)))
+    ops = (_words(rng, s_n, 8, 1, 16, w), _words(rng, s_n, 1, 1, w),
+           _words(rng, s_n, tail, 8, 16, w), _words(rng, s_n, tail, 1, w),
+           _words(rng, s_n, tail, 1, w), rk, _words(rng, s_n, 8, n_blk, 16, w), rkl)
+    return [torch.from_numpy(x.view(np.int32)).to(dev) for x in ops]
+
+
+@pytest.mark.parametrize("distinct,n_blk,tail,w", [
+    (False, 8, 3, 128), (True, 8, 3, 128), (True, 1, 0, 64), (False, 2, 1, 20),
+])
+def test_tail_kernel_matches_plain(dev, distinct, n_blk, tail, w):
+    ops = _tail_operands(dev, 40 + tail, 3, w, tail, n_blk, distinct)
+    before = fast_tail_expand_stacked.launches
+    got = fast_tail_expand_stacked(*ops, tail=tail, n_blk=n_blk)
+    torch.cuda.synchronize()
+    assert fast_tail_expand_stacked.launches == before + 1
+    assert torch.equal(got, fast_tail_expand_stacked_plain(*ops, tail=tail, n_blk=n_blk))
+
+
+@pytest.mark.parametrize("h,b,q", [(8192, 1024, 64), (4096, 8, 37), (2048, 520, 3)])
+def test_packed_scan_kernel_matches_plain(dev, h, b, q):
+    rng = np.random.default_rng(h + q)
+    table = torch.from_numpy(rng.integers(0, 256, size=(h, b), dtype=np.uint8)).to(dev)
+    words = torch.from_numpy(_words(rng, h // 32, q).view(np.int32)).to(dev)
+    before = packed_scan.launches
+    got = packed_scan(table, words)
+    torch.cuda.synchronize()
+    assert packed_scan.launches == before + 1
+    assert torch.equal(got, packed_scan_plain(table, words))
+
+
+def test_wrappers_reject_strided_cuda_operands(dev):
+    table = torch.zeros((64, 16), dtype=torch.uint8, device=dev)
+    words = torch.zeros((4, 2), dtype=torch.int32, device=dev).t()  # (2, 4), strided
+    with pytest.raises(ValueError, match="contiguous"):
+        packed_scan(table, words)
+    ops = _tail_operands(dev, 1, 2, 8, 1, 1, False)
+    ops[0] = ops[0].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fast_tail_expand_stacked(*ops, tail=1, n_blk=1)
+
+
+def test_cuda_server_matches_cpu_server(dev):
+    """Shared keys (35 queries: not a multiple of k) and distinct keys
+    (5 queries, chunked at 4) on the card equal the CPU server's bytes
+    and recover every row."""
+    db = generate_random_db(1 << 13, 8)
+    gpu = TorchPirServer(db, fast_nonshared_chunk=4)
+    cpu = TorchPirServer(db, device="cpu", fast_nonshared_chunk=4)
+    rng = np.random.default_rng(3)
+    idxs = [int(i) for i in rng.integers(0, db.db_size, size=35)]
+    shared = tq.new_index_query_shares_batch(db.metadata(), idxs, 1, rand_bytes=rng.bytes)
+    distinct = [tq.new_fast_index_query_shares(db.metadata(), i, 1, rand_bytes=rng.bytes)
+                for i in idxs[:5]]
+    for pairs in (shared, distinct):
+        out = []
+        for part in (0, 1):
+            batch = [p[part] for p in pairs]
+            g = gpu.private_secret_shared_query_batch(batch)
+            c = cpu.private_secret_shared_query_batch(batch)
+            assert [r.shares[0].data for r in g] == [r.shares[0].data for r in c]
+            out.append(g)
+        for i, (a, b) in enumerate(zip(*out)):
+            assert bytes(tq.recover([a, b])[0].data) == db.data[idxs[i]].tobytes()

@@ -1,0 +1,64 @@
+"""The stacked tail kernel's per-thread code, built for the host.
+
+csrc/stacked_tail_host.cpp compiles the AES, tree walk, leaf blocks and
+round-key rebuild of csrc/stacked_tail.cuh with a host C++ compiler;
+its output must equal the plain torch version's (itself held against
+the TPU kernel in test_torch_expand.py) on real operands from the
+port's head walk, at the serving geometry and a deeper-tail one.
+"""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pir_tpu_torch import query as tq
+from pir_tpu_torch.database import DBMetadata
+from pir_tpu_torch.dpf.device import make_fast_payload_batch
+from pir_tpu_torch.models.pipeline import payload_tensor, stacked_fast_geometry, stacked_head
+from pir_tpu_torch.ops.expand import fast_tail_expand_stacked_plain
+
+CSRC = Path(__file__).resolve().parent.parent / "pir_tpu_torch" / "csrc"
+
+
+@pytest.fixture(scope="module")
+def host_tail(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    lib = tmp_path_factory.mktemp("tail_host") / "libstacked_tail_host.so"
+    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(lib),
+                    str(CSRC / "stacked_tail_host.cpp")], check=True, timeout=300)
+    fn = ctypes.CDLL(str(lib)).pir_stacked_tail_host
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+    fn.restype = None
+    return fn
+
+
+@pytest.mark.parametrize("height,leaf_bits,distinct", [
+    (1 << 20, 1024, False), (1 << 20, 1024, True), (1 << 16, 128, True),
+])
+def test_host_build_matches_plain_tail(host_tail, height, leaf_bits, distinct):
+    md = DBMetadata(8, height)
+    rng = np.random.default_rng(height + distinct)
+    idxs = [int(i) for i in rng.integers(0, height, size=32)]
+    if distinct:
+        shares = [tq.new_fast_index_query_shares(md, i, 1, leaf_bits=leaf_bits,
+                                                 rand_bytes=rng.bytes)[0] for i in idxs]
+    else:
+        shares = [p[0] for p in tq.new_index_query_shares_batch(
+            md, idxs, 1, leaf_bits=leaf_bits, rand_bytes=rng.bytes)]
+    pay, layout = make_fast_payload_batch(shares)
+    k, tail = stacked_fast_geometry(layout.depth, layout.leaf_blocks)
+    assert tail > 0 and len(idxs) == k
+    ops = [x.contiguous() for x in stacked_head(payload_tensor(pay, "cpu"), layout)]
+    want = fast_tail_expand_stacked_plain(*ops, tail=tail, n_blk=layout.leaf_blocks)
+    got = torch.empty_like(want)
+    s_n, w = ops[0].shape[0], ops[0].shape[-1]
+    host_tail(*(x.data_ptr() for x in ops), got.data_ptr(), s_n, w, tail,
+              layout.leaf_blocks, 1 if ops[5].dim() == 5 else w)
+    assert torch.equal(got, want)
