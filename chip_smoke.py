@@ -6,19 +6,24 @@
 From the repository root, on a machine with one NVIDIA H100 and nvcc:
 
 0. prints the card (nvidia-smi name and power limit) and the versions;
-1. builds both CUDA kernels from pir_tpu_torch/csrc with nvcc;
-2. builds a 2^20-row x 1024-byte table (1 GiB) from --seed and holds each
-   kernel against its plain torch version on the card, with equal bytes:
-   the stacked tail at the serving geometry (depth 10, 8 leaf blocks,
-   k = 32, tail 3) for shared and for distinct keys, and the packed
-   scan on the whole table with a 64-query slice;
-3. serves 3 batches of 4096 shared-key queries, both shares, through
-   TorchPirServer, recovers every answer by XOR and compares it with the
-   table rows; prints per-batch seconds, queries per second, the
-   head / tail / scan split and the kernels' launch counts;
-4. serves one distinct-key batch of 64 queries the same way;
+1. builds the three CUDA kernels from pir_tpu_torch/csrc with nvcc;
+2. builds a 2^20-row x 1024-byte table (1 GiB) from --seed, in the
+   storage orders of both paths, and holds each kernel against its
+   plain torch version on the card, with equal bytes: the stacked tail
+   at the serving geometry (depth 10, 8 leaf blocks, k = 32, tail 3)
+   for shared and for distinct keys, the packed scan on the whole table
+   with a 64-query slice, and the compat stage on every stage of the
+   (3, 3, 2) cascade for a 64-query slice of compat shares (one stage
+   launch of the main path);
+3. serves 3 batches of 4096 shared-key fast queries, then 3 batches of
+   1024 reference-exact (compat) queries (the last one through the
+   async entry point), both shares, through TorchPirServer, recovers
+   every answer by XOR and compares it with the table rows; prints
+   per-batch seconds, queries per second, a stage-by-stage split of one
+   share batch of each path and each path's kernel launch counts;
+4. serves one distinct-key fast batch of 64 queries the same way;
 5. times each kernel, its plain version and its PyTorch yardstick at the
-   main path's shapes, and prints one JSON line of kernels.
+   main paths' shapes, and prints one JSON line of kernels.
 
 Every failed check raises, so the exit code is not 0. The last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
@@ -41,6 +46,8 @@ BATCHES = 3
 DISTINCT_BATCH = 64
 SCAN_CHECK_Q = 64
 TAIL_CHECK_STEPS = 4
+COMPAT_BATCH = 1024
+COMPAT_BATCHES = 2  # plus one through the async entry point
 # H100 SXM data-sheet peaks
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
@@ -79,20 +86,25 @@ def main() -> int:
     from pir_tpu_torch import _build
     from pir_tpu_torch.database import DBMetadata
     from pir_tpu_torch.dpf import host as dpf_host
-    from pir_tpu_torch.dpf.device import make_fast_payload_batch
+    from pir_tpu_torch.dpf.device import (
+        make_compat_payload_batch,
+        make_fast_payload_batch,
+    )
     from pir_tpu_torch.models.pipeline import (
+        compat_head,
         payload_tensor,
         stacked_fast_geometry,
         stacked_head,
         stacked_words_t,
     )
+    from pir_tpu_torch.ops.compat_stage import compat_stage, compat_stage_plain
     from pir_tpu_torch.ops.expand import (
         fast_tail_expand_stacked,
         fast_tail_expand_stacked_plain,
     )
     from pir_tpu_torch.ops.packed_scan import packed_scan, packed_scan_plain, unpack_words_t
     from pir_tpu_torch.query import new_fast_index_query_shares, new_index_query_shares_batch
-    from pir_tpu_torch.server import TorchPirServer
+    from pir_tpu_torch.server import COMPAT_Q_CHUNK, TorchPirServer
     from pir_tpu_torch.state import database_from_numpy
 
     dev = torch.device("cuda", 0)
@@ -136,13 +148,17 @@ def main() -> int:
             fail(f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
-    def batch_shares(n, distinct):
+    def batch_shares(n, distinct=False, compat=False):
         idx = [int(i) for i in rng.integers(0, HEIGHT, n)]
+        if compat:
+            idx[0], idx[-1] = 0, HEIGHT - 1
+            return idx, new_index_query_shares_batch(md, idx, 1, rand_bytes=keygen_rng.bytes)
         if distinct:
             pairs = [new_fast_index_query_shares(md, i, 1, rand_bytes=keygen_rng.bytes)
                      for i in idx]
         else:
-            pairs = new_index_query_shares_batch(md, idx, 1, rand_bytes=keygen_rng.bytes)
+            pairs = new_index_query_shares_batch(md, idx, 1, fast=True,
+                                                 rand_bytes=keygen_rng.bytes)
         return idx, pairs
 
     def tail_ops(shares):
@@ -171,13 +187,65 @@ def main() -> int:
     if e_tail_shared or e_tail_distinct or e_scan_slice:
         fail("a kernel disagrees with its plain version")
 
-    def serve_and_check(idx, pairs, label):
+    # compat: the cascade's storage table, then every stage of one stage
+    # launch's slice of q_chunk queries against its plain version, each
+    # stage fed the kernel's output
+    t = time.perf_counter()
+    c_qc = COMPAT_Q_CHUNK
+    nbd, cw_w, tails = srv._compat_geometry(1)
+    c_split = 5 + cw_w.bit_length() - 1
+    table_c = srv._compat_root_table_u8(1, nbd, cw_w, tails)
+    torch.cuda.synchronize()
+    log(f"phase 2: compat table {tuple(table_c.shape)} in {time.perf_counter() - t:.2f} s; "
+        f"device_bits {nbd}, head {c_split} levels, stages {tails}, w {cw_w}, q_chunk {c_qc}")
+
+    def compat_ops(shares):
+        pay, layout = make_compat_payload_batch(shares, height=HEIGHT)
+        return compat_head(payload_tensor(pay, dev), layout, cw_w)
+
+    def stage_args(ops, seeds, t_, off, tl):
+        _, _, cw_s, cw_tl, cw_tr, rk, fcw = ops
+        return (seeds, t_, cw_s[:, off:off + tl].contiguous(), cw_tl[:, off:off + tl].contiguous(),
+                cw_tr[:, off:off + tl].contiguous(), rk, fcw)
+
+    _, cpairs = batch_shares(c_qc, compat=True)
+    cops = compat_ops([p[0] for p in cpairs])
+    seeds_c, t_c = cops[0], cops[1]
+    e_compat = []
+    off = 0
+    for si, tl in enumerate(tails):
+        last = si == len(tails) - 1
+        args_ = stage_args(cops, seeds_c, t_c, off, tl)
+        got = compat_stage(*args_, tail=tl, emit_bits=last)
+        want = compat_stage_plain(*args_, tail=tl, emit_bits=last)
+        if last:
+            e_compat.append(err(got, want))
+        else:
+            e_compat.append(max(err(got[0], want[0]), err(got[1], want[1])))
+            seeds_c, t_c = got
+        off += tl
+    del got, want, seeds_c, t_c
+    log(f"phase 2: compat stage vs plain max_abs_err per stage {e_compat} "
+        f"({c_qc} queries; tolerance 0, equal bytes; the last stage emits bits)")
+    if any(e_compat):
+        fail("the compat stage kernel disagrees with its plain version")
+
+    def serve_and_check(idx, pairs, label, asynchronous=False):
         times = []
         answers = []
-        for part in (0, 1):
+        if asynchronous:  # dispatch both shares, then fetch both
             t = time.perf_counter()
-            res = srv.private_secret_shared_query_batch([p[part] for p in pairs])
+            futs = [srv.private_secret_shared_query_batch_async([p[part] for p in pairs])
+                    for part in (0, 1)]
+            results = [f() for f in futs]
             times.append(time.perf_counter() - t)
+        for part in (0, 1):
+            if asynchronous:
+                res = results[part]
+            else:
+                t = time.perf_counter()
+                res = srv.private_secret_shared_query_batch([p[part] for p in pairs])
+                times.append(time.perf_counter() - t)
             answers.append(np.stack([np.frombuffer(bytes(r.shares[0].data), np.uint8)
                                      for r in res]))
         rec = answers[0] ^ answers[1]
@@ -186,9 +254,18 @@ def main() -> int:
             fail(f"{label}: {bad.size} of {len(idx)} answers do not recover (first {bad[0]})")
         return times
 
-    # ---- phase 3: the main path ------------------------------------------
-    fast_tail_expand_stacked.launches = 0
-    packed_scan.launches = 0
+    def reset_counts():
+        fast_tail_expand_stacked.launches = 0
+        packed_scan.launches = 0
+        compat_stage.launches = 0
+
+    def read_counts():
+        return {"stacked_tail": fast_tail_expand_stacked.launches,
+                "packed_scan": packed_scan.launches,
+                "compat_stage": compat_stage.launches}
+
+    # ---- phase 3: the main paths -----------------------------------------
+    reset_counts()
     per_batch = []
     for b in range(BATCHES):
         t = time.perf_counter()
@@ -199,11 +276,10 @@ def main() -> int:
         log(f"phase 3: batch {b}: keygen {keygen_s:.3f} s (client); server answers "
             f"{times[0]:.4f} s + {times[1]:.4f} s for the two shares = "
             f"{BATCH / times[0]:.0f} / {BATCH / times[1]:.0f} queries/s; all {BATCH} recovered")
-    launches = {"stacked_tail": fast_tail_expand_stacked.launches,
-                "packed_scan": packed_scan.launches}
-    log(f"phase 3: launches on the main path: {launches}")
-    if not all(launches.values()):
-        fail(f"a kernel of the main path was never launched: {launches}")
+    fast_launches = read_counts()
+    log(f"phase 3: launches on the fast path: {fast_launches}")
+    if not (fast_launches["stacked_tail"] and fast_launches["packed_scan"]):
+        fail(f"a kernel of the fast path was never launched: {fast_launches}")
 
     # one share batch again, stage by stage, each stage synchronised
     split = {}
@@ -236,9 +312,74 @@ def main() -> int:
         ", ".join(f"{name} {sec:.4f}" for name, sec in split.items()) +
         f"; sum {sum(split.values()):.4f}")
 
+    # compat: reference-exact batches through the same server
+    reset_counts()
+    per_compat_batch = []
+    for b in range(COMPAT_BATCHES + 1):
+        asynchronous = b == COMPAT_BATCHES
+        t = time.perf_counter()
+        idx, cpairs = batch_shares(COMPAT_BATCH, compat=True)
+        keygen_s = time.perf_counter() - t
+        times = serve_and_check(idx, cpairs, f"compat batch {b}", asynchronous)
+        if asynchronous:
+            log(f"phase 3: compat batch {b}: keygen {keygen_s:.3f} s (client); both shares "
+                f"dispatched async, then fetched: {times[0]:.4f} s; all {COMPAT_BATCH} recovered")
+        else:
+            per_compat_batch.extend(times)
+            log(f"phase 3: compat batch {b}: keygen {keygen_s:.3f} s (client); server answers "
+                f"{times[0]:.4f} s + {times[1]:.4f} s for the two shares = "
+                f"{COMPAT_BATCH / times[0]:.0f} / {COMPAT_BATCH / times[1]:.0f} queries/s; "
+                f"all {COMPAT_BATCH} recovered (indices 0 and {HEIGHT - 1} among them)")
+    compat_launches = read_counts()
+    log(f"phase 3: launches on the compat path: {compat_launches}")
+    if not (compat_launches["compat_stage"] and compat_launches["packed_scan"]):
+        fail(f"a compat batch did not go through its kernels: {compat_launches}")
+
+    # one compat share batch again, stage by stage, each stage synchronised
+    split_c = {}
+    t = time.perf_counter()
+
+    def mark_c(stage):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split_c[stage] = now - t
+        t = now
+
+    cpay, clayout = make_compat_payload_batch([p[0] for p in cpairs], height=HEIGHT)
+    mark_c("payload build")
+    cpay_t = payload_tensor(cpay, dev)
+    mark_c("upload")
+    cops = compat_head(cpay_t, clayout, cw_w)
+    mark_c("head walk")
+    slices = [tuple(x[q0:q0 + c_qc] for x in cops) for q0 in range(0, COMPAT_BATCH, c_qc)]
+    state = [(sl[0], sl[1]) for sl in slices]
+    off = 0
+    for si, tl in enumerate(tails):
+        last = si == len(tails) - 1
+        state = [compat_stage(*stage_args(sl, s_, t_, off, tl), tail=tl, emit_bits=last)
+                 for sl, (s_, t_) in zip(slices, state)]
+        off += tl
+        mark_c(f"stage {si + 1} kernel (tail {tl})")
+    cwords = torch.cat([x.reshape(x.shape[0], -1) for x in state])
+    pad = table_c.shape[0] // 32 - cwords.shape[1]
+    if pad:  # zero bits for the XOR-neutral padded rows
+        cwords = torch.cat([cwords, cwords.new_zeros(COMPAT_BATCH, pad)], dim=1)
+    cwords_t = cwords.t().contiguous()
+    mark_c("word pad")
+    cout = packed_scan(table_c, cwords_t)
+    mark_c("scan kernel")
+    chost = cout.cpu().numpy()
+    mark_c("download")
+    srv._slice_batch_results(chost, 1, COMPAT_BATCH)
+    mark_c("result objects")
+    del state, cwords, cout
+    log(f"phase 3: split of one {COMPAT_BATCH}-query compat share batch (s): " +
+        ", ".join(f"{name} {sec:.4f}" for name, sec in split_c.items()) +
+        f"; sum {sum(split_c.values()):.4f}")
+
     # ---- phase 4: a distinct-key batch -------------------------------------
-    fast_tail_expand_stacked.launches = 0
-    packed_scan.launches = 0
+    reset_counts()
     idx, dpairs = batch_shares(DISTINCT_BATCH, distinct=True)
     times = serve_and_check(idx, dpairs, "distinct-key batch")
     log(f"phase 4: distinct-key batch of {DISTINCT_BATCH}: {times[0]:.4f} s + {times[1]:.4f} s; "
@@ -277,27 +418,99 @@ def main() -> int:
     log(f"phase 5: stacked tail ({s_n} steps, {blocks} AES blocks): kernel {tail_ms:.4f} ms, "
         f"plain {tail_plain_ms:.4f} ms, bounds {tail_bound}, max_abs_err {e_tail}")
 
-    q = words_t.shape[1]
-    scan_ms, scan_out = cuda_ms(lambda: packed_scan(table, words_t), 3)
-    scan_plain_ms, scan_plain = cuda_ms(lambda: packed_scan_plain(table, words_t), 1, warm=False)
-    e_scan = err(scan_out, scan_plain)
-    del scan_plain
-    rows, width = table.shape
-    scan_bytes = table.numel() + words_t.numel() * 4 + q * width
-    scan_bound = {"bytes": scan_bytes / HBM_BYTES_PER_S * 1e3,
-                  "operations": 8 * 2 * q * rows * width / INT8_TENSOR_OPS_PER_S * 1e3}
-    # yardstick: the same function as 8 bit-plane int8 products
-    bits = unpack_words_t(words_t).to(torch.int8)
-    planes = [((table >> p) & 1).to(torch.int8) for p in range(8)]
-    library_ms, acc = cuda_ms(lambda: [torch._int_mm(bits, pl) for pl in planes], 1)
-    lib_out = sum(((a & 1) << p) for p, a in enumerate(acc)).to(torch.uint8)
-    e_lib = err(lib_out, scan_out)
-    del bits, planes, acc, lib_out
-    log(f"phase 5: packed scan ({q} queries x {rows} rows x {width} B): kernel {scan_ms:.4f} ms, "
-        f"plain {scan_plain_ms:.4f} ms, torch._int_mm x8 {library_ms:.4f} ms, "
-        f"bounds {scan_bound}, max_abs_err {e_scan} (library {e_lib})")
-    if e_tail or e_scan or e_lib:
-        fail("a kernel disagrees at the main path's shapes")
+    def time_scan(tbl, wt, label):
+        q = wt.shape[1]
+        ms, out = cuda_ms(lambda: packed_scan(tbl, wt), 3)
+        plain_ms, plain = cuda_ms(lambda: packed_scan_plain(tbl, wt), 1, warm=False)
+        e = err(out, plain)
+        del plain
+        rows, width = tbl.shape
+        nbytes = tbl.numel() + wt.numel() * 4 + q * width
+        bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "operations": 8 * 2 * q * rows * width / INT8_TENSOR_OPS_PER_S * 1e3}
+        # yardstick: the same function as 8 bit-plane int8 products
+        bits = unpack_words_t(wt).to(torch.int8)
+        planes = [((tbl >> p) & 1).to(torch.int8) for p in range(8)]
+        lib_ms, acc = cuda_ms(lambda: [torch._int_mm(bits, pl) for pl in planes], 1)
+        lib_out = sum(((a & 1) << p) for p, a in enumerate(acc)).to(torch.uint8)
+        e_lib = err(lib_out, out)
+        del bits, planes, acc, lib_out
+        log(f"phase 5: packed scan, {label} ({q} queries x {rows} rows x {width} B): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm x8 {lib_ms:.4f} ms, "
+            f"bounds {bound}, max_abs_err {e} (library {e_lib})")
+        if e or e_lib:
+            fail(f"the packed scan disagrees at the {label} shape")
+        return ms, plain_ms, bound, lib_ms, e
+
+    scan_ms, scan_plain_ms, scan_bound, library_ms, e_scan = time_scan(table, words_t, "fast path")
+    if e_tail:
+        fail("the stacked tail disagrees at the main path's shapes")
+    del ops, packed, words_t, tail_out
+    cscan = time_scan(table_c, cwords_t, "compat path")
+
+    # compat stage: each stage over one 1024-query share batch in slices of
+    # q_chunk, as the server runs it; kernel and plain version on one such
+    # slice (the shape of every stage launch of the main path)
+    cops = compat_head(cpay_t, clayout, cw_w)
+    slices = [tuple(x[q0:q0 + c_qc] for x in cops) for q0 in range(0, COMPAT_BATCH, c_qc)]
+    state = [(sl[0], sl[1]) for sl in slices]
+    check = compat_ops([p[0] for p in cpairs[:c_qc]])
+    check_state = (check[0], check[1])
+    stage_ms, stage_plain_ms, stage_slice_ms = [], [], []
+    work = {"batch": [0, 0], "slice": [0, 0]}  # AES blocks, bytes
+
+    def count(key, q, ins, out):
+        nc_in, w_in = ins[0].shape[2], ins[0].shape[4]
+        work[key][0] += q * nc_in * w_in * 32 * ((1 << tl) - 1) * 3
+        work[key][1] += sum(x.numel() * 4 for x in ins)
+        work[key][1] += sum(x.numel() * 4 for x in (out if isinstance(out, tuple) else (out,)))
+
+    off = 0
+    for si, tl in enumerate(tails):
+        last = si == len(tails) - 1
+
+        def run(sl_list, st_list):
+            return [compat_stage(*stage_args(sl, s_, t_, off, tl), tail=tl, emit_bits=last)
+                    for sl, (s_, t_) in zip(sl_list, st_list)]
+
+        ms, outs = cuda_ms(lambda: run(slices, state), 3)
+        stage_ms.append(ms)
+        c_args = stage_args(check, *check_state, off, tl)
+        ms, (got,) = cuda_ms(lambda: run([check], [check_state]), 3)
+        stage_slice_ms.append(ms)
+        ms, plain = cuda_ms(lambda: compat_stage_plain(*c_args, tail=tl, emit_bits=last), 1,
+                            warm=False)
+        stage_plain_ms.append(ms)
+        e_compat.append(err(got, plain) if last else
+                        max(err(got[0], plain[0]), err(got[1], plain[1])))
+        for sl, (s_, t_), o in zip(slices, state, outs):
+            count("batch", sl[0].shape[0], stage_args(sl, s_, t_, off, tl), o)
+        count("slice", c_qc, c_args, got)
+        if not last:
+            state, check_state = outs, got
+        off += tl
+        del outs, plain, got
+
+    def bound_of(key):
+        blocks, nbytes = work[key]
+        return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                "operations": blocks * AES_BLOCK_OPS / INT32_OPS_PER_S * 1e3}
+
+    compat_ms, compat_slice_ms = sum(stage_ms), sum(stage_slice_ms)
+    compat_plain_ms = sum(stage_plain_ms)
+    compat_bound, compat_slice_bound = bound_of("batch"), bound_of("slice")
+    compat_launches_per_batch = len(tails) * -(-COMPAT_BATCH // c_qc)
+    log(f"phase 5: compat stage per {COMPAT_BATCH}-query share batch ({work['batch'][0]} AES "
+        f"blocks, {compat_launches_per_batch} launches): kernel {compat_ms:.4f} ms "
+        f"(stages {[round(x, 4) for x in stage_ms]}), bounds {compat_bound}")
+    log(f"phase 5: compat stage per {c_qc}-query slice ({work['slice'][0]} AES blocks, "
+        f"{len(tails)} launches): kernel {compat_slice_ms:.4f} ms "
+        f"(stages {[round(x, 4) for x in stage_slice_ms]}), plain {compat_plain_ms:.4f} ms "
+        f"(stages {[round(x, 4) for x in stage_plain_ms]}), bounds {compat_slice_bound}; "
+        f"max_abs_err {max(e_compat)}")
+    if any(e_compat):
+        fail("the compat stage kernel disagrees at the timing shapes")
+    launches = {name: fast_launches[name] + compat_launches[name] for name in fast_launches}
 
     def entry(name, source, replaces, ms, plain_ms, bound, library_ms, e):
         by = max(bound, key=bound.get)
@@ -311,11 +524,23 @@ def main() -> int:
               max(e_tail, e_tail_shared, e_tail_distinct)),
         entry("packed_scan", "pir_tpu_torch/csrc/packed_scan.cu",
               "pir_tpu/ops/pallas_scan.py:127", scan_ms, scan_plain_ms, scan_bound, library_ms,
-              max(e_scan, e_scan_slice)),
+              max(e_scan, e_scan_slice, cscan[4])),
+        # all stages of one stage launch's q_chunk-query slice (the batch's
+        # time is in the log and in --out)
+        entry("compat_stage", "pir_tpu_torch/csrc/compat_stage.cu",
+              "pir_tpu/ops/pallas_expand.py:361", compat_slice_ms, compat_plain_ms,
+              compat_slice_bound, None, max(e_compat)),
     ]}
     if args.out:
         summary = dict(kernels, card=smi, per_share_batch_s=per_batch,
-                       split_s=split,
+                       split_s=split, fast_launches=fast_launches,
+                       compat_launches=compat_launches,
+                       compat_per_share_batch_s=per_compat_batch, compat_split_s=split_c,
+                       compat_stage_ms=stage_ms, compat_stage_batch_bound_ms=compat_bound,
+                       compat_stage_slice_ms=stage_slice_ms,
+                       compat_stage_plain_ms=stage_plain_ms,
+                       compat_scan={"ms": cscan[0], "plain_ms": cscan[1], "bound_ms": cscan[2],
+                                    "library_ms": cscan[3]},
                        elapsed_s=time.perf_counter() - T0)
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)

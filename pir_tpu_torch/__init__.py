@@ -1,10 +1,11 @@
 """pir_tpu_torch — the PyTorch / CUDA port of pir_tpu for one NVIDIA H100.
 
-This slice serves fast-mode 2-server PIR index batches: client keygen
-and share construction on the host (numpy), and on the device the root
-head walk (plain torch), the stacked tail kernel and the packed scan
-kernel (hand-written CUDA, ``csrc/``). Nothing of JAX or of pir_tpu is
-imported; each module names its pir_tpu counterpart.
+It serves 2-server PIR index batches of both key styles: client keygen
+and share construction on the host (numpy); on the device the root head
+walk (plain torch), then for fast keys the stacked tail kernel and for
+reference-exact (compat) keys the compat-stage kernel, and the packed
+scan kernel (hand-written CUDA, ``csrc/``). Nothing of JAX or of pir_tpu
+is imported; each module names its pir_tpu counterpart.
 """
 
 from .database import Database, DBMetadata, generate_random_db
@@ -12,6 +13,7 @@ from .query import (
     QueryShare,
     SecretSharedQueryResult,
     new_fast_index_query_shares,
+    new_index_query_shares,
     new_index_query_shares_batch,
     recover,
 )
@@ -27,6 +29,7 @@ __all__ = [
     "TorchPirServer",
     "generate_random_db",
     "new_fast_index_query_shares",
+    "new_index_query_shares",
     "new_index_query_shares_batch",
     "recover",
 ]

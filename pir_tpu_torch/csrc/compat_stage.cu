@@ -1,0 +1,142 @@
+// One stage of the reference-exact (compat) DPF expansion cascade: every
+// (query, chunk, lane word, bit position) node walks `tail` tree levels
+// below it; the last stage turns each leaf into its PIR selection bit.
+//
+// Replaces the TPU kernel pir_tpu/ops/pallas_expand.py:
+// compat_stage_pallas (_compat_stage_kernel, _varint_parity_packed).
+// Same operands and the same outputs: with emit_bits off, the 2^tail
+// children's seeds (Q,8,NC<<tail,16,W) and t bits (Q,NC<<tail,1,W) as
+// bit planes, output chunk = input chunk * 2^tail + the stage's branch
+// bits, first level most significant; with emit_bits on, packed
+// selection words (Q,NC<<tail,1,W), bit = ~((parity & ~allcont) ^
+// (t & fcw)), the Go-varint parity under db.go:142's inverted convention.
+//
+// What bounds it on an H100: AES. A node costs three AES-128 blocks
+// (the MMO PRG under the query's three tree keys) and there is no AES
+// unit, so at the serving shape (2^20 leaves, stages of 3, 3, 2 levels)
+// a query's ~1.04e6 node expansions, ~3.1e6 blocks at ~440 int32
+// operations each (PERF.md), outweigh its bytes: the stage-2 seed planes
+// (4 MiB a query) move in ~1.3 us at 3.35 TB/s against ~80 us of
+// operations at 16.75 Tops/s.
+//
+// Design: one thread per node. It un-bitslices its 128-bit seed from the
+// input planes, expands its whole 2^tail-leaf subtree in local memory
+// (the minimum 2^tail - 1 expansions, no ancestor recomputed; the loops
+// are not unrolled, so each kernel holds one copy of the PRG and nvcc
+// builds it in seconds), and re-
+// bitslices with __ballot_sync: a warp's 32 threads are the 32 bit
+// positions of one lane word, so a ballot per (bit, byte) plane is one
+// output word. AES is byte-oriented with a T-table and S-box in shared
+// memory; each block rebuilds its query's three tree keys, correction
+// words and t bits from the mask operands into shared memory once.
+// Seed outputs are staged in shared memory and written as 32-byte runs.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "compat_stage.cuh"
+
+namespace {
+
+using pir_compat::CompatArgs;
+using pir_compat::QueryConsts;
+using pir_tail::AesTables;
+
+constexpr int kLanesPerBlock = 8;  // lane words per block, one warp each
+constexpr int kThreads = 32 * kLanesPerBlock;
+
+template <bool EMIT>
+__global__ void __launch_bounds__(kThreads)
+compat_stage_kernel(CompatArgs a, uint32_t* __restrict__ out_s, uint32_t* __restrict__ out_t) {
+  __shared__ AesTables tables;
+  __shared__ QueryConsts consts;
+  __shared__ uint32_t stage[kLanesPerBlock][128];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int w0 = blockIdx.x * kLanesPerBlock;
+  const int chunk = blockIdx.y;
+  const int q = blockIdx.z;
+  // warps past the last lane word compute a copy of it and store nothing
+  const int w = min(w0 + warp, a.w - 1);
+  const bool store = w0 + warp < a.w;
+
+  for (int i = tid; i < 256; i += kThreads) pir_tail::fill_tables(tables, i);
+  for (int i = tid; i < pir_compat::kQueryItems; i += kThreads)
+    pir_compat::fill_query(consts, a, q, i);
+  __syncthreads();
+
+  uint32_t s[pir_compat::kMaxLeaves][4], t[pir_compat::kMaxLeaves];
+  pir_compat::expand_subtree(a, tables, consts, q, chunk, w, lane, s, t);
+
+  const size_t sw = (size_t)a.w;
+  const size_t nco = (size_t)a.nc << a.tail;
+#pragma unroll 1
+  for (int c = 0; c < (1 << a.tail); ++c) {
+    const size_t oc = ((size_t)chunk << a.tail) + c;
+    if constexpr (EMIT) {
+      const uint32_t word =
+          __ballot_sync(0xFFFFFFFFu, pir_compat::select_bit(s[c], t[c], consts.fcw));
+      if (lane == 0 && store) out_s[((size_t)q * nco + oc) * sw + w] = word;
+    } else {
+      const uint32_t tword = __ballot_sync(0xFFFFFFFFu, t[c]);
+      if (lane == 0 && store) out_t[((size_t)q * nco + oc) * sw + w] = tword;
+      // re-bitslice: word (bit k, byte i) gets bit j from thread j
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const uint32_t word =
+              __ballot_sync(0xFFFFFFFFu, (s[c][i >> 2] >> (8 * (i & 3) + k)) & 1u);
+          if (lane == ((k * 16 + i) & 31)) stage[warp][k * 16 + i] = word;
+        }
+      }
+      __syncthreads();
+      for (int idx = tid; idx < 128 * kLanesPerBlock; idx += kThreads) {
+        const int row = idx / kLanesPerBlock;  // bit * 16 + byte
+        const int li = idx % kLanesPerBlock;
+        if (w0 + li < a.w) {
+          out_s[(((size_t)q * 8 + (row >> 4)) * nco + oc) * 16 * sw + (size_t)(row & 15) * sw +
+                w0 + li] = stage[li][row];
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+}  // namespace
+
+// Pointers are device addresses of contiguous uint32 (int32) tensors with
+// the shapes of CompatArgs; fcw may be null when emit_bits is 0. out_s
+// receives the seeds (Q,8,NC<<tail,16,W), or the packed selection words
+// (Q,NC<<tail,1,W) when emit_bits is 1; out_t the t bits (Q,NC<<tail,1,W)
+// (unused when emit_bits is 1). tail is 1..3.
+// Returns cudaGetLastError() after the launch.
+extern "C" int pir_compat_stage(const void* seeds, const void* t, const void* cw_s,
+                                const void* cw_tl, const void* cw_tr, const void* rk,
+                                const void* fcw, void* out_s, void* out_t, int q_n, int nc,
+                                int w, int tail, int emit_bits, void* stream) {
+  CompatArgs a;
+  a.seeds = static_cast<const uint32_t*>(seeds);
+  a.t = static_cast<const uint32_t*>(t);
+  a.cw_s = static_cast<const uint32_t*>(cw_s);
+  a.cw_tl = static_cast<const uint32_t*>(cw_tl);
+  a.cw_tr = static_cast<const uint32_t*>(cw_tr);
+  a.rk = static_cast<const uint32_t*>(rk);
+  a.fcw = static_cast<const uint32_t*>(fcw);
+  a.nc = nc;
+  a.w = w;
+  a.tail = tail;
+  if (tail < 1 || tail > pir_compat::kMaxTail) return static_cast<int>(cudaErrorInvalidValue);
+  uint32_t* os = static_cast<uint32_t*>(out_s);
+  uint32_t* ot = static_cast<uint32_t*>(out_t);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((w + kLanesPerBlock - 1) / kLanesPerBlock, nc, q_n);
+  if (emit_bits)
+    compat_stage_kernel<true><<<grid, kThreads, 0, st>>>(a, os, ot);
+  else
+    compat_stage_kernel<false><<<grid, kThreads, 0, st>>>(a, os, ot);
+  return static_cast<int>(cudaGetLastError());
+}

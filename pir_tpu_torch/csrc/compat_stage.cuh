@@ -1,0 +1,128 @@
+// Per-thread pieces of the compat-stage kernel (compat_stage.cu): the
+// per-query constants a block rebuilds into shared memory, the walk of
+// one node's whole subtree below it, and the Go-varint selection bit.
+// Kept apart from the kernel so that a host compiler can exercise the
+// same functions (compat_stage_host.cpp). AES, the PRG and the DPF child
+// step come from stacked_tail.cuh.
+
+#pragma once
+
+#include <cstdint>
+
+#include "stacked_tail.cuh"
+
+namespace pir_compat {
+
+using pir_tail::AesTables;
+
+constexpr int kMaxTail = 3;  // levels per stage
+constexpr int kMaxLeaves = 1 << kMaxTail;
+constexpr int kKeyBytes = 11 * 16;
+constexpr int kTreeKeys = 3;
+
+// Operands of one launch, laid out as the TPU kernel's (uint32 words):
+// seeds (Q,8,NC,16,W), t (Q,NC,1,W), cw_s (Q,tail,8,16,1),
+// cw_tl / cw_tr (Q,tail), rk (Q,11,8,3,16,1), fcw (Q,) (emit_bits only).
+struct CompatArgs {
+  const uint32_t* seeds;
+  const uint32_t* t;
+  const uint32_t* cw_s;
+  const uint32_t* cw_tl;
+  const uint32_t* cw_tr;
+  const uint32_t* rk;
+  const uint32_t* fcw;
+  int nc;
+  int w;
+  int tail;
+};
+
+// One query's constants: its three tree keys (44 words each), each
+// level's seed correction word as a block and its tL / tR bits, and the
+// final-CW parity bit.
+struct QueryConsts {
+  uint32_t keys[kTreeKeys][44];
+  uint32_t cw[kMaxTail][4];
+  uint32_t tcw[kMaxTail][2];
+  uint32_t fcw;
+};
+
+constexpr int kQueryItems = kTreeKeys * kKeyBytes + kMaxTail * 16 + kMaxTail * 2 + 1;
+
+// Item idx of query q's constants, idx < kQueryItems: a round-key byte,
+// a correction-word byte, a tL / tR bit or the fcw bit. Every mask
+// operand is 0 / ~0; its bit 0 is read.
+__device__ __forceinline__ void fill_query(QueryConsts& k, const CompatArgs& a, int q, int idx) {
+  if (idx < kTreeKeys * kKeyBytes) {
+    const int key = idx / kKeyBytes, rb = idx % kKeyBytes;
+    reinterpret_cast<uint8_t*>(k.keys[key])[rb] = static_cast<uint8_t>(pir_tail::key_byte(
+        a.rk + (size_t)q * 11 * 8 * 3 * 16, a.rk, 1, 0, 0, key, rb));
+    return;
+  }
+  idx -= kTreeKeys * kKeyBytes;
+  if (idx < kMaxTail * 16) {
+    const int l = idx / 16, byte = idx % 16;
+    if (l < a.tail) {
+      uint32_t v = 0;
+      for (int bit = 0; bit < 8; ++bit)
+        v |= (a.cw_s[(((size_t)q * a.tail + l) * 8 + bit) * 16 + byte] & 1u) << bit;
+      reinterpret_cast<uint8_t*>(k.cw[l])[byte] = static_cast<uint8_t>(v);
+    }
+    return;
+  }
+  idx -= kMaxTail * 16;
+  if (idx < kMaxTail * 2) {
+    const int l = idx / 2, side = idx % 2;
+    if (l < a.tail) k.tcw[l][side] = (side ? a.cw_tr : a.cw_tl)[(size_t)q * a.tail + l] & 1u;
+    return;
+  }
+  k.fcw = a.fcw ? a.fcw[q] & 1u : 0u;
+}
+
+// The 2^tail descendants, a.tail levels down, of node (query q, chunk,
+// lane word w, bit position lane): seeds in s and t bits in t, leaf c at
+// index c (the first level's branch is its most significant bit, as the
+// stage's output chunk order wants). The subtree is expanded level by
+// level in place, 2^tail - 1 node expansions of three AES blocks each.
+// Neither loop is unrolled, so a kernel holds one copy of the PRG (three
+// AES bodies) whatever the tail; s and t then live in local memory,
+// whose ~60 bytes a node moves are nothing beside its ~1300 AES operations.
+__device__ __forceinline__ void expand_subtree(const CompatArgs& a, const AesTables& tb,
+                                               const QueryConsts& k, int q, int chunk, int w,
+                                               int lane, uint32_t s[kMaxLeaves][4],
+                                               uint32_t t[kMaxLeaves]) {
+  const size_t sw = (size_t)a.w;
+  pir_tail::gather_block(a.seeds + ((size_t)q * 8 * a.nc + chunk) * 16 * sw + w,
+                         (size_t)a.nc * 16 * sw, sw, lane, s[0]);
+  t[0] = (a.t[((size_t)q * a.nc + chunk) * sw + w] >> lane) & 1u;
+#pragma unroll 1
+  for (int l = 0; l < a.tail; ++l) {
+    // node n's children go to 2n and 2n + 1, so walking n downwards
+    // never overwrites a node not yet expanded
+#pragma unroll 1
+    for (int n = (1 << l) - 1; n >= 0; --n) {
+      uint32_t sl[4], tl, sr[4], tr;
+      pir_tail::prg_children(tb, &k.keys[0][0], s[n], true, true, sl, &tl, sr, &tr);
+      pir_tail::correct_child(sl, &tl, k.cw[l], t[n], k.tcw[l][0]);
+      pir_tail::correct_child(sr, &tr, k.cw[l], t[n], k.tcw[l][1]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[2 * n][i] = sl[i];
+        s[2 * n + 1][i] = sr[i];
+      }
+      t[2 * n] = tl;
+      t[2 * n + 1] = tr;
+    }
+  }
+}
+
+// The PIR selection bit of a leaf: its value is the Go signed varint of
+// seed bytes 0..7 plus t * final_cw, and the bit is (value % 2 == 0)
+// (db.go:140-146). The varint's parity is byte 0's bit 0 ^ bit 1, unless
+// all 8 bytes carry the continuation bit (value 0, parity 0).
+__device__ __forceinline__ uint32_t select_bit(const uint32_t s[4], uint32_t t, uint32_t fcw) {
+  const uint32_t parity = (s[0] ^ (s[0] >> 1)) & 1u;
+  const uint32_t allcont = (s[0] & s[1] & 0x80808080u) == 0x80808080u;
+  return ((parity & (allcont ^ 1u)) ^ (t & fcw)) ^ 1u;
+}
+
+}  // namespace pir_compat

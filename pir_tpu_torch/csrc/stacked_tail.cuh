@@ -1,7 +1,8 @@
 // Per-thread pieces of the stacked tail kernel (stacked_tail.cu): byte-
-// oriented AES-128 with a T-table, the fixed-key MMO PRG, and the walk of
-// one thread's path down the DPF tail. Kept apart from the kernel so
-// that a host compiler can exercise the same functions.
+// oriented AES-128 with a T-table, the fixed-key MMO PRG, the DPF child
+// step (also used by compat_stage.cuh), and the walk of one thread's path
+// down the DPF tail. Kept apart from the kernel so that a host compiler
+// can exercise the same functions.
 //
 // Block convention: a 16-byte AES block is 4 little-endian 32-bit words,
 // word c = bytes 4c..4c+3 = state column c (byte i is row i % 4, column
@@ -106,6 +107,43 @@ __device__ __forceinline__ void gather_block(const uint32_t* __restrict__ p,
       blk[i >> 2] |= ((p[k * bit_stride + i * byte_stride] >> lane) & 1u) << (8 * (i & 3) + k);
 }
 
+// The PRG children of seed st, before the DPF correction
+// (dpf/client.go:99-116): left sL = block 0 and tL = block 1 byte 0 bit 0;
+// right sR = block 1 bytes 1..15 ++ block 2 byte 0 and tR = block 2
+// byte 1 bit 0. Block 1 serves both, so one child costs two AES blocks
+// and both cost three. keys = the three tree keys, 44 words each.
+__device__ __forceinline__ void prg_children(const AesTables& tb, const uint32_t* keys,
+                                             const uint32_t st[4], bool want_left,
+                                             bool want_right, uint32_t sl[4], uint32_t* tl,
+                                             uint32_t sr[4], uint32_t* tr) {
+  uint32_t b1[4];
+  mmo(tb, keys + 44, st, b1);
+  if (want_left) {
+    mmo(tb, keys, st, sl);
+    *tl = b1[0] & 1u;
+  }
+  if (want_right) {
+    uint32_t b2[4];
+    mmo(tb, keys + 88, st, b2);
+    sr[0] = __funnelshift_r(b1[0], b1[1], 8);
+    sr[1] = __funnelshift_r(b1[1], b1[2], 8);
+    sr[2] = __funnelshift_r(b1[2], b1[3], 8);
+    sr[3] = __funnelshift_r(b1[3], b2[0], 8);
+    *tr = (b2[0] >> 8) & 1u;
+  }
+}
+
+// The DPF correction of one child of a parent with t bit t_parent:
+// seed ^= cw & -t_parent, t ^= t_parent & tcw (tcw = the level's tL or
+// tR correction bit).
+__device__ __forceinline__ void correct_child(uint32_t s[4], uint32_t* t, const uint32_t cw[4],
+                                              uint32_t t_parent, uint32_t tcw) {
+  const uint32_t tmask = 0u - t_parent;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i] ^= cw[i] & tmask;
+  *t ^= t_parent & tcw;
+}
+
 // Operands of one launch, laid out as the TPU kernel's (uint32 words):
 // seeds (S,8,1,16,W), t (S,1,1,W), cw_s (S,tail,8,16,W),
 // cw_tl / cw_tr (S,tail,1,W), fcw (S,8,n_blk,16,W),
@@ -134,30 +172,16 @@ __device__ __forceinline__ void walk_tail(const TailArgs& a, const AesTables& tb
   uint32_t tb_ = (a.t[(size_t)s * sw + w] >> lane) & 1u;
   for (int l = 0; l < a.tail; ++l) {
     const int branch = (c >> (a.tail - 1 - l)) & 1;
-    uint32_t b1[4], child[4], tchild;
-    mmo(tb, keys + 44, st, b1);  // block 1
-    if (branch == 0) {
-      // sL = block 0, tL = block 1 byte 0
-      mmo(tb, keys, st, child);
-      tchild = b1[0] & 1u;
-    } else {
-      // sR = block 1 bytes 1..15 ++ block 2 byte 0, tR = block 2 byte 1
-      uint32_t b2[4];
-      mmo(tb, keys + 88, st, b2);
-      child[0] = __funnelshift_r(b1[0], b1[1], 8);
-      child[1] = __funnelshift_r(b1[1], b1[2], 8);
-      child[2] = __funnelshift_r(b1[2], b1[3], 8);
-      child[3] = __funnelshift_r(b1[3], b2[0], 8);
-      tchild = (b2[0] >> 8) & 1u;
-    }
+    uint32_t child[4], tchild = 0;
+    prg_children(tb, keys, st, branch == 0, branch == 1, child, &tchild, child, &tchild);
     const size_t lvl = (size_t)s * a.tail + l;
     uint32_t cw[4];
     gather_block(a.cw_s + lvl * 128 * sw + w, 16 * sw, sw, lane, cw);
-    const uint32_t tmask = 0u - tb_;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) st[i] = child[i] ^ (cw[i] & tmask);
     const uint32_t* tcw = branch ? a.cw_tr : a.cw_tl;
-    tb_ = tchild ^ (tb_ & ((tcw[lvl * sw + w] >> lane) & 1u));
+    correct_child(child, &tchild, cw, tb_, (tcw[lvl * sw + w] >> lane) & 1u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) st[i] = child[i];
+    tb_ = tchild;
   }
   *tbit = tb_;
 }

@@ -8,22 +8,9 @@
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -o libstacked_tail_host.so stacked_tail_host.cpp
 
-#include <cstdint>
 #include <cstring>
 
-#define __device__
-#define __forceinline__ inline
-#define __restrict__
-
-static inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, unsigned s) {
-  s &= 31;
-  return s ? (hi << s) | (lo >> (32 - s)) : hi;
-}
-static inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, unsigned s) {
-  s &= 31;
-  return s ? (lo >> s) | (hi << (32 - s)) : lo;
-}
-
+#include "host_shim.h"
 #include "stacked_tail.cuh"
 
 using namespace pir_tail;

@@ -1,5 +1,5 @@
-"""Fast root-start DPF expansion on the device (counterpart of the fast
-root-start subset of ``pir_tpu/dpf/device.py``).
+"""Root-start DPF expansion on the device (counterpart of the fast and
+compat root-start subsets of ``pir_tpu/dpf/device.py``).
 
 The host packs each query's key material into one row of 32-bit words
 (``make_fast_payload_batch``); the device unpacks it into plane masks and
@@ -10,12 +10,20 @@ whose output words are the scan's selection bits in a chunk-major
 storage order; ``_fast_leaf_perm_root_stacked`` scatters table rows into
 that same order.
 
+Reference-exact (compat) keys walk the whole tree: the host packs them
+with ``make_compat_payload_batch``, the device walks the head with
+``expand_planes_from_root`` (batched over a leading query axis), and the
+compat-stage cascade (``ops/compat_stage.py``) walks the rest in stages
+planned by ``compat_stage_plan``; ``_compat_perm`` is the matching
+storage order of the table rows.
+
 Device tensors hold the bit pattern of the JAX package's uint32 words as
 ``torch.int32``.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,7 +40,8 @@ _FULL = np.uint32(0xFFFFFFFF)
 # --------------------------------------------------------------------------
 
 def _prf_triple(seeds: torch.Tensor, rk_masks: torch.Tensor) -> torch.Tensor:
-    """Bitsliced MMO PRG: seeds (8,16,NW) -> out (8,3,16,NW)."""
+    """Bitsliced MMO PRG: seeds (8,...,16,NW) -> out (8,3,...,16,NW);
+    rk_masks (11,8,3,...,16,1|NW) broadcast against the middle axes."""
     x = seeds[:, None]
     return aes_encrypt_planes(x, rk_masks) ^ x
 
@@ -40,16 +49,16 @@ def _prf_triple(seeds: torch.Tensor, rk_masks: torch.Tensor) -> torch.Tensor:
 def _children(out, t_plane, cw_seed_mask, cw_tl, cw_tr):
     """Split PRF output into corrected (sL, tL, sR, tR).
 
-    out: (8,3,16,NW); t_plane: (NW,) packed parent t bits;
-    cw_seed_mask: (8,16,NW|1) 0/-1 masks; cw_tl/cw_tr: 0/-1 masks.
-    Layout: sL = block0[0:16], tL = block1 byte0, sR = block1 bytes
-    1..15 ++ block2 byte0, tR = block2 byte1.
+    out: (8,3,...,16,NW); t_plane: (...,NW) packed parent t bits;
+    cw_seed_mask: (8,...,16,NW|1) 0/-1 masks; cw_tl/cw_tr: 0/-1 masks
+    broadcast against t_plane. Layout: sL = block0[0:16], tL = block1
+    byte0, sR = block1 bytes 1..15 ++ block2 byte0, tR = block2 byte1.
     """
     s_l = out[:, 0]
-    t_l = out[0, 1, 0]
-    s_r = torch.cat([out[:, 1, 1:16], out[:, 2, 0:1]], dim=1)
-    t_r = out[0, 2, 1]
-    corr = t_plane[None, None, :] & cw_seed_mask
+    t_l = out[0, 1, ..., 0, :]
+    s_r = torch.cat([out[:, 1, ..., 1:16, :], out[:, 2, ..., 0:1, :]], dim=-2)
+    t_r = out[0, 2, ..., 1, :]
+    corr = t_plane.unsqueeze(-2).unsqueeze(0) & cw_seed_mask
     return s_l ^ corr, t_l ^ (t_plane & cw_tl), s_r ^ corr, t_r ^ (t_plane & cw_tr)
 
 
@@ -374,3 +383,203 @@ def _fast_leaf_perm_root_stacked(depth: int, height: int, n_blk: int,
         rev |= ((top >> b) & 1) << (head - 1 - b)
     return (((bit_k << tail) * n_blk + c * n_blk + blk) * 16
             + byte_i) * (1 << head) + rev
+
+
+# --------------------------------------------------------------------------
+# Reference-exact (compat) root-start path
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class CompatRootLayout:
+    """Bit-packed root-start payload for reference-exact (compat) keys
+    (same packing as FastRootLayout).
+
+    ``skip``: leading tree levels whose RIGHT subtree covers no row. The
+    reference's ``num_bits = log2(h)+1`` rule (query.go:61) doubles the
+    domain for power-of-two heights, so the root's right half is dead;
+    the device walks `skip` levels keeping only the left child before
+    the root-start expansion of the remaining ``num_bits - skip`` levels.
+    """
+
+    num_bits: int
+    height: int
+    skip: int = 0
+
+    @property
+    def device_bits(self) -> int:
+        return self.num_bits - self.skip
+
+    @property
+    def sizes(self):
+        d = self.num_bits
+        # s_init, t_init, cw blocks, cw_tl bits, cw_tr bits, final-CW
+        # parity mask, tree round keys (3 x 11 x 16B)
+        return (4, 1, 4 * d, 1, 1, 1, 132)
+
+    @property
+    def total(self):
+        return sum(self.sizes)
+
+    @property
+    def flat_bits(self):
+        return 1 << self.device_bits
+
+
+def unpack_compat_root_payload(payloads: torch.Tensor, layout: CompatRootLayout):
+    """Payload rows (Q, total) -> seeds (Q,8,16,1) bit values, t (Q,1)
+    mask words, cw_s (Q,d,8,16,1), cw_tl / cw_tr (Q,d) and fcw (Q,) masks,
+    rk (Q,11,8,3,16,1) round-key masks."""
+    d = layout.num_bits
+    q_n = payloads.shape[0]
+    offs = np.cumsum((0,) + layout.sizes)
+    seg = [payloads[:, offs[i]:offs[i + 1]] for i in range(len(layout.sizes))]
+    seeds = _unpack_block_bits(seg[0])[..., None]
+    cw_s = _unpack_block_masks(seg[2].reshape(q_n, d, 4))[..., None]
+    cw_tl = _bit_masks(seg[3][:, 0], d).t()
+    cw_tr = _bit_masks(seg[4][:, 0], d).t()
+    rk_tree = _unpack_block_masks(seg[6].reshape(q_n, 3, 11, 4))  # (Q,3,11,8,16)
+    rk = rk_tree.permute(0, 2, 3, 1, 4)[..., None].contiguous()
+    return seeds, seg[1], cw_s, cw_tl, cw_tr, seg[5][:, 0], rk
+
+
+def compat_skip_levels(num_bits: int, height: int) -> int:
+    """Leading levels whose right subtree lies entirely outside [0, height):
+    non-zero exactly when height <= 2^(num_bits-1), i.e. for power-of-two
+    heights under the reference's log2(h)+1 domain rule (query.go:61)."""
+    skip = 0
+    while num_bits - skip > 1 and height <= (1 << (num_bits - skip - 1)):
+        skip += 1
+    return skip
+
+
+def compat_stage_plan(device_bits: int, w: int = 128,
+                      max_tail: int = 3) -> tuple[int, tuple[int, ...]]:
+    """Cascade plan: (split, tails). The head walks `split` = 5 + log2(w)
+    levels (ending at one chunk of `w` lane words); compat stage k then
+    walks tails[k] <= max_tail levels. Needs device_bits > split."""
+    split = 5 + int(np.log2(w))
+    if 1 << (split - 5) != w:
+        raise ValueError(f"lane width {w} is not a power of two")
+    rem = device_bits - split
+    if rem <= 0:
+        raise ValueError(f"{device_bits} device levels leave no stage after the "
+                         f"{split}-level head")
+    tails = []
+    while rem > 0:
+        t = min(max_tail, rem)
+        tails.append(t)
+        rem -= t
+    return split, tuple(tails)
+
+
+@functools.lru_cache(maxsize=64)
+def _compat_perm(device_bits: int, height: int, w: int,
+                 tails: tuple[int, ...]) -> np.ndarray:
+    """Natural row -> flat bit index for the compat stage cascade.
+
+    Replays the storage order of the stacked-chunk walk: in-word bits =
+    the first 5 levels (bit-reversed), lane word = head levels 6..split
+    (concat order, latest level most significant), chunk index = the
+    stages' branch bits appended MSB-first per stage.
+    """
+    split = 5 + int(np.log2(w))
+    r = np.arange(height, dtype=np.int64)
+    # rev bit (i-1) = branch at level i (MSB-first path bits of r)
+    rev = np.zeros_like(r)
+    for b in range(device_bits):
+        rev |= ((r >> b) & 1) << (device_bits - 1 - b)
+    bitpos = rev & 31
+    word = (rev >> 5) & (w - 1)
+    chunk = np.zeros_like(r)
+    lvl = split
+    for t in tails:
+        b_bits = np.zeros_like(r)
+        for jj in range(t):  # the stage's first level ends up most significant
+            b_bits = (b_bits << 1) | ((rev >> (lvl + jj)) & 1)
+        chunk = (chunk << t) | b_bits
+        lvl += t
+    if lvl != device_bits:
+        raise ValueError(f"stages {tails} after a {split}-level head do not "
+                         f"cover {device_bits} levels")
+    return (chunk * w + word) * 32 + bitpos
+
+
+def make_compat_payload_batch(
+    shares, height: int | None = None
+) -> tuple[np.ndarray, CompatRootLayout]:
+    """Vectorised bit-packed payload builder for compat shares:
+    (Q, layout.total) uint32. With `height`, dead leading levels are
+    marked for the device's left-child skip (CompatRootLayout.skip); the
+    payload itself is the same."""
+    q_n = len(shares)
+    k0 = shares[0].key_two_party
+    num_bits = len(k0.cw)
+    skip = compat_skip_levels(num_bits, height) if height else 0
+    layout = CompatRootLayout(num_bits, 0, skip)
+
+    payload = np.zeros((q_n, layout.total), dtype=np.uint32)
+    offs = np.cumsum((0,) + layout.sizes)
+    s_init = np.stack([np.frombuffer(s.key_two_party.s_init, np.uint8) for s in shares])
+    payload[:, offs[0]:offs[1]] = _u32_view(s_init)
+    payload[:, offs[1]] = np.array(
+        [_FULL if s.key_two_party.t_init else 0 for s in shares], np.uint32)
+    cw = np.stack([
+        np.frombuffer(b"".join(s.key_two_party.cw), np.uint8).reshape(num_bits, 18)
+        for s in shares
+    ])
+    payload[:, offs[2]:offs[3]] = _u32_view(
+        np.ascontiguousarray(cw[:, :, :16])).reshape(q_n, num_bits * 4)
+    lvl = np.arange(num_bits, dtype=np.uint32)
+    payload[:, offs[3]] = ((cw[:, :, 16] & 1).astype(np.uint32) << lvl).sum(
+        axis=1, dtype=np.uint32)
+    payload[:, offs[4]] = ((cw[:, :, 17] & 1).astype(np.uint32) << lvl).sum(
+        axis=1, dtype=np.uint32)
+    payload[:, offs[5]] = np.array(
+        [_FULL if (s.key_two_party.final_cw & 1) else 0 for s in shares], np.uint32)
+    all_keys = np.stack([
+        np.frombuffer(k.bytes, np.uint8) for s in shares for k in s.prf_keys[:3]
+    ])
+    rks = key_schedule_batch(all_keys).reshape(q_n, 3, 11, 16)
+    payload[:, offs[6]:offs[7]] = _u32_view(np.ascontiguousarray(rks)).reshape(q_n, 132)
+    return payload, layout
+
+
+# Root-start expansion with the queries on a leading axis. Levels 0..4
+# hold 2^i live nodes in the LOW BITS of one 32-bit word per plane; the
+# doubling step is s' = (sL & lo) | ((sR & lo) << 2^i), children landing
+# at +2^i within the word. From level 5 on the word axis doubles by
+# concatenation. Leaf storage position is then bit_reverse(leaf, depth).
+# Internally the planes are bit-first, (8, Q, 16, NW), so the shared
+# _prf_triple / _children broadcast over the query axis.
+
+def _rk_bit_first(rk: torch.Tensor) -> torch.Tensor:
+    """Per-query round-key masks (Q,11,8,3,16,1) -> (11,8,3,Q,16,1)."""
+    return rk.permute(1, 2, 3, 0, 4, 5)
+
+
+def _expand_root_level(seeds, t_plane, cw_seed_mask, cw_tl, cw_tr, rk_masks, i: int):
+    """One level for every query: seeds (8,Q,16,NW), t_plane (Q,NW),
+    cw_seed_mask (8,Q,16,1), cw_tl / cw_tr (Q,1), rk_masks (11,8,3,Q,16,1)."""
+    out = _prf_triple(seeds, rk_masks)
+    s_l, t_l, s_r, t_r = _children(out, t_plane, cw_seed_mask, cw_tl, cw_tr)
+    if i < 5:
+        lo = (1 << (1 << i)) - 1
+        shift = 1 << i
+        return (s_l & lo) | ((s_r & lo) << shift), (t_l & lo) | ((t_r & lo) << shift)
+    return torch.cat([s_l, s_r], dim=-1), torch.cat([t_l, t_r], dim=-1)
+
+
+def expand_planes_from_root(seeds, t_plane, cw_seed_masks, cw_tl, cw_tr, rk_masks,
+                            depth: int):
+    """Root-start expansion of `depth` levels for Q queries at once:
+    seeds (Q,8,16,1) with bit 0 = the root seed's bits, t_plane (Q,1),
+    cw_seed_masks (Q,>=depth,8,16,1), cw_tl / cw_tr (Q,>=depth),
+    rk_masks (Q,11,8,3,16,1) -> seeds (Q,8,16,NW), t (Q,NW) with
+    NW = 2^max(0, depth-5)."""
+    x = seeds.transpose(0, 1)
+    rk = _rk_bit_first(rk_masks)
+    for i in range(depth):
+        x, t_plane = _expand_root_level(
+            x, t_plane, cw_seed_masks[:, i].transpose(0, 1), cw_tl[:, i:i + 1],
+            cw_tr[:, i:i + 1], rk, i)
+    return x.transpose(0, 1), t_plane

@@ -1,11 +1,20 @@
-"""Host (client-side / golden) fast-mode two-party DPF (counterpart of the
-fast subset of ``pir_tpu/dpf/host.py``).
+"""Host (client-side / golden) two-party DPF (counterpart of the two-party
+subset of ``pir_tpu/dpf/host.py``).
 
-Fast mode is the early-termination DPF (BGI'16 §3.2.1): the tree stops
-``log2(leaf_bits)`` levels early and each leaf seed CTR-extends with the
-4th PRF key into ``leaf_bits`` selection bits, corrected by a
-``leaf_bits``-wide final correction word. ``bits0 ^ bits1`` is one-hot at
-the target row, so answers recover exactly.
+Two key styles:
+
+* reference-exact ("compat") keys, replicated bit for bit from the Go
+  package ``pir/dpf`` (BGI'16 two-party DPF, fixed-key MMO AES PRG):
+  ``generate_two_server[_batch]`` (dpf/client.go:56-150), the single
+  point ``evaluate_2p`` (dpf/server.go:55-101) and the breadth-first
+  ``eval_full_domain[_bits]``, the host golden model of the device path.
+  Each leaf's value is the Go signed varint of its seed's first 8 bytes;
+  the PIR selection bit is ``value % 2 == 0`` (db.go:140-146).
+* fast keys, the early-termination DPF (BGI'16 §3.2.1): the tree stops
+  ``log2(leaf_bits)`` levels early and each leaf seed CTR-extends with
+  the 4th PRF key into ``leaf_bits`` selection bits, corrected by a
+  ``leaf_bits``-wide final correction word. ``bits0 ^ bits1`` is one-hot
+  at the target row, so answers recover exactly.
 
 Keygen draws its randomness from ``rand_bytes`` (default ``os.urandom``);
 tests pass a seeded source to make a run repeatable.
@@ -19,6 +28,7 @@ from typing import Callable
 
 import numpy as np
 
+from ..utils.bits import GO_UINT_BITS, bitrev_permutation, get_bit, go_varint, go_varint_vec
 from .aes_host import BLOCK_SIZE, INIT_PRF_LEN, EcbCipher, prf_blocks
 
 RandBytes = Callable[[int], bytes]
@@ -38,6 +48,7 @@ class Dpf:
     num_bits: int
     prf_keys: list[PrfKey]
     ciphers: list[EcbCipher] = field(repr=False)
+    n: int = GO_UINT_BITS
 
 
 def client_initialize(num_bits: int, rand_bytes: RandBytes = os.urandom) -> Dpf:
@@ -63,6 +74,212 @@ def _prf1(dpf: Dpf, x: bytes, num_blocks: int = 3) -> bytes:
     out = prf_blocks(np.frombuffer(x, dtype=np.uint8)[None, :], dpf.ciphers, num_blocks)
     return out[0].tobytes()
 
+
+# --------------------------------------------------------------------------
+# Reference-exact (compat) keys
+# --------------------------------------------------------------------------
+
+@dataclass
+class Key2P:
+    """Two-party DPF key (dpf/common.go:29-35)."""
+
+    s_init: bytes  # 16 bytes
+    t_init: int  # 0/1
+    cw: list[bytes]  # num_bits entries of 18 bytes: 16B seed CW + tL + tR
+    final_cw: int
+
+
+def generate_two_server(dpf: Dpf, a: int, b: int,
+                        rand_bytes: RandBytes = os.urandom) -> list[Key2P]:
+    """BGI'16 two-party keygen for f(a)=b (dpf/client.go:56-150)."""
+    nb = dpf.num_bits
+    temp_rand = rand_bytes(BLOCK_SIZE + 1)
+    s_init0 = temp_rand[:BLOCK_SIZE]
+    t_init0 = temp_rand[BLOCK_SIZE] % 2
+    s_init1 = rand_bytes(BLOCK_SIZE)
+    t_init1 = t_init0 ^ 1
+
+    s_curr0 = bytearray(s_init0)
+    s_curr1 = bytearray(s_init1)
+    t_curr0, t_curr1 = t_init0, t_init1
+
+    cw = []
+    left, right = 0, BLOCK_SIZE + 1
+    for i in range(nb):
+        out0 = _prf1(dpf, bytes(s_curr0))
+        out1 = _prf1(dpf, bytes(s_curr1))
+        t0l = out0[BLOCK_SIZE] % 2
+        t0r = out0[BLOCK_SIZE * 2 + 1] % 2
+        t1l = out1[BLOCK_SIZE] % 2
+        t1r = out1[BLOCK_SIZE * 2 + 1] % 2
+        a_bit = get_bit(a, dpf.n - nb + i + 1, dpf.n)
+        keep, lose = (left, right) if a_bit == 0 else (right, left)
+
+        cw_i = bytearray(BLOCK_SIZE + 2)
+        for j in range(BLOCK_SIZE):
+            cw_i[j] = out0[lose + j] ^ out1[lose + j]
+        cw_i[BLOCK_SIZE] = t0l ^ t1l ^ a_bit ^ 1
+        cw_i[BLOCK_SIZE + 1] = t0r ^ t1r ^ a_bit
+        cw.append(bytes(cw_i))
+
+        for j in range(BLOCK_SIZE):
+            s_curr0[j] = out0[keep + j] ^ (t_curr0 * cw_i[j])
+            s_curr1[j] = out1[keep + j] ^ (t_curr1 * cw_i[j])
+        t_cw_keep = cw_i[BLOCK_SIZE] if keep == left else cw_i[BLOCK_SIZE + 1]
+        t_curr0 = (out0[keep + BLOCK_SIZE] % 2) ^ (t_cw_keep * t_curr0)
+        t_curr1 = (out1[keep + BLOCK_SIZE] % 2) ^ (t_cw_keep * t_curr1)
+
+    s_final0, _ = go_varint(bytes(s_curr0[:8]))
+    s_final1, _ = go_varint(bytes(s_curr1[:8]))
+    final_cw = b - s_final0 + s_final1
+    if t_curr1 == 1:
+        final_cw = -final_cw
+    return [
+        Key2P(s_init0, t_init0, list(cw), final_cw),
+        Key2P(s_init1, t_init1, list(cw), final_cw),
+    ]
+
+
+def generate_two_server_batch(dpf: Dpf, points: "list[int]", b: int,
+                              rand_bytes: RandBytes = os.urandom) -> "list[list[Key2P]]":
+    """Vectorised reference-semantics keygen: Q keys in one tree walk.
+
+    Per key the same semantics as generate_two_server (including the
+    signed-varint final CW); numpy replaces the per-byte loops. All Q
+    keys share the caller's ``dpf`` PRF keys: those are public (sent to
+    every server with the share), so security rests on the fresh
+    per-query seeds. Returns [ [key_server0, key_server1] per point ].
+    """
+    nb = dpf.num_bits
+    q = len(points)
+    pts = np.asarray(points, dtype=np.uint64)
+
+    rnd = np.frombuffer(rand_bytes(q * 33), np.uint8).reshape(q, 33)
+    s0 = rnd[:, :16].copy()
+    t0 = (rnd[:, 32] & 1).astype(np.uint8)
+    s1 = rnd[:, 16:32].copy()
+    t1 = t0 ^ 1
+
+    s_curr0, s_curr1 = s0.copy(), s1.copy()
+    t_curr0, t_curr1 = t0.copy(), t1.copy()
+    cw = np.zeros((q, nb, 18), np.uint8)
+    cols = np.arange(16)
+    for i in range(nb):
+        out0 = prf_blocks(s_curr0, dpf.ciphers, 3).reshape(q, 48)
+        out1 = prf_blocks(s_curr1, dpf.ciphers, 3).reshape(q, 48)
+        a_bit = ((pts >> np.uint64(nb - 1 - i)) & np.uint64(1)).astype(np.uint8)
+        # keep/lose offsets into the 48-byte PRG output: left child at
+        # byte 0, right at byte 17
+        keep = np.where(a_bit == 0, 0, 17).astype(np.int64)[:, None]
+        lose = 17 - keep
+        cw_seed = (np.take_along_axis(out0, lose + cols, 1)
+                   ^ np.take_along_axis(out1, lose + cols, 1))
+        cw_tl = (out0[:, 16] & 1) ^ (out1[:, 16] & 1) ^ a_bit ^ 1
+        cw_tr = (out0[:, 33] & 1) ^ (out1[:, 33] & 1) ^ a_bit
+        cw[:, i, :16] = cw_seed
+        cw[:, i, 16] = cw_tl
+        cw[:, i, 17] = cw_tr
+        s_curr0 = (np.take_along_axis(out0, keep + cols, 1)
+                   ^ (t_curr0[:, None] * cw_seed))
+        s_curr1 = (np.take_along_axis(out1, keep + cols, 1)
+                   ^ (t_curr1[:, None] * cw_seed))
+        t_cw_keep = np.where(a_bit == 0, cw_tl, cw_tr)
+        t_curr0 = ((np.take_along_axis(out0, keep + 16, 1)[:, 0] & 1)
+                   ^ (t_cw_keep * t_curr0))
+        t_curr1 = ((np.take_along_axis(out1, keep + 16, 1)[:, 0] & 1)
+                   ^ (t_cw_keep * t_curr1))
+
+    s_finals0 = go_varint_vec(s_curr0[:, :8]) if q else []
+    s_finals1 = go_varint_vec(s_curr1[:, :8]) if q else []
+    out = []
+    for j in range(q):
+        final_cw = b - int(s_finals0[j]) + int(s_finals1[j])
+        if t_curr1[j] == 1:
+            final_cw = -final_cw
+        cws = [cw[j, i].tobytes() for i in range(nb)]
+        out.append([
+            Key2P(s0[j].tobytes(), int(t0[j]), cws, final_cw),
+            Key2P(s1[j].tobytes(), int(t1[j]), cws, final_cw),
+        ])
+    return out
+
+
+def evaluate_2p(dpf: Dpf, server_num: int, key: Key2P, x: int) -> int:
+    """Single-point two-party eval (dpf/server.go:55-101)."""
+    nb = dpf.num_bits
+    s_curr = bytearray(key.s_init)
+    t_curr = key.t_init
+    for i in range(nb):
+        x_bit = 0 if i == dpf.n else get_bit(x, dpf.n - nb + i + 1, dpf.n)
+        out = bytearray(_prf1(dpf, bytes(s_curr)))
+        cw_i = key.cw[i]
+        # G(s) ^ (t * [sCW || tLCW || sCW || tRCW]) (dpf/server.go:70-85)
+        count = 0
+        for j in range(BLOCK_SIZE * 2 + 2):
+            if j == BLOCK_SIZE + 1:
+                count = 0
+            elif j == BLOCK_SIZE * 2 + 1:
+                count = BLOCK_SIZE + 1
+            out[j] ^= t_curr * cw_i[count]
+            count += 1
+        if x_bit == 0:
+            s_curr[:] = out[:BLOCK_SIZE]
+            t_curr = out[BLOCK_SIZE] % 2
+        else:
+            s_curr[:] = out[BLOCK_SIZE + 1:BLOCK_SIZE * 2 + 1]
+            t_curr = out[BLOCK_SIZE * 2 + 1] % 2
+    s_final, _ = go_varint(bytes(s_curr[:8]))
+    res = s_final + t_curr * key.final_cw
+    return res if server_num == 0 else -res
+
+
+def expand_seeds_one_level(dpf: Dpf, seeds: np.ndarray, t_bits: np.ndarray,
+                           cw_i: bytes) -> tuple[np.ndarray, np.ndarray]:
+    """One breadth-first level: (n,16)+(n,) -> (2n,16)+(2n,). Children are
+    stored [all left | all right], so the final leaves lie in the
+    bit-reversal of the natural domain order."""
+    flat = prf_blocks(seeds, dpf.ciphers, 3).reshape(seeds.shape[0], 48)
+    s_l = flat[:, 0:16].copy()
+    t_l = flat[:, 16] & 1
+    s_r = flat[:, 17:33].copy()
+    t_r = flat[:, 33] & 1
+
+    cw_seed = np.frombuffer(cw_i[:16], dtype=np.uint8)
+    t_mask = t_bits.astype(np.uint8)[:, None]
+    s_l ^= cw_seed[None, :] * t_mask
+    s_r ^= cw_seed[None, :] * t_mask
+    t_l = t_l ^ (t_bits & cw_i[16])
+    t_r = t_r ^ (t_bits & cw_i[17])
+    return (np.concatenate([s_l, s_r], axis=0),
+            np.concatenate([t_l, t_r], axis=0).astype(np.uint8))
+
+
+def eval_full_domain(dpf: Dpf, server_num: int, key: Key2P) -> np.ndarray:
+    """The key share's value on every point of the 2^num_bits domain:
+    int64, natural order, equal to ``evaluate_2p`` point by point, with
+    O(N) AES calls (db.go:128-171 re-walks the tree per row)."""
+    nb = dpf.num_bits
+    seeds = np.frombuffer(key.s_init, dtype=np.uint8)[None, :].copy()
+    t_bits = np.array([key.t_init], dtype=np.uint8)
+    for i in range(nb):
+        seeds, t_bits = expand_seeds_one_level(dpf, seeds, t_bits, key.cw[i])
+    res = go_varint_vec(seeds[:, :8]) + t_bits.astype(np.int64) * key.final_cw
+    if server_num != 0:
+        res = -res
+    return res[bitrev_permutation(nb)]
+
+
+def eval_full_domain_bits(dpf: Dpf, server_num: int, key: Key2P,
+                          height: int) -> np.ndarray:
+    """PIR selection bits for rows [0, height): bit = (value % 2 == 0),
+    the inverted parity convention of db.go:140-146."""
+    vals = eval_full_domain(dpf, server_num, key)
+    return ((vals & 1) == 0)[:height]
+
+
+# --------------------------------------------------------------------------
+# Fast keys
+# --------------------------------------------------------------------------
 
 LEAF_BITS = 128
 

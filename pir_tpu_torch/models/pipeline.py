@@ -1,10 +1,15 @@
-"""The stacked root-start fast answer pipeline (counterpart of
-``stacked_fast_geometry`` and ``fused_fast_root_batch_stacked_fn`` in
+"""The root-start batched answer pipelines (counterpart of
+``stacked_fast_geometry``, ``fused_fast_root_batch_stacked_fn``,
+``_compat_skip_walk`` and ``fused_compat_root_batch_pallas_fn`` in
 ``pir_tpu/models/pipeline.py``).
 
-One batch of fast-mode payloads against the chunk-major storage table:
-head walk (plain torch, ``dpf/device.py``) -> stacked tail kernel
-(``ops/expand.py``) -> packed scan kernel (``ops/packed_scan.py``).
+Fast keys, against the chunk-major storage table: head walk (plain
+torch, ``dpf/device.py``) -> stacked tail kernel (``ops/expand.py``) ->
+packed scan kernel (``ops/packed_scan.py``).
+
+Reference-exact (compat) keys, against the cascade's storage table:
+batched head walk (plain torch) -> compat-stage kernel once per stage
+(``ops/compat_stage.py``) -> the same packed scan kernel.
 """
 
 from __future__ import annotations
@@ -13,12 +18,19 @@ import numpy as np
 import torch
 
 from ..dpf.device import (
+    CompatRootLayout,
     FastRootLayout,
+    _children,
+    _prf_triple,
+    _rk_bit_first,
+    expand_planes_from_root,
     expand_root_head_grouped,
     regroup_rk_stacked,
+    unpack_compat_root_payload,
     unpack_fast_root_payload,
     unpack_fast_root_payload_lanes_rk,
 )
+from ..ops.compat_stage import compat_stage
 from ..ops.expand import fast_tail_expand_stacked
 from ..ops.packed_scan import packed_scan
 
@@ -91,6 +103,79 @@ def fused_fast_root_batch_stacked(table_u8: torch.Tensor, payloads: torch.Tensor
     packed = fast_tail_expand_stacked(*ops, tail=tail, n_blk=layout.leaf_blocks)
     words_t = stacked_words_t(packed, k, table_u8.shape[0])
     return packed_scan(table_u8, words_t)[:q]
+
+
+def _compat_skip_walk(seeds, t, cw_s, cw_tl, cw_tr, rk, skip: int):
+    """Walk `skip` dead leading levels keeping only the left child, for
+    Q queries: seeds (Q,8,16,1), t (Q,1), cw_s (Q,d,8,16,1), cw_tl /
+    cw_tr (Q,d), rk (Q,11,8,3,16,1).
+
+    The planes are root-shaped: lane bit 0 holds the seed, and the high
+    lane bits carry garbage that the first in-word packing level of
+    expand_planes_from_root masks away (see CompatRootLayout)."""
+    x = seeds.transpose(0, 1)
+    rk_b = _rk_bit_first(rk)
+    for k in range(skip):
+        out = _prf_triple(x, rk_b)
+        x, t, _, _ = _children(out, t, cw_s[:, k].transpose(0, 1), cw_tl[:, k:k + 1],
+                               cw_tr[:, k:k + 1])
+    return x.transpose(0, 1), t
+
+
+def compat_head(payloads: torch.Tensor, layout: CompatRootLayout, w: int):
+    """Unpack, skip walk and root-start head of 5 + log2(w) levels for a
+    batch of compat payloads (Q, total) -> the first stage's operands and
+    the rest: seeds (Q,8,1,16,w), t (Q,1,1,w), then cw_s (Q,d',8,16,1),
+    cw_tl / cw_tr (Q,d') for the stage levels, rk (Q,11,8,3,16,1), fcw (Q,)."""
+    split = 5 + w.bit_length() - 1
+    sk = layout.skip
+    seeds, t, cw_s, cw_tl, cw_tr, fcw, rk = unpack_compat_root_payload(payloads, layout)
+    seeds, t = _compat_skip_walk(seeds, t, cw_s, cw_tl, cw_tr, rk, sk)
+    seeds, t = expand_planes_from_root(seeds, t, cw_s[:, sk:], cw_tl[:, sk:], cw_tr[:, sk:],
+                                       rk, split)
+    q = payloads.shape[0]
+    lv = sk + split
+    return (seeds.unsqueeze(2).contiguous(), t.reshape(q, 1, 1, w).contiguous(),
+            cw_s[:, lv:].contiguous(), cw_tl[:, lv:].contiguous(),
+            cw_tr[:, lv:].contiguous(), rk, fcw.contiguous())
+
+
+def compat_stages(seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, tails) -> torch.Tensor:
+    """The stage cascade for one slice of queries -> (Q, 2^device_bits / 32)
+    selection words; the last stage emits bits."""
+    off = 0
+    for si, tl in enumerate(tails):
+        last = si == len(tails) - 1
+        res = compat_stage(seeds, t, cw_s[:, off:off + tl].contiguous(),
+                           cw_tl[:, off:off + tl].contiguous(),
+                           cw_tr[:, off:off + tl].contiguous(), rk, fcw,
+                           tail=tl, emit_bits=last)
+        if not last:
+            seeds, t = res
+        off += tl
+    return res.reshape(res.shape[0], -1)
+
+
+def fused_compat_root_batch(table_u8: torch.Tensor, payloads: torch.Tensor,
+                            layout: CompatRootLayout, w: int, tails: tuple[int, ...],
+                            q_chunk: int) -> torch.Tensor:
+    """Root-start batched compat answers: table (flat_pad, B) uint8 in the
+    cascade's storage order (dpf.device._compat_perm for `w`, `tails`),
+    payloads (Q, total) int32 -> (Q, B) uint8 answer shares.
+
+    The head walks the whole batch at once (its launch count does not
+    grow with Q); the stage cascade runs in slices of at most `q_chunk`
+    queries, which bounds its seed planes (4 MiB a query after the
+    second stage on the 1 GiB table) and changes no output byte.
+    """
+    q = payloads.shape[0]
+    ops = compat_head(payloads, layout, w)
+    words = torch.cat([compat_stages(*(x[q0:q0 + q_chunk] for x in ops), tails)
+                       for q0 in range(0, q, q_chunk)])
+    rows = table_u8.shape[0]
+    if rows // 32 > words.shape[1]:  # zero bits for the XOR-neutral padded rows
+        words = torch.cat([words, words.new_zeros(q, rows // 32 - words.shape[1])], dim=1)
+    return packed_scan(table_u8, words.t().contiguous())
 
 
 def payload_tensor(payload: np.ndarray, device) -> torch.Tensor:

@@ -1,12 +1,17 @@
-"""``TorchPirServer``: the device-resident fast-mode 2-server PIR engine
-(counterpart of the stacked fast root-start path of
+"""``TorchPirServer``: the device-resident 2-server PIR engine
+(counterpart of the root-start batch paths of
 ``pir_tpu/server.py:TpuPirServer``).
 
-The table is uploaded once, in the chunk-major storage order of the
-stacked tail kernel; each batch of fast-mode index shares becomes one
-payload upload and one pass through ``models/pipeline.py``. Batch-shared
-and distinct PRF keys both go this way. A batch this engine cannot
-serve raises; there is no other path.
+Each batch of index shares becomes one payload upload and one pass
+through ``models/pipeline.py``, against a table uploaded once in the
+storage order of its path:
+
+* fast keys: the chunk-major order of the stacked tail kernel;
+  batch-shared and distinct PRF keys both go this way;
+* reference-exact (compat) keys: the order of the compat-stage cascade,
+  in slices of at most ``COMPAT_BATCH_CAP`` queries.
+
+A batch this engine cannot serve raises; there is no other path.
 """
 
 from __future__ import annotations
@@ -19,19 +24,39 @@ import torch
 from .database import Database
 from .dpf import host as dpf_host
 from .dpf.device import (
+    _compat_perm,
     _fast_leaf_perm_root_stacked,
+    compat_skip_levels,
+    compat_stage_plan,
+    make_compat_payload_batch,
     make_fast_payload_batch,
     scatter_rows_to_storage_order,
 )
 from .models.pipeline import (
+    fused_compat_root_batch,
     fused_fast_root_batch_stacked,
     payload_tensor,
     stacked_fast_geometry,
 )
+from .ops.compat_stage import MAX_TAIL
 from .ops.scan import pad_rows_u8
 from .query import QueryShare, SecretSharedQueryResult
 from .slot import Slot
 from .utils import pad_tile
+from .utils.bits import num_bits_for_height
+
+# The compat stage cascade (dpf.device.compat_stage_plan): at most this
+# many lane words per chunk (the head walks 5 + log2(w) levels, and w
+# shrinks until a stage is left), at most the kernel's MAX_TAIL levels
+# per stage, this many queries per stage launch and per dispatched
+# slice. The chunk bounds the stage buffers and changes no output byte:
+# 64 queries make a first-stage launch of 1024 blocks (~8 per SM of an
+# H100) and keep the second stage's seed planes at 256 MiB (4 MiB a
+# query on the 1 GiB table); see PERF.md.
+COMPAT_MAX_W = 128
+COMPAT_MAX_TAIL = MAX_TAIL
+COMPAT_Q_CHUNK = 64
+COMPAT_BATCH_CAP = 1024
 
 
 def validate_fast_key_geometry(key_fast, dim_height: int) -> None:
@@ -48,11 +73,15 @@ def validate_fast_key_geometry(key_fast, dim_height: int) -> None:
 
 
 class TorchPirServer:
-    """Device-resident PIR server answering fast-mode index batches.
+    """Device-resident PIR server answering 2-party index batches of fast
+    and of reference-exact (compat) keys.
 
     device: a CUDA device by default; pass ``device="cpu"`` to run the
     kernels' plain versions on the CPU. With no device given and no GPU
     present the constructor raises.
+
+    Compat batches run the stage cascade of ``dpf.device.compat_stage_plan``
+    at the geometry of ``_compat_geometry`` (see the COMPAT_* constants).
     """
 
     # batches below this pad up to it (one minimum batch shape)
@@ -98,6 +127,25 @@ class TorchPirServer:
                 self._tables[key] = table
         return table
 
+    def _compat_root_table_u8(self, group_size: int, device_bits: int, w: int,
+                              tails: tuple[int, ...]) -> torch.Tensor:
+        """Storage-ordered raw u8 table for the compat stage cascade: rows
+        scattered in the cascade's walk order, zero-padded to a multiple
+        of min(2048, 2^device_bits) rows."""
+        key = ("compat", group_size, device_bits, w, tails)
+        with self._lock:
+            table = self._tables.get(key)
+            if table is None:
+                h = self.db.db_size // group_size
+                row_bytes = group_size * self.db.slot_bytes
+                flat = 1 << device_bits
+                perm = _compat_perm(device_bits, h, w, tails)
+                rows = self.db.data[: h * group_size].reshape(h, row_bytes)
+                sc = scatter_rows_to_storage_order(rows, perm, flat)
+                table = torch.from_numpy(pad_rows_u8(sc, min(2048, flat))).to(self.device)
+                self._tables[key] = table
+        return table
+
     def _slice_batch_results(self, out: np.ndarray, group_size: int,
                              n: int) -> list[SecretSharedQueryResult]:
         sb = self.db.slot_bytes
@@ -134,25 +182,57 @@ class TorchPirServer:
                 return False
         return True
 
+    def _compat_device_bits(self, group_size: int) -> int:
+        h = self.db.db_size // group_size
+        nb = num_bits_for_height(h)
+        return nb - compat_skip_levels(nb, h)
+
+    def _compat_geometry(self, group_size: int) -> tuple[int, int, tuple[int, ...]]:
+        """(device_bits, lane words w, stage tails) of the compat cascade:
+        w is the largest power of two <= COMPAT_MAX_W whose 5 + log2(w)
+        head levels leave at least one stage (needs device_bits >= 6)."""
+        nbd = self._compat_device_bits(group_size)
+        w = min(COMPAT_MAX_W, 1 << max(0, nbd - 6))
+        return nbd, w, compat_stage_plan(nbd, w, COMPAT_MAX_TAIL)[1]
+
+    def _compat_applicable(self, queries: list[QueryShare]) -> bool:
+        """The compat stage cascade needs a batch of at least MIN_BATCH
+        and a head of >= 5 levels followed by a stage: device_bits >= 6."""
+        q0 = queries[0]
+        if q0.key_fast is not None or q0.is_keyword_based or len(queries) < self.MIN_BATCH:
+            return False
+        return self._compat_device_bits(q0.group_size) >= 6
+
     def _validate_batch(self, queries: list[QueryShare]) -> None:
         if not queries:
             raise ValueError("empty batch")
         q0 = queries[0]
         g = q0.group_size
-        if q0.key_fast is None or q0.is_keyword_based:
-            raise NotImplementedError("the port serves fast-mode index queries only")
-        validate_fast_key_geometry(q0.key_fast, self.db.db_size // g)
-        lb = q0.key_fast.leaf_bits
+        if q0.is_keyword_based or (q0.key_fast is None and q0.key_two_party is None):
+            raise NotImplementedError("the port serves 2-party index queries only")
+        fast = q0.key_fast is not None
+        if fast:
+            validate_fast_key_geometry(q0.key_fast, self.db.db_size // g)
+        lb = q0.key_fast.leaf_bits if fast else None
+        # a compat key's level count sizes its expansion (2^levels bits),
+        # so a crafted key must fail here instead of driving allocations
+        nb = None if fast else num_bits_for_height(self.db.db_size // g)
         for query in queries:
             if query.group_size != g or not query.is_two_party or query.is_keyword_based:
                 raise ValueError("batch requires uniform 2-party index queries")
-            if query.key_fast is None:
+            if (query.key_fast is not None) != fast:
                 raise ValueError("batch cannot mix fast and compat queries")
-            if query.key_fast.leaf_bits != lb:
+            if fast and query.key_fast.leaf_bits != lb:
                 raise ValueError("batch cannot mix fast-key leaf widths")
-        if not self._fast_root_applicable(queries):
+            if not fast and len(query.key_two_party.cw) != nb:
+                raise ValueError("compat key geometry does not match the database")
+        if fast and not self._fast_root_applicable(queries):
             raise NotImplementedError(
                 "fast keys of depth < 5 have no root-start device path in the port")
+        if not fast and not self._compat_applicable(queries):
+            raise ValueError(
+                f"compat batches below {self.MIN_BATCH} queries or of at most 5 device "
+                "levels take the preplane or per-query paths of pir_tpu, not yet ported")
 
     def _dispatch_fast_root(self, queries: list[QueryShare],
                             shared_rk: bool | None = None) -> torch.Tensor:
@@ -184,16 +264,34 @@ class TorchPirServer:
         table = self._root_table_u8(g, depth, n_blk)
         return fused_fast_root_batch_stacked(table, payload_tensor(pay, self.device), layout)
 
+    def _dispatch_compat(self, queries: list[QueryShare]) -> torch.Tensor:
+        """Dispatch a uniform compat batch through the stage cascade, in
+        slices of at most COMPAT_BATCH_CAP queries; returns the (Q,
+        row_bytes) uint8 device tensor (not yet fetched)."""
+        g = queries[0].group_size
+        h = self.db.db_size // g
+        nbd, w, tails = self._compat_geometry(g)
+        table = self._compat_root_table_u8(g, nbd, w, tails)
+        outs = []
+        for i in range(0, len(queries), COMPAT_BATCH_CAP):
+            pay, layout = make_compat_payload_batch(queries[i:i + COMPAT_BATCH_CAP], height=h)
+            outs.append(fused_compat_root_batch(table, payload_tensor(pay, self.device), layout,
+                                                w=w, tails=tails, q_chunk=COMPAT_Q_CHUNK))
+        return torch.cat(outs) if len(outs) > 1 else outs[0]
+
     def private_secret_shared_query_batch_async(self, queries: list[QueryShare]):
         """Dispatch a batch without waiting for the device; returns a
         zero-arg callable producing the results."""
         self._validate_batch(queries)
-        out_dev = self._dispatch_fast_root(queries)
         g, n = queries[0].group_size, len(queries)
+        if queries[0].key_fast is None:
+            out_dev = self._dispatch_compat(queries)
+        else:
+            out_dev = self._dispatch_fast_root(queries)
         return lambda: self._slice_batch_results(out_dev.cpu().numpy(), g, n)
 
     def private_secret_shared_query_batch(
         self, queries: list[QueryShare]
     ) -> list[SecretSharedQueryResult]:
-        """Answer a batch of same-shape fast-mode index queries."""
+        """Answer a batch of same-shape index queries."""
         return self.private_secret_shared_query_batch_async(queries)()

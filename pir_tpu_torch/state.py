@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from .database import Database
-from .dpf.host import FastKey2P, PrfKey
+from .dpf.host import FastKey2P, Key2P, PrfKey
 from .query import QueryShare
 
 
@@ -24,16 +24,32 @@ def database_from_numpy(data: np.ndarray, slot_bytes: int) -> Database:
     return Database(slot_bytes=slot_bytes, db_size=data.shape[0], data=data)
 
 
+def _prf_keys(prf_keys) -> list[PrfKey]:
+    return [k if isinstance(k, PrfKey) else PrfKey(bytes(k)) for k in prf_keys]
+
+
 def share_from_fields(*, prf_keys, s_init: bytes, t_init: int, cw, final_cw_block: bytes,
                       depth: int, height: int, share_number: int,
                       group_size: int) -> QueryShare:
     """A port QueryShare from the fields of a fast-mode share: prf_keys as
     16-byte strings (or PrfKey objects to share one list across a
     batch), the FastKey2P fields, the share number and group size."""
-    keys = [k if isinstance(k, PrfKey) else PrfKey(bytes(k)) for k in prf_keys]
+    keys = _prf_keys(prf_keys)
     key = FastKey2P(bytes(s_init), int(t_init), [bytes(c) for c in cw],
                     bytes(final_cw_block), int(depth), int(height))
     return QueryShare(key_two_party=None, key_multi_party=None, prf_keys=keys,
                       is_keyword_based=False, is_two_party=True,
                       share_number=int(share_number), group_size=int(group_size),
                       key_fast=key)
+
+
+def compat_share_from_fields(*, prf_keys, s_init: bytes, t_init: int, cw, final_cw: int,
+                             share_number: int, group_size: int) -> QueryShare:
+    """A port QueryShare from the fields of a reference-exact (compat)
+    share: prf_keys as in ``share_from_fields``, the Key2P fields (16-byte
+    s_init, t bit, one 18-byte correction word per level, the signed
+    final correction word), the share number and group size."""
+    key = Key2P(bytes(s_init), int(t_init), [bytes(c) for c in cw], int(final_cw))
+    return QueryShare(key_two_party=key, key_multi_party=None, prf_keys=_prf_keys(prf_keys),
+                      is_keyword_based=False, is_two_party=True,
+                      share_number=int(share_number), group_size=int(group_size))

@@ -1,0 +1,86 @@
+"""The compat-stage kernel's per-thread code, built for the host.
+
+csrc/compat_stage_host.cpp compiles the query constants, subtree walk
+and selection bit of csrc/compat_stage.cuh (with the AES and DPF child
+step of csrc/stacked_tail.cuh) with a host C++ compiler; its output
+must equal the plain torch version's (itself held against the TPU
+kernel in test_torch_compat.py) on real operands from the port's compat
+head, at every stage of the cascade, with and without emit_bits.
+"""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pir_tpu_torch import query as tq
+from pir_tpu_torch.database import DBMetadata
+from pir_tpu_torch.dpf.device import (
+    compat_skip_levels,
+    compat_stage_plan,
+    make_compat_payload_batch,
+)
+from pir_tpu_torch.models.pipeline import compat_head, payload_tensor
+from pir_tpu_torch.ops.compat_stage import compat_stage_plain
+from pir_tpu_torch.utils.bits import num_bits_for_height
+
+CSRC = Path(__file__).resolve().parent.parent / "pir_tpu_torch" / "csrc"
+
+
+@pytest.fixture(scope="module")
+def host_stage(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    lib = tmp_path_factory.mktemp("compat_host") / "libcompat_stage_host.so"
+    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(lib),
+                    str(CSRC / "compat_stage_host.cpp")], check=True, timeout=300)
+    fn = ctypes.CDLL(str(lib)).pir_compat_stage_host
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _host(fn, ops, tail, emit_bits):
+    seeds = ops[0]
+    q, _, nc, _, w = seeds.shape
+    words = torch.empty((q, nc << tail, 1, w), dtype=torch.int32)
+    out_s = words if emit_bits else torch.empty((q, 8, nc << tail, 16, w), dtype=torch.int32)
+    assert fn(*(x.data_ptr() for x in ops), out_s.data_ptr(), words.data_ptr(),
+              q, nc, w, tail, int(emit_bits)) == 0
+    return words if emit_bits else (out_s, words)
+
+
+@pytest.mark.parametrize("height,w,max_tail,tails", [
+    (1 << 14, 8, 3, (3, 3)),
+    (1 << 11, 8, 2, (2, 1)),
+    (1 << 15, 128, 3, (3,)),
+    (1 << 16, 128, 3, (3, 1)),
+])
+def test_host_build_matches_plain_stage(host_stage, height, w, max_tail, tails):
+    md = DBMetadata(8, height)
+    rng = np.random.default_rng(height + w)
+    # distinct PRF keys per query, so per-query key indexing is exercised
+    shares = [tq.new_index_query_shares(md, int(i), 1, rand_bytes=rng.bytes)[0]
+              for i in rng.integers(0, height, size=2)]
+    pay, layout = make_compat_payload_batch(shares, height=height)
+    nb = num_bits_for_height(height)
+    assert layout.device_bits == nb - compat_skip_levels(nb, height)
+    assert compat_stage_plan(layout.device_bits, w, max_tail)[1] == tails
+    seeds, t, cw_s, cw_tl, cw_tr, rk, fcw = compat_head(payload_tensor(pay, "cpu"), layout, w)
+    assert cw_s.shape[1] == sum(tails)
+    off = 0
+    for tl in tails:
+        ops = (seeds, t, cw_s[:, off:off + tl].contiguous(), cw_tl[:, off:off + tl].contiguous(),
+               cw_tr[:, off:off + tl].contiguous(), rk, fcw)
+        want_bits = compat_stage_plain(*ops, tail=tl, emit_bits=True)
+        assert torch.equal(_host(host_stage, ops, tl, True), want_bits)
+        want_s, want_t = compat_stage_plain(*ops, tail=tl, emit_bits=False)
+        got_s, got_t = _host(host_stage, ops, tl, False)
+        assert torch.equal(got_s, want_s) and torch.equal(got_t, want_t)
+        seeds, t = want_s, want_t
+        off += tl

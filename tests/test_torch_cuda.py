@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from pir_tpu_torch import query as tq
+from pir_tpu_torch import server as server_mod
 from pir_tpu_torch.database import generate_random_db
+from pir_tpu_torch.ops.compat_stage import compat_stage, compat_stage_plain
 from pir_tpu_torch.ops.expand import (
     fast_tail_expand_stacked,
     fast_tail_expand_stacked_plain,
@@ -75,6 +77,35 @@ def test_packed_scan_kernel_matches_plain(dev, h, b, q):
     assert torch.equal(got, packed_scan_plain(table, words))
 
 
+def _compat_operands(dev, seed, q, nc, w, tail):
+    """Random seed and t words; every other operand 0/~0 masks, the form
+    the payload unpack gives them (the kernel reads bit 0 of each)."""
+    rng = np.random.default_rng(seed)
+
+    def masks(*shape):
+        return rng.integers(0, 2, size=shape).astype(np.uint32) * FULL
+
+    ops = (_words(rng, q, 8, nc, 16, w), _words(rng, q, nc, 1, w), masks(q, tail, 8, 16, 1),
+           masks(q, tail), masks(q, tail), masks(q, 11, 8, 3, 16, 1), masks(q))
+    return [torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(dev) for x in ops]
+
+
+@pytest.mark.parametrize("q,nc,w,tail", [(3, 1, 128, 3), (2, 8, 128, 3), (3, 64, 128, 2),
+                                         (2, 3, 8, 1), (2, 2, 4, 2), (3, 2, 1, 3)])
+@pytest.mark.parametrize("emit_bits", [False, True])
+def test_compat_stage_kernel_matches_plain(dev, q, nc, w, tail, emit_bits):
+    ops = _compat_operands(dev, q * nc + w + tail, q, nc, w, tail)
+    before = compat_stage.launches
+    got = compat_stage(*ops, tail=tail, emit_bits=emit_bits)
+    torch.cuda.synchronize()
+    assert compat_stage.launches == before + 1
+    want = compat_stage_plain(*ops, tail=tail, emit_bits=emit_bits)
+    if emit_bits:
+        assert torch.equal(got, want)
+    else:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_wrappers_reject_strided_cuda_operands(dev):
     table = torch.zeros((64, 16), dtype=torch.uint8, device=dev)
     words = torch.zeros((4, 2), dtype=torch.int32, device=dev).t()  # (2, 4), strided
@@ -84,6 +115,10 @@ def test_wrappers_reject_strided_cuda_operands(dev):
     ops[0] = ops[0].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         fast_tail_expand_stacked(*ops, tail=1, n_blk=1)
+    ops = _compat_operands(dev, 2, 2, 2, 8, 1)
+    ops[0] = ops[0].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        compat_stage(*ops, tail=1, emit_bits=True)
 
 
 def test_cuda_server_matches_cpu_server(dev):
@@ -95,7 +130,8 @@ def test_cuda_server_matches_cpu_server(dev):
     cpu = TorchPirServer(db, device="cpu", fast_nonshared_chunk=4)
     rng = np.random.default_rng(3)
     idxs = [int(i) for i in rng.integers(0, db.db_size, size=35)]
-    shared = tq.new_index_query_shares_batch(db.metadata(), idxs, 1, rand_bytes=rng.bytes)
+    shared = tq.new_index_query_shares_batch(db.metadata(), idxs, 1, fast=True,
+                                            rand_bytes=rng.bytes)
     distinct = [tq.new_fast_index_query_shares(db.metadata(), i, 1, rand_bytes=rng.bytes)
                 for i in idxs[:5]]
     for pairs in (shared, distinct):
@@ -106,5 +142,32 @@ def test_cuda_server_matches_cpu_server(dev):
             c = cpu.private_secret_shared_query_batch(batch)
             assert [r.shares[0].data for r in g] == [r.shares[0].data for r in c]
             out.append(g)
+        for i, (a, b) in enumerate(zip(*out)):
+            assert bytes(tq.recover([a, b])[0].data) == db.data[idxs[i]].tobytes()
+
+
+def test_cuda_server_compat_matches_cpu_server(dev, monkeypatch):
+    """Compat batches of 10 (stage slices of 4, 4, 2) and 40 (dispatch
+    slices of 16, 16, 8) on the card equal the CPU server's bytes and
+    recover every row; 2^13 rows, w = 8: head 8 levels, stages (3, 2)."""
+    for name, v in (("COMPAT_MAX_W", 8), ("COMPAT_Q_CHUNK", 4), ("COMPAT_BATCH_CAP", 16)):
+        monkeypatch.setattr(server_mod, name, v)
+    db = generate_random_db(1 << 13, 8)
+    gpu = TorchPirServer(db)
+    cpu = TorchPirServer(db, device="cpu")
+    rng = np.random.default_rng(4)
+    for n in (10, 40):
+        idxs = [int(i) for i in rng.integers(0, db.db_size, size=n)]
+        idxs[0], idxs[-1] = 0, db.db_size - 1
+        pairs = tq.new_index_query_shares_batch(db.metadata(), idxs, 1, rand_bytes=rng.bytes)
+        before = compat_stage.launches
+        out = []
+        for part in (0, 1):
+            batch = [p[part] for p in pairs]
+            g = gpu.private_secret_shared_query_batch_async(batch)()
+            c = cpu.private_secret_shared_query_batch(batch)
+            assert [r.shares[0].data for r in g] == [r.shares[0].data for r in c]
+            out.append(g)
+        assert compat_stage.launches > before
         for i, (a, b) in enumerate(zip(*out)):
             assert bytes(tq.recover([a, b])[0].data) == db.data[idxs[i]].tobytes()

@@ -119,9 +119,9 @@ def test_fast_keygen_golden_matches_pir_tpu(leaf_bits):
             assert (thost.eval_full_domain_fast_bits(tpf, ts.key_fast)
                     == jhost.eval_full_domain_fast_bits(jpf, s.key_fast)).all()
     seeded = np.random.default_rng(7)
-    tshares = tq.new_index_query_shares_batch(DBMetadata(8, height), idxs, 1,
+    tshares = tq.new_index_query_shares_batch(DBMetadata(8, height), idxs, 1, fast=True,
                                               leaf_bits=leaf_bits, rand_bytes=seeded.bytes)
-    again = tq.new_index_query_shares_batch(DBMetadata(8, height), idxs, 1,
+    again = tq.new_index_query_shares_batch(DBMetadata(8, height), idxs, 1, fast=True,
                                             leaf_bits=leaf_bits,
                                             rand_bytes=np.random.default_rng(7).bytes)
     for idx, pair, pair2 in zip(idxs, tshares, again):

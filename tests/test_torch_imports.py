@@ -12,6 +12,13 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "cryptography", "pir_tpu"}
 PORT_FILES = sorted((ROOT / "pir_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# every module of the port's slices so far; each must be among PORT_FILES
+SLICE_MODULES = [
+    "pir_tpu_torch/dpf/device.py", "pir_tpu_torch/dpf/host.py", "pir_tpu_torch/query.py",
+    "pir_tpu_torch/state.py", "pir_tpu_torch/server.py", "pir_tpu_torch/utils/bits.py",
+    "pir_tpu_torch/ops/expand.py", "pir_tpu_torch/ops/packed_scan.py",
+    "pir_tpu_torch/ops/compat_stage.py", "pir_tpu_torch/models/pipeline.py",
+]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -27,6 +34,11 @@ def _imported_roots(path: Path) -> set[str]:
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_source_imports_nothing_forbidden(path):
     assert not (_imported_roots(path) & FORBIDDEN)
+
+
+def test_the_slices_modules_are_all_checked():
+    checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert set(SLICE_MODULES) <= checked
 
 
 def test_importing_the_port_loads_nothing_forbidden():

@@ -90,7 +90,8 @@ def test_port_keygen_recovers_through_port_server(servers):
     db, _, tsrv = servers
     rng = np.random.default_rng(12)
     idxs = [int(i) for i in rng.integers(0, HEIGHT, size=40)]
-    pairs = tq.new_index_query_shares_batch(db.metadata(), idxs, 1, rand_bytes=rng.bytes)
+    pairs = tq.new_index_query_shares_batch(db.metadata(), idxs, 1, fast=True,
+                                            rand_bytes=rng.bytes)
     fut = [tsrv.private_secret_shared_query_batch_async([p[i] for p in pairs]) for i in (0, 1)]
     res = [f() for f in fut]
     for i, idx in enumerate(idxs):

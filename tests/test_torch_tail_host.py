@@ -51,7 +51,7 @@ def test_host_build_matches_plain_tail(host_tail, height, leaf_bits, distinct):
                                                  rand_bytes=rng.bytes)[0] for i in idxs]
     else:
         shares = [p[0] for p in tq.new_index_query_shares_batch(
-            md, idxs, 1, leaf_bits=leaf_bits, rand_bytes=rng.bytes)]
+            md, idxs, 1, fast=True, leaf_bits=leaf_bits, rand_bytes=rng.bytes)]
     pay, layout = make_fast_payload_batch(shares)
     k, tail = stacked_fast_geometry(layout.depth, layout.leaf_blocks)
     assert tail > 0 and len(idxs) == k
