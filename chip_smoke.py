@@ -6,22 +6,33 @@
 From the repository root, on a machine with one NVIDIA H100 and nvcc:
 
 0. prints the card (nvidia-smi name and power limit) and the versions;
-1. builds the three CUDA kernels from pir_tpu_torch/csrc with nvcc;
+1. builds the five CUDA kernels from pir_tpu_torch/csrc with nvcc, one
+   nvcc per source, all at once;
 2. builds a 2^20-row x 1024-byte table (1 GiB) from --seed, in the
-   storage orders of both paths, and holds each kernel against its
-   plain torch version on the card, with equal bytes: the stacked tail
-   at the serving geometry (depth 10, 8 leaf blocks, k = 32, tail 3)
-   for shared and for distinct keys, the packed scan on the whole table
-   with a 64-query slice, and the compat stage on every stage of the
-   (3, 3, 2) cascade for a 64-query slice of compat shares (one stage
-   launch of the main path);
-3. serves 3 batches of 4096 shared-key fast queries, then 3 batches of
-   1024 reference-exact (compat) queries (the last one through the
-   async entry point), both shares, through TorchPirServer, recovers
-   every answer by XOR and compares it with the table rows; prints
-   per-batch seconds, queries per second, a stage-by-stage split of one
-   share batch of each path and each path's kernel launch counts;
-4. serves one distinct-key fast batch of 64 queries the same way;
+   storage orders of every path (stacked and classic for 1024-bit keys,
+   classic for the stream's 128-bit keys, compat), and holds each kernel
+   against its plain torch version on the card, with equal bytes: the
+   stacked tail at the serving geometry (depth 10, 8 leaf blocks, k = 32,
+   tail 3) for shared and for distinct keys, the packed scan on the
+   whole table with a 64-query slice, the compat stage on every stage of
+   the (3, 3, 2) cascade for a 64-query slice of compat shares (one
+   stage launch of the main path), the per-query tail (depth 10, 5 tail
+   levels) on a 64-query slice of a 4096-batch's operands and on a
+   distinct-key batch of 64, and the fused scan + tail on the stream's
+   table (depth 13) at 256 queries, both outputs;
+3. serves, both shares, through TorchPirServer: 3 batches of 4096
+   shared-key fast queries on the stacked path, 3 batches of 1024
+   reference-exact (compat) queries (the last one through the async
+   entry point), 3 batches of 4096 on the per-query tail path
+   (fast_stacked=False; equal to the stacked path's bytes), and the
+   serving stream in both modes, 3 batches of 4096 and a flush each
+   (fused: 128-bit keys, equal to the batch API's bytes; stacked:
+   default keys); recovers every answer by XOR and compares it with the
+   table rows; prints per-batch seconds, queries per second, a
+   stage-by-stage split of one share batch of each batch path and each
+   path's kernel launch counts (every count set to 0 just before the
+   path runs and read just after);
+4. serves one distinct-key fast batch of 64 queries on each fast path;
 5. times each kernel, its plain version and its PyTorch yardstick at the
    main paths' shapes, and prints one JSON line of kernels.
 
@@ -48,6 +59,9 @@ SCAN_CHECK_Q = 64
 TAIL_CHECK_STEPS = 4
 COMPAT_BATCH = 1024
 COMPAT_BATCHES = 2  # plus one through the async entry point
+STREAM_LEAF_BITS = 128  # the fused stream's 128-bit leaves: depth 13 here
+TAIL_CHECK_Q = 64  # per-query tail: queries of the 4096-batch checked in phase 2
+FUSED_CHECK_Q = 256  # fused kernel: queries checked in phase 2 (plain scan ~0.5 s)
 # H100 SXM data-sheet peaks
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
@@ -93,6 +107,8 @@ def main() -> int:
     from pir_tpu_torch.models.pipeline import (
         compat_head,
         payload_tensor,
+        pertail_head,
+        pertail_words_t,
         stacked_fast_geometry,
         stacked_head,
         stacked_words_t,
@@ -102,6 +118,8 @@ def main() -> int:
         fast_tail_expand_stacked,
         fast_tail_expand_stacked_plain,
     )
+    from pir_tpu_torch.ops.fast_tail import fast_tail_expand, fast_tail_expand_plain
+    from pir_tpu_torch.ops.fused import fused_scan_expand, fused_scan_expand_plain
     from pir_tpu_torch.ops.packed_scan import packed_scan, packed_scan_plain, unpack_words_t
     from pir_tpu_torch.query import new_fast_index_query_shares, new_index_query_shares_batch
     from pir_tpu_torch.server import COMPAT_Q_CHUNK, TorchPirServer
@@ -148,16 +166,16 @@ def main() -> int:
             fail(f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
-    def batch_shares(n, distinct=False, compat=False):
+    def batch_shares(n, distinct=False, compat=False, leaf_bits=None):
         idx = [int(i) for i in rng.integers(0, HEIGHT, n)]
         if compat:
             idx[0], idx[-1] = 0, HEIGHT - 1
             return idx, new_index_query_shares_batch(md, idx, 1, rand_bytes=keygen_rng.bytes)
         if distinct:
-            pairs = [new_fast_index_query_shares(md, i, 1, rand_bytes=keygen_rng.bytes)
-                     for i in idx]
+            pairs = [new_fast_index_query_shares(md, i, 1, leaf_bits=leaf_bits,
+                                                 rand_bytes=keygen_rng.bytes) for i in idx]
         else:
-            pairs = new_index_query_shares_batch(md, idx, 1, fast=True,
+            pairs = new_index_query_shares_batch(md, idx, 1, fast=True, leaf_bits=leaf_bits,
                                                  rand_bytes=keygen_rng.bytes)
         return idx, pairs
 
@@ -230,12 +248,69 @@ def main() -> int:
     if any(e_compat):
         fail("the compat stage kernel disagrees with its plain version")
 
-    def serve_and_check(idx, pairs, label, asynchronous=False):
+    # per-query tail (fast_stacked=False): the classic tables of the
+    # 1024-bit keys and of the stream's 128-bit keys; the tail kernel on a
+    # 64-query slice of a 4096-batch's operands and on a distinct-key
+    # batch of 64, the fused kernel on FUSED_CHECK_Q queries of each of
+    # two 128-bit batches (words of one, tail operands of the next)
+    t = time.perf_counter()
+    srv_pt = TorchPirServer(db, fast_stacked=False)
+    table_pt = srv_pt._root_table_u8(1, depth, n_blk, stacked=False)
+    depth_s = dpf_host.fast_depth_for_height(HEIGHT, STREAM_LEAF_BITS)
+    table_s = srv_pt._root_table_u8(1, depth_s, 1, stacked=False)
+    torch.cuda.synchronize()
+
+    def pertail_ops(shares):
+        pay, layout = make_fast_payload_batch(shares)
+        return pertail_head(payload_tensor(pay, dev), layout, srv_pt.tail_levels)
+
+    pt_ops, pt_tail = pertail_ops([p[0] for p in pairs])
+    log(f"phase 2: classic tables {tuple(table_pt.shape)} (depth {depth}) and "
+        f"{tuple(table_s.shape)} (depth {depth_s}, 128-bit leaves) in "
+        f"{time.perf_counter() - t:.2f} s; per-query tail: head {depth - pt_tail} levels, "
+        f"tail {pt_tail}, NW0 {pt_ops[0].shape[-1]}")
+    few = tuple(x if i in (5, 7) else x[:TAIL_CHECK_Q] for i, x in enumerate(pt_ops))
+    e_pt_shared = err(fast_tail_expand(*few, levels=pt_tail),
+                      fast_tail_expand_plain(*few, levels=pt_tail))
+    dpt_ops, _ = pertail_ops([p[0] for p in dpairs])
+    e_pt_distinct = err(fast_tail_expand(*dpt_ops, levels=pt_tail),
+                        fast_tail_expand_plain(*dpt_ops, levels=pt_tail))
+    del few, dpt_ops
+    f_ops = [pertail_ops([p[0] for p in batch_shares(FUSED_CHECK_Q,
+                                                     leaf_bits=STREAM_LEAF_BITS)[1]])
+             for _ in range(2)]
+    s_tail = f_ops[0][1]
+    f_words = pertail_words_t(fast_tail_expand(*f_ops[0][0], levels=s_tail), table_s.shape[0])
+    got = fused_scan_expand(table_s, f_words, *f_ops[1][0], levels=s_tail)
+    want = fused_scan_expand_plain(table_s, f_words, *f_ops[1][0], levels=s_tail)
+    e_fused = max(err(got[0], want[0]), err(got[1], want[1]))
+    del f_ops, f_words, got, want
+    log(f"phase 2: per-query tail vs plain max_abs_err: shared {e_pt_shared} "
+        f"({TAIL_CHECK_Q} queries), distinct {e_pt_distinct} ({DISTINCT_BATCH} queries); "
+        f"fused scan + tail (tail {s_tail} levels) {e_fused} ({FUSED_CHECK_Q} queries, "
+        f"both outputs); tolerance 0, equal bytes")
+    if e_pt_shared or e_pt_distinct or e_fused:
+        fail("a per-query tail or fused kernel disagrees with its plain version")
+
+    def rows_of(results):
+        return np.stack([np.frombuffer(bytes(r.shares[0].data), np.uint8) for r in results])
+
+    def check_recovered(idx, answers, label):
+        rec = answers[0] ^ answers[1]
+        bad = np.flatnonzero((rec != data[np.asarray(idx)]).any(axis=1))
+        if bad.size:
+            fail(f"{label}: {bad.size} of {len(idx)} answers do not recover (first {bad[0]})")
+
+    def serve_and_check(idx, pairs, label, asynchronous=False, server=None, answers=None):
+        """Both shares through `server` (the stacked server by default);
+        returns the per-share seconds and appends the two answer arrays
+        to `answers` when given."""
+        server = server or srv
         times = []
-        answers = []
+        ans = []
         if asynchronous:  # dispatch both shares, then fetch both
             t = time.perf_counter()
-            futs = [srv.private_secret_shared_query_batch_async([p[part] for p in pairs])
+            futs = [server.private_secret_shared_query_batch_async([p[part] for p in pairs])
                     for part in (0, 1)]
             results = [f() for f in futs]
             times.append(time.perf_counter() - t)
@@ -244,25 +319,30 @@ def main() -> int:
                 res = results[part]
             else:
                 t = time.perf_counter()
-                res = srv.private_secret_shared_query_batch([p[part] for p in pairs])
+                res = server.private_secret_shared_query_batch([p[part] for p in pairs])
                 times.append(time.perf_counter() - t)
-            answers.append(np.stack([np.frombuffer(bytes(r.shares[0].data), np.uint8)
-                                     for r in res]))
-        rec = answers[0] ^ answers[1]
-        bad = np.flatnonzero((rec != data[np.asarray(idx)]).any(axis=1))
-        if bad.size:
-            fail(f"{label}: {bad.size} of {len(idx)} answers do not recover (first {bad[0]})")
+            ans.append(rows_of(res))
+        check_recovered(idx, ans, label)
+        if answers is not None:
+            answers.append(ans)
         return times
 
-    def reset_counts():
-        fast_tail_expand_stacked.launches = 0
-        packed_scan.launches = 0
-        compat_stage.launches = 0
+    counted = {"stacked_tail": fast_tail_expand_stacked, "packed_scan": packed_scan,
+               "compat_stage": compat_stage, "fast_tail": fast_tail_expand,
+               "fused_scan_expand": fused_scan_expand}
+    path_launches = {}  # path -> {kernel: launches in that path's run}
 
-    def read_counts():
-        return {"stacked_tail": fast_tail_expand_stacked.launches,
-                "packed_scan": packed_scan.launches,
-                "compat_stage": compat_stage.launches}
+    def reset_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read_counts(path, needs):
+        got = {name: fn.launches for name, fn in counted.items() if fn.launches}
+        path_launches[path] = got
+        log(f"  launches on the {path} path: {got}")
+        if not all(got.get(name) for name in needs):
+            fail(f"a kernel of the {path} path was never launched: {got} (needs {needs})")
+        return got
 
     # ---- phase 3: the main paths -----------------------------------------
     reset_counts()
@@ -276,10 +356,7 @@ def main() -> int:
         log(f"phase 3: batch {b}: keygen {keygen_s:.3f} s (client); server answers "
             f"{times[0]:.4f} s + {times[1]:.4f} s for the two shares = "
             f"{BATCH / times[0]:.0f} / {BATCH / times[1]:.0f} queries/s; all {BATCH} recovered")
-    fast_launches = read_counts()
-    log(f"phase 3: launches on the fast path: {fast_launches}")
-    if not (fast_launches["stacked_tail"] and fast_launches["packed_scan"]):
-        fail(f"a kernel of the fast path was never launched: {fast_launches}")
+    read_counts("stacked fast", ("stacked_tail", "packed_scan"))
 
     # one share batch again, stage by stage, each stage synchronised
     split = {}
@@ -330,10 +407,7 @@ def main() -> int:
                 f"{times[0]:.4f} s + {times[1]:.4f} s for the two shares = "
                 f"{COMPAT_BATCH / times[0]:.0f} / {COMPAT_BATCH / times[1]:.0f} queries/s; "
                 f"all {COMPAT_BATCH} recovered (indices 0 and {HEIGHT - 1} among them)")
-    compat_launches = read_counts()
-    log(f"phase 3: launches on the compat path: {compat_launches}")
-    if not (compat_launches["compat_stage"] and compat_launches["packed_scan"]):
-        fail(f"a compat batch did not go through its kernels: {compat_launches}")
+    read_counts("compat", ("compat_stage", "packed_scan"))
 
     # one compat share batch again, stage by stage, each stage synchronised
     split_c = {}
@@ -378,15 +452,103 @@ def main() -> int:
         ", ".join(f"{name} {sec:.4f}" for name, sec in split_c.items()) +
         f"; sum {sum(split_c.values()):.4f}")
 
-    # ---- phase 4: a distinct-key batch -------------------------------------
+    # per-query tail (fast_stacked=False): 4096-query batches against the
+    # classic table; then, outside the counted run, the stacked path on
+    # the same shares, which must give the same bytes
     reset_counts()
+    per_pt_batch, pt_runs = [], []
+    for b in range(BATCHES):
+        idx, pairs = batch_shares(BATCH)
+        answers = []
+        times = serve_and_check(idx, pairs, f"per-query tail batch {b}", server=srv_pt,
+                                answers=answers)
+        per_pt_batch.extend(times)
+        pt_runs.append((pairs, answers[0]))
+        log(f"phase 3: per-query tail batch {b}: server answers {times[0]:.4f} s + "
+            f"{times[1]:.4f} s for the two shares = {BATCH / times[0]:.0f} / "
+            f"{BATCH / times[1]:.0f} queries/s; all {BATCH} recovered")
+    read_counts("per-query tail", ("fast_tail", "packed_scan"))
+    for b, (pairs, answers) in enumerate(pt_runs):
+        for part in (0, 1):
+            if not np.array_equal(rows_of(srv.private_secret_shared_query_batch(
+                    [p[part] for p in pairs])), answers[part]):
+                fail(f"per-query tail batch {b} share {part} differs from the stacked path")
+    log(f"phase 3: per-query tail answers equal the stacked path's bytes "
+        f"({BATCHES} batches, both shares)")
+    del pt_runs
+
+    # one per-query tail share batch again, stage by stage, synchronised
+    split_pt = {}
+    t = time.perf_counter()
+
+    def mark_pt(stage):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split_pt[stage] = now - t
+        t = now
+
+    pay, layout = make_fast_payload_batch([p[0] for p in pairs])
+    mark_pt("payload build")
+    pay_t = payload_tensor(pay, dev)
+    mark_pt("upload")
+    pt_ops, pt_tail = pertail_head(pay_t, layout, srv_pt.tail_levels)
+    mark_pt("head walk")
+    pt_packed = fast_tail_expand(*pt_ops, levels=pt_tail)
+    mark_pt("tail kernel")
+    pt_words_t = pertail_words_t(pt_packed, table_pt.shape[0])
+    mark_pt("words")
+    out = packed_scan(table_pt, pt_words_t)
+    mark_pt("scan kernel")
+    host = out.cpu().numpy()
+    mark_pt("download")
+    srv_pt._slice_batch_results(host, 1, BATCH)
+    mark_pt("result objects")
+    del pt_words_t, out
+    log(f"phase 3: split of one {BATCH}-query per-query tail share batch (s): " +
+        ", ".join(f"{name} {sec:.4f}" for name, sec in split_pt.items()) +
+        f"; sum {sum(split_pt.values()):.4f}")
+
+    # the serving stream, both modes: 3 batches and a flush per share,
+    # counted apart; then the same shares through the batch API
+    stream_s = {}
+    for mode, server, lb, needs in (
+            ("fused", srv_pt, STREAM_LEAF_BITS, ("fused_scan_expand",)),
+            ("stacked", srv, None, ("stacked_tail", "packed_scan"))):
+        s_batches = [batch_shares(BATCH, leaf_bits=lb) for _ in range(BATCHES)]
+        reset_counts()
+        rows, secs = [], []
+        for part in (0, 1):
+            stream = server.fast_serving_stream()
+            t = time.perf_counter()
+            futs = [stream.submit([p[part] for p in pairs]) for _, pairs in s_batches]
+            futs = futs[1:] + [stream.flush()]
+            rows.append([rows_of(f()) for f in futs])
+            secs.append(time.perf_counter() - t)
+        read_counts(f"{mode} stream", needs)
+        stream_s[mode] = secs
+        for b, (idx, pairs) in enumerate(s_batches):
+            check_recovered(idx, [rows[0][b], rows[1][b]], f"{mode} stream batch {b}")
+            for part in (0, 1):
+                if not np.array_equal(rows[part][b], rows_of(
+                        server.private_secret_shared_query_batch([p[part] for p in pairs]))):
+                    fail(f"{mode} stream batch {b} share {part} differs from the batch API")
+        log(f"phase 3: {mode} stream ({'128-bit' if lb else 'default'} keys): "
+            f"{BATCHES} batches of {BATCH} and a flush in {secs[0]:.4f} s + {secs[1]:.4f} s "
+            f"for the two shares = {BATCHES * BATCH / secs[0]:.0f} / "
+            f"{BATCHES * BATCH / secs[1]:.0f} queries/s per server; all recovered, equal to "
+            f"the batch API's bytes")
+    del rows, s_batches
+
+    # ---- phase 4: distinct-key batches -----------------------------------
     idx, dpairs = batch_shares(DISTINCT_BATCH, distinct=True)
-    times = serve_and_check(idx, dpairs, "distinct-key batch")
-    log(f"phase 4: distinct-key batch of {DISTINCT_BATCH}: {times[0]:.4f} s + {times[1]:.4f} s; "
-        f"all recovered; launches stacked_tail {fast_tail_expand_stacked.launches}, "
-        f"packed_scan {packed_scan.launches}")
-    if not (fast_tail_expand_stacked.launches and packed_scan.launches):
-        fail("the distinct-key batch did not go through both kernels")
+    for path, server, needs in (("stacked fast distinct", srv, ("stacked_tail", "packed_scan")),
+                                ("per-query tail distinct", srv_pt, ("fast_tail", "packed_scan"))):
+        reset_counts()
+        times = serve_and_check(idx, dpairs, f"{path}-key batch", server=server)
+        log(f"phase 4: {path}-key batch of {DISTINCT_BATCH}: {times[0]:.4f} s + "
+            f"{times[1]:.4f} s; all recovered")
+        read_counts(path, needs)
 
     # ---- phase 5: kernel times ----------------------------------------------
     def cuda_ms(fn, reps, warm=True):
@@ -510,7 +672,70 @@ def main() -> int:
         f"max_abs_err {max(e_compat)}")
     if any(e_compat):
         fail("the compat stage kernel disagrees at the timing shapes")
-    launches = {name: fast_launches[name] + compat_launches[name] for name in fast_launches}
+
+    def nbytes(*xs):
+        return sum(x.numel() * x.element_size() for x in xs)
+
+    def tail_blocks(q, nw0, levels, blocks_per_leaf):
+        """AES blocks of a per-query tail: each of a query's 32 * NW0 head
+        nodes expands 2^levels - 1 nodes (3 blocks each), and each leaf
+        runs blocks_per_leaf CTR blocks."""
+        nodes = 32 * nw0
+        return q * (nodes * ((1 << levels) - 1) * 3 + (nodes << levels) * blocks_per_leaf)
+
+    # per-query tail: one 4096-query share batch of the per-query tail path
+    pt_ms, pt_out = cuda_ms(lambda: fast_tail_expand(*pt_ops, levels=pt_tail), 5)
+    pt_plain_ms, pt_plain = cuda_ms(lambda: fast_tail_expand_plain(*pt_ops, levels=pt_tail), 1,
+                                    warm=False)
+    e_pt = err(pt_out, pt_plain)
+    del pt_plain
+    pt_blocks = tail_blocks(BATCH, pt_ops[0].shape[-1], pt_tail, n_blk)
+    pt_bound = {"bytes": nbytes(*pt_ops, pt_out) / HBM_BYTES_PER_S * 1e3,
+                "operations": pt_blocks * AES_BLOCK_OPS / INT32_OPS_PER_S * 1e3}
+    log(f"phase 5: per-query tail ({BATCH} queries, {pt_tail} levels, {pt_blocks} AES blocks): "
+        f"kernel {pt_ms:.4f} ms, plain {pt_plain_ms:.4f} ms, bounds {pt_bound}, "
+        f"max_abs_err {e_pt}")
+    if e_pt:
+        fail("the per-query tail disagrees at the main path's shapes")
+    del pt_ops, pt_packed, pt_out
+
+    # fused scan + tail: one 4096-query step of the fused stream (words of
+    # one 128-bit batch, tail operands of the next); then the scan and
+    # the tail kernels one after the other on the same inputs
+    f_ops = [pertail_ops([p[0] for p in batch_shares(BATCH, leaf_bits=STREAM_LEAF_BITS)[1]])[0]
+             for _ in range(2)]
+    f_words = pertail_words_t(fast_tail_expand(*f_ops[0], levels=s_tail), table_s.shape[0])
+    f_ops = f_ops[1]
+    fz_ms, fz_out = cuda_ms(lambda: fused_scan_expand(table_s, f_words, *f_ops, levels=s_tail),
+                            3)
+    fz_plain_ms, fz_plain = cuda_ms(
+        lambda: fused_scan_expand_plain(table_s, f_words, *f_ops, levels=s_tail), 1, warm=False)
+    e_fz = max(err(fz_out[0], fz_plain[0]), err(fz_out[1], fz_plain[1]))
+    del fz_plain
+    seq_ms, _ = cuda_ms(lambda: (packed_scan(table_s, f_words),
+                                 fast_tail_expand(*f_ops, levels=s_tail)), 3)
+    # each half of the fused kernel alone: no tail queries, then no scan queries
+    no_tail = [x if i in (5, 7) else x[:0] for i, x in enumerate(f_ops)]  # keys stay
+    half_ms = {"scan half": cuda_ms(lambda: fused_scan_expand(
+                   table_s, f_words, *no_tail, levels=s_tail), 3)[0],
+               "tail half": cuda_ms(lambda: fused_scan_expand(
+                   table_s, f_words[:, :0].contiguous(), *f_ops, levels=s_tail), 3)[0]}
+    fz_blocks = tail_blocks(BATCH, f_ops[0].shape[-1], s_tail, 1)
+    fz_parts = {"scan operations": 8 * 2 * BATCH * table_s.numel() / INT8_TENSOR_OPS_PER_S * 1e3,
+                "tail operations": fz_blocks * AES_BLOCK_OPS / INT32_OPS_PER_S * 1e3}
+    fz_bound = {"bytes": nbytes(table_s, f_words, *f_ops, *fz_out) / HBM_BYTES_PER_S * 1e3,
+                "operations": max(fz_parts.values())}
+    log(f"phase 5: fused scan + tail ({BATCH} + {BATCH} queries, tail {s_tail} levels, "
+        f"{fz_blocks} AES blocks): kernel {fz_ms:.4f} ms, plain {fz_plain_ms:.4f} ms, packed "
+        f"scan then per-query tail {seq_ms:.4f} ms, fused halves alone {half_ms}, "
+        f"bounds {fz_bound} (parts {fz_parts}, sum "
+        f"{sum(fz_parts.values()):.4f}), max_abs_err {e_fz}")
+    if e_fz:
+        fail("the fused kernel disagrees at the stream's shapes")
+    del f_ops, f_words, fz_out
+
+    launches = {name: sum(run.get(name, 0) for run in path_launches.values())
+                for name in counted}
 
     def entry(name, source, replaces, ms, plain_ms, bound, library_ms, e):
         by = max(bound, key=bound.get)
@@ -530,17 +755,27 @@ def main() -> int:
         entry("compat_stage", "pir_tpu_torch/csrc/compat_stage.cu",
               "pir_tpu/ops/pallas_expand.py:361", compat_slice_ms, compat_plain_ms,
               compat_slice_bound, None, max(e_compat)),
+        entry("fast_tail", "pir_tpu_torch/csrc/fast_tail.cu",
+              "pir_tpu/ops/pallas_expand.py:425", pt_ms, pt_plain_ms, pt_bound, None,
+              max(e_pt, e_pt_shared, e_pt_distinct)),
+        # bound: the larger of its scan's int8 tensor-core time and its
+        # tail's AES time, the least if the two overlap fully
+        entry("fused_scan_expand", "pir_tpu_torch/csrc/fused_scan_expand.cu",
+              "pir_tpu/ops/pallas_fused.py:118", fz_ms, fz_plain_ms, fz_bound, None,
+              max(e_fz, e_fused)),
     ]}
     if args.out:
         summary = dict(kernels, card=smi, per_share_batch_s=per_batch,
-                       split_s=split, fast_launches=fast_launches,
-                       compat_launches=compat_launches,
+                       split_s=split, path_launches=path_launches,
                        compat_per_share_batch_s=per_compat_batch, compat_split_s=split_c,
                        compat_stage_ms=stage_ms, compat_stage_batch_bound_ms=compat_bound,
                        compat_stage_slice_ms=stage_slice_ms,
                        compat_stage_plain_ms=stage_plain_ms,
                        compat_scan={"ms": cscan[0], "plain_ms": cscan[1], "bound_ms": cscan[2],
                                     "library_ms": cscan[3]},
+                       pertail_per_share_batch_s=per_pt_batch, pertail_split_s=split_pt,
+                       stream_s=stream_s, fused_parts_ms=fz_parts, scan_then_tail_ms=seq_ms,
+                       fused_halves_ms=half_ms,
                        elapsed_s=time.perf_counter() - T0)
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)

@@ -2,9 +2,11 @@
 
 It serves 2-server PIR index batches of both key styles: client keygen
 and share construction on the host (numpy); on the device the root head
-walk (plain torch), then for fast keys the stacked tail kernel and for
-reference-exact (compat) keys the compat-stage kernel, and the packed
-scan kernel (hand-written CUDA, ``csrc/``). Nothing of JAX or of pir_tpu
+walk (plain torch), then for fast keys the stacked tail kernel (or the
+per-query tail kernel, ``fast_stacked=False``) and for reference-exact
+(compat) keys the compat-stage kernel, and the packed scan kernel; the
+serving stream's fused mode runs the scan and the next batch's tail in
+one kernel (hand-written CUDA, ``csrc/``). Nothing of JAX or of pir_tpu
 is imported; each module names its pir_tpu counterpart.
 """
 
@@ -17,12 +19,13 @@ from .query import (
     new_index_query_shares_batch,
     recover,
 )
-from .server import TorchPirServer
+from .server import FastServingStream, TorchPirServer
 from .slot import Slot
 
 __all__ = [
     "Database",
     "DBMetadata",
+    "FastServingStream",
     "QueryShare",
     "SecretSharedQueryResult",
     "Slot",

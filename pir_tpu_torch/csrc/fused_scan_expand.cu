@@ -1,0 +1,119 @@
+// Fused scan + per-query tail: in one launch, the packed-bits scan of
+// batch i's selection words against the table and the per-query fast
+// tail of batch i+1 (batch-shared keys, 128-bit leaves).
+//
+// Replaces the TPU kernel pir_tpu/ops/pallas_fused.py:
+// fused_scan_expand_pallas (_fused_kernel). Same operands and the same
+// two outputs: answers (Q, B) uint8, as packed_scan.cu gives them, and
+// tail words (QE, 8, 16, NW0 << levels), as fast_tail.cu gives them.
+//
+// What bounds it on an H100: its two halves on two kinds of unit. The
+// scan's bound is its int8 tensor-core route (8 bit planes x 2 Q H B
+// operations at 1979 TOPS: 35.6 ms at Q = 4096 on the 1 GiB table), the
+// tail's its AES (~440 int32 operations a block at 16.75 Tops/s: ~3.4 ms
+// for 4096 queries at depth 13); if they overlap fully, the larger.
+// Both halves as written here run on the integer pipes and the shared
+// memory of the same SMs.
+//
+// Design: the TPU kernel ran MXU matmuls (scan) beside VPU AES (tail)
+// in each grid step. Here one grid holds work items of both
+// kinds, one per block of 8 warps, spread evenly through the block
+// index so that both kinds stay resident side by side while the grid
+// drains: a scan item is one tile of packed_scan.cuh (64 queries x 128
+// columns) over one chunk of kChunkWordRows x 32 table rows, XORed into
+// the zeroed answers with atomics (XOR is order-free, so the bytes
+// equal the one-pass scan's); a tail item is one block of fast_tail.cuh
+// (one query, 8 lane words). Row chunks make scan items short enough to
+// interleave with tail items, and put every SM to work on the scan even
+// when Q is small. Scan items run chunk-major, so the blocks resident at
+// one time read one 16 MiB slice of the table (within the 50 MB L2).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "fast_tail.cuh"
+#include "packed_scan.cuh"
+
+namespace {
+
+constexpr int kWarps = 8;
+using Tile = pir_scan::ScanTile<kWarps>;
+static_assert(Tile::kThreads == pir_fast::kThreads, "one block size for both roles");
+constexpr int kChunkWordRows = 512;  // 16384 table rows per scan item
+
+struct ScanArgs {
+  const uint32_t* table;
+  const uint32_t* words;
+  uint32_t* out;
+  int h;
+  int bw;
+  int q;
+  int col_tiles;
+  int q_tiles;
+  int chunks;
+};
+
+union FusedShared {
+  Tile::Shared scan;
+  pir_fast::TailShared tail;
+};
+
+__global__ void __launch_bounds__(Tile::kThreads)
+fused_kernel(ScanArgs s, pir_fast::FastTailArgs a, uint32_t* __restrict__ tail_out,
+             long long n_scan, long long n_total) {
+  __shared__ FusedShared sh;
+  const long long i = blockIdx.x;
+  // block i is a scan item when the even spread of n_scan items over
+  // n_total blocks steps at i; scan items before it: floor(i n_scan / n_total)
+  const long long before = i * n_scan / n_total;
+  if ((i + 1) * n_scan / n_total > before) {
+    const int tiles = s.col_tiles * s.q_tiles;
+    const int chunk = (int)(before / tiles);
+    const int tile = (int)(before % tiles);
+    const int wr_begin = chunk * kChunkWordRows;
+    const int wr_end = min(s.h / 32, wr_begin + kChunkWordRows);
+    pir_scan::scan_tile<kWarps, true>(s.table, s.words, s.out, s.h, s.bw, s.q,
+                                      (tile % s.col_tiles) * Tile::kColsPerBlock,
+                                      (tile / s.col_tiles) * Tile::kQueriesPerBlock, wr_begin,
+                                      wr_end, sh.scan);
+  } else {
+    const long long item = i - before;
+    pir_fast::tail_block(a, (int)(item / a.groups), (int)(item % a.groups), sh.tail, tail_out);
+  }
+}
+
+}  // namespace
+
+// Scan operands as pir_packed_scan's: table (h, 4 * bw) uint8 rows,
+// words (h / 32, q), out (q, bw) words, which must be zero on entry.
+// Tail operands as pir_fast_tail's for batch-shared keys and 128-bit
+// leaves: seeds (qe,8,16,nw0), t (qe,1,nw0), cw_s (qe,levels,8,16,1),
+// cw_tl / cw_tr (qe,levels), rk (11,8,3,16,1), fcw (qe,8,16,1),
+// rk_leaf (11,8,16,1), tail_out (qe,8,16,nw0 << levels).
+// Returns cudaGetLastError() after the launch.
+extern "C" int pir_fused_scan_expand(const void* table, const void* words, const void* seeds,
+                                     const void* t, const void* cw_s, const void* cw_tl,
+                                     const void* cw_tr, const void* rk, const void* fcw,
+                                     const void* rk_leaf, void* out, void* tail_out, int h,
+                                     int bw, int q, int qe, int nw0, int levels, void* stream) {
+  if (levels < 0 || levels > pir_fast::kMaxLevels || nw0 < 1 || h % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ScanArgs s{static_cast<const uint32_t*>(table), static_cast<const uint32_t*>(words),
+             static_cast<uint32_t*>(out), h, bw, q,
+             (bw + Tile::kColsPerBlock - 1) / Tile::kColsPerBlock,
+             (q + Tile::kQueriesPerBlock - 1) / Tile::kQueriesPerBlock,
+             (h / 32 + kChunkWordRows - 1) / kChunkWordRows};
+  pir_fast::FastTailArgs a{static_cast<const uint32_t*>(seeds), static_cast<const uint32_t*>(t),
+                           static_cast<const uint32_t*>(cw_s), static_cast<const uint32_t*>(cw_tl),
+                           static_cast<const uint32_t*>(cw_tr), static_cast<const uint32_t*>(rk),
+                           static_cast<const uint32_t*>(fcw),
+                           static_cast<const uint32_t*>(rk_leaf), qe, nw0, levels, 1, 0};
+  pir_fast::init_geometry(a);
+  const long long n_scan = q ? (long long)s.col_tiles * s.q_tiles * s.chunks : 0;
+  const long long n_total = n_scan + (long long)qe * a.groups;
+  if (n_total == 0) return 0;
+  if (n_total > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  fused_kernel<<<(unsigned)n_total, Tile::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      s, a, static_cast<uint32_t*>(tail_out), n_scan, n_total);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -8,7 +8,10 @@ walks the top ``head`` tree levels with the queries in lanes
 result is regrouped for the stacked tail kernel (``ops/expand.py``),
 whose output words are the scan's selection bits in a chunk-major
 storage order; ``_fast_leaf_perm_root_stacked`` scatters table rows into
-that same order.
+that same order. For the per-query tail kernel (``ops/fast_tail.py``)
+the same walk ends in ``expand_root_head_lanes`` (one query a row, both
+key styles), and ``_fast_leaf_perm_root`` is the classic bit-reversed
+storage order its output words select.
 
 Reference-exact (compat) keys walk the whole tree: the host packs them
 with ``make_compat_payload_batch``, the device walks the head with
@@ -339,21 +342,75 @@ def regroup_head_stacked(seeds, t, cw_s_tail, cw_tl_tail, cw_tr_tail, fcw,
         seeds, t, cw_t, _tbits(cw_tl_tail), _tbits(cw_tr_tail), fg))
 
 
+def _walk_head_lanes(payloads: torch.Tensor, layout: FastRootLayout,
+                     rk_masks: torch.Tensor, head_levels: int):
+    """Unpack with Q in lanes and walk the top `head_levels` levels ->
+    seeds (8,16,NW0*Q) / t (NW0*Q,) word-major, and the unpacked cw_s
+    (d,8,16,Q), cw_tl / cw_tr (d,Q), fcw. rk_masks is the (11,8,3,16,1)
+    shared or (11,8,3,16,Q) per-query round-key masks."""
+    seeds, t, cw_s, cw_tl, cw_tr, fcw = unpack_fast_root_payload_lanes(payloads, layout)
+    for i in range(head_levels):
+        w = max(1, (1 << i) // 32)
+        seeds, t = _expand_root_level_lanes(
+            seeds, t, cw_s[i], cw_tl[i], cw_tr[i], rk_masks, i, w)
+    return seeds, t, cw_s, cw_tl, cw_tr, fcw
+
+
 def expand_root_head_grouped(payloads: torch.Tensor, layout: FastRootLayout,
                              rk_masks: torch.Tensor, head_levels: int, k: int):
     """Root head walk with Q in lanes, regrouped for the stacked tail
     kernel (regroup_head_stacked). rk_masks is the head's (11,8,3,16,1)
     shared or (11,8,3,16,Q) per-query round-key masks."""
-    seeds, t, cw_s, cw_tl, cw_tr, fcw = unpack_fast_root_payload_lanes(
-        payloads, layout)
-    for i in range(head_levels):
-        w = max(1, (1 << i) // 32)
-        seeds, t = _expand_root_level_lanes(
-            seeds, t, cw_s[i], cw_tl[i], cw_tr[i], rk_masks, i, w)
+    seeds, t, cw_s, cw_tl, cw_tr, fcw = _walk_head_lanes(payloads, layout, rk_masks,
+                                                         head_levels)
     nw0 = max(1, (1 << head_levels) // 32)
     return regroup_head_stacked(
         seeds, t, cw_s[head_levels:], cw_tl[head_levels:],
         cw_tr[head_levels:], fcw, k, nw0, layout.leaf_blocks)
+
+
+def expand_root_head_lanes(payloads: torch.Tensor, layout: FastRootLayout,
+                           rk_masks: torch.Tensor, head_levels: int):
+    """Root head walk with Q in lanes, returning the per-query tail
+    kernel's operands (ops/fast_tail.py): seeds (Q,8,16,NW0), t (Q,1,NW0),
+    cw_s (Q,tail,8,16,1), cw_tl / cw_tr (Q,tail), fcw (Q,8,16,1) or
+    (Q,8,n_blk,16,1), with NW0 = max(1, 2^head_levels // 32) and tail =
+    depth - head_levels. rk_masks is the (11,8,3,16,1) batch-shared or
+    the (11,8,3,16,Q) per-query round-key masks: the same walk serves
+    distinct-key batches, batched over Q."""
+    q_n = payloads.shape[0]
+    seeds, t, cw_s, cw_tl, cw_tr, fcw = _walk_head_lanes(payloads, layout, rk_masks,
+                                                         head_levels)
+    nw0 = max(1, (1 << head_levels) // 32)
+    seeds = seeds.reshape(8, 16, nw0, q_n).permute(3, 0, 1, 2)
+    t = t.reshape(nw0, q_n).t()[:, None, :]
+    cw_s_tail = cw_s[head_levels:].permute(3, 0, 1, 2)[..., None]
+    return tuple(x.contiguous() for x in (
+        seeds, t, cw_s_tail, cw_tl[head_levels:].t(), cw_tr[head_levels:].t(), fcw[..., None]))
+
+
+@functools.lru_cache(maxsize=64)
+def _fast_leaf_perm_root(depth: int, height: int, n_blk: int = 1) -> np.ndarray:
+    """Natural row -> flat bit index for the per-query tail's classic
+    storage order:
+
+      flat = ((bit*16 + byte)*n_blk + blk) * 2^depth + bit_reverse(leaf, depth)
+
+    where each leaf covers 128*n_blk rows (blk = CTR block within the
+    leaf, block-major along lanes, as the per-query tail emits them).
+    Lane concatenation puts each new level in the most significant lane
+    bit, hence the bit-reversed leaf index."""
+    r = np.arange(height, dtype=np.int64)
+    leaf = r // (128 * n_blk)
+    within = r % (128 * n_blk)
+    blk = within >> 7
+    wb = within & 127
+    byte_i = wb >> 3
+    bit_k = wb & 7
+    rev = np.zeros_like(leaf)
+    for b in range(depth):
+        rev |= ((leaf >> b) & 1) << (depth - 1 - b)
+    return ((bit_k * 16 + byte_i) * n_blk + blk) * (1 << depth) + rev
 
 
 def _fast_leaf_perm_root_stacked(depth: int, height: int, n_blk: int,

@@ -1,11 +1,18 @@
 """The root-start batched answer pipelines (counterpart of
 ``stacked_fast_geometry``, ``fused_fast_root_batch_stacked_fn``,
+``fused_fast_root_batch_pallas_fn``, ``fused_fast_overlap_step_fn``,
 ``_compat_skip_walk`` and ``fused_compat_root_batch_pallas_fn`` in
 ``pir_tpu/models/pipeline.py``).
 
 Fast keys, against the chunk-major storage table: head walk (plain
 torch, ``dpf/device.py``) -> stacked tail kernel (``ops/expand.py``) ->
 packed scan kernel (``ops/packed_scan.py``).
+
+Fast keys, against the classic bit-reversed storage table (the server's
+``fast_stacked=False``): head walk with Q in lanes -> per-query tail
+kernel (``ops/fast_tail.py``) -> the same packed scan; or, one batch
+ahead in the serving stream, the fused scan + tail kernel
+(``ops/fused.py``) that scans batch i while expanding batch i+1.
 
 Reference-exact (compat) keys, against the cascade's storage table:
 batched head walk (plain torch) -> compat-stage kernel once per stage
@@ -25,6 +32,7 @@ from ..dpf.device import (
     _rk_bit_first,
     expand_planes_from_root,
     expand_root_head_grouped,
+    expand_root_head_lanes,
     regroup_rk_stacked,
     unpack_compat_root_payload,
     unpack_fast_root_payload,
@@ -32,6 +40,8 @@ from ..dpf.device import (
 )
 from ..ops.compat_stage import compat_stage
 from ..ops.expand import fast_tail_expand_stacked
+from ..ops.fast_tail import fast_tail_expand
+from ..ops.fused import fused_scan_expand
 from ..ops.packed_scan import packed_scan
 
 # queries per stacked step at most; the table's storage order follows
@@ -103,6 +113,80 @@ def fused_fast_root_batch_stacked(table_u8: torch.Tensor, payloads: torch.Tensor
     packed = fast_tail_expand_stacked(*ops, tail=tail, n_blk=layout.leaf_blocks)
     words_t = stacked_words_t(packed, k, table_u8.shape[0])
     return packed_scan(table_u8, words_t)[:q]
+
+
+def pertail_head(payloads: torch.Tensor, layout: FastRootLayout, tail_levels: int):
+    """Head walk with Q in lanes for the per-query tail: (Q, total) int32
+    payloads -> the tail operands (seeds, t, cw_s, cw_tl, cw_tr, rk, fcw,
+    rk_leaf) and the tail's level count, max(0, min(tail_levels, depth -
+    5)). Batch-shared keys give one round-key mask set (from payload row
+    0); distinct keys per-query masks, and the head walks every query's
+    own keys in one batched pass."""
+    tail = max(0, min(tail_levels, layout.depth - 5))
+    if layout.shared_rk:
+        rk, rk_leaf = unpack_fast_root_payload(payloads[0], layout)[6:]
+        rk_head = rk
+    else:  # lanes (11,8,3,16,Q) for the head; (Q,...,1) per query for the tail
+        rk_head, rkl = unpack_fast_root_payload_lanes_rk(payloads, layout)
+        rk = rk_head.permute(4, 0, 1, 2, 3)[..., None].contiguous()
+        rk_leaf = rkl.permute(3, 0, 1, 2)[..., None].contiguous()
+    seeds, t, cw_s, cw_tl, cw_tr, fcw = expand_root_head_lanes(
+        payloads, layout, rk_head, layout.depth - tail)
+    return (seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, rk_leaf), tail
+
+
+def pertail_words_t(packed: torch.Tensor, rows: int) -> torch.Tensor:
+    """Per-query tail output (Q, 8, 16, L) -> the scan's selection words
+    (rows // 32, Q): a query's words in output order, zero words for the
+    XOR-neutral padded table rows past the flat bits."""
+    q = packed.shape[0]
+    words = packed.reshape(q, -1)
+    if rows // 32 > words.shape[1]:
+        words = torch.cat([words, words.new_zeros(q, rows // 32 - words.shape[1])], dim=1)
+    return words.t().contiguous()
+
+
+def fused_fast_root_batch_pertail(table_u8: torch.Tensor, payloads: torch.Tensor,
+                                  layout: FastRootLayout, tail_levels: int) -> torch.Tensor:
+    """Root-start batched fast answers through the per-query tail kernel:
+    table (flat_pad, B) uint8 in the classic storage order
+    (dpf.device._fast_leaf_perm_root), payloads (Q, total) int32 -> (Q, B)
+    uint8 answer shares. Serves both key styles and every leaf width. The
+    scan takes the whole batch in one launch (the JAX package slices Q for
+    the TPU's VMEM; the bytes are the same)."""
+    ops, tail = pertail_head(payloads, layout, tail_levels)
+    packed = fast_tail_expand(*ops, levels=tail)
+    return packed_scan(table_u8, pertail_words_t(packed, table_u8.shape[0]))
+
+
+def check_overlap_layout(layout: FastRootLayout) -> None:
+    """Raise unless the fused overlap step serves this layout."""
+    if not layout.shared_rk:
+        raise ValueError("overlap serving needs the batch-shared key layout")
+    if layout.leaf_blocks > 1:
+        raise ValueError("overlap serving does not support wide-leaf keys")
+
+
+def fused_fast_overlap_step(table_u8: torch.Tensor, words_prev_t: torch.Tensor,
+                            payloads: torch.Tensor, layout: FastRootLayout,
+                            tail_levels: int):
+    """Steady-state overlap step: scan batch i's selection words while
+    expanding batch i+1, in one kernel (ops/fused.py). Needs batch-shared
+    keys and 128-bit leaves.
+
+    table (flat_pad, B) uint8 in the classic storage order, words_prev_t
+    (flat_pad // 32, Q) int32, payloads (Q, total) int32 ->
+    (out_prev (Q, B) uint8, words_next_t (flat_pad // 32, Q) int32).
+    Feed words_next_t back as the next call's words_prev_t; the first call
+    takes zeros (its answers are discarded) and the last batch drains with
+    a zero payload (its tail words are discarded). Unlike the JAX step
+    (``fused_geometry``), no table or batch shape is refused for want of
+    a tiling.
+    """
+    check_overlap_layout(layout)
+    ops, tail = pertail_head(payloads, layout, tail_levels)
+    out_prev, packed = fused_scan_expand(table_u8, words_prev_t, *ops, levels=tail)
+    return out_prev, pertail_words_t(packed, table_u8.shape[0])
 
 
 def _compat_skip_walk(seeds, t, cw_s, cw_tl, cw_tr, rk, skip: int):

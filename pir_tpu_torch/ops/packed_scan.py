@@ -33,10 +33,12 @@ def packed_scan_plain(table_u8: torch.Tensor, words_t: torch.Tensor,
     """Plain torch version: unpack the bits, mask and XOR-fold the rows."""
     outs = [batched_xor_scan(table_u8, unpack_words_t(words_t[:, q0:q0 + q_chunk]))
             for q0 in range(0, words_t.shape[1], q_chunk)]
-    return torch.cat(outs, dim=0)
+    return torch.cat(outs, dim=0) if outs else table_u8.new_zeros((0, table_u8.shape[1]))
 
 
-def _check(table_u8: torch.Tensor, words_t: torch.Tensor) -> None:
+def check_operands(table_u8: torch.Tensor, words_t: torch.Tensor) -> None:
+    """Raise unless table and words have the dtypes, shapes and device of
+    one scan."""
     if table_u8.dtype != torch.uint8 or table_u8.dim() != 2:
         raise ValueError("table must be a 2-D uint8 tensor")
     if words_t.dtype != torch.int32 or words_t.dim() != 2:
@@ -48,20 +50,27 @@ def _check(table_u8: torch.Tensor, words_t: torch.Tensor) -> None:
         raise ValueError("table and words are on different devices")
 
 
-def packed_scan(table_u8: torch.Tensor, words_t: torch.Tensor) -> torch.Tensor:
-    """(H, B) uint8 table, (H // 32, Q) int32 words -> (Q, B) uint8."""
-    _check(table_u8, words_t)
-    if table_u8.device.type == "cpu":
-        return packed_scan_plain(table_u8, words_t)
-    if table_u8.device.type != "cuda":
-        raise ValueError(f"no packed scan for device {table_u8.device}")
-    h, b = table_u8.shape
-    q = words_t.shape[1]
-    if b % 4 or not table_u8.is_contiguous() or table_u8.data_ptr() % 4:
+def check_kernel_operands(table_u8: torch.Tensor, words_t: torch.Tensor) -> None:
+    """Raise unless a CUDA kernel can read the table as aligned 4-byte
+    words and the words as they lie (the table builders pad rows to a
+    multiple of 4 bytes)."""
+    if table_u8.shape[1] % 4 or not table_u8.is_contiguous() or table_u8.data_ptr() % 4:
         raise ValueError("the kernel reads rows as aligned 4-byte words: "
                          "contiguous table with B % 4 == 0")
     if not words_t.is_contiguous():
         raise ValueError("selection words must be contiguous")
+
+
+def packed_scan(table_u8: torch.Tensor, words_t: torch.Tensor) -> torch.Tensor:
+    """(H, B) uint8 table, (H // 32, Q) int32 words -> (Q, B) uint8."""
+    check_operands(table_u8, words_t)
+    if table_u8.device.type == "cpu":
+        return packed_scan_plain(table_u8, words_t)
+    if table_u8.device.type != "cuda":
+        raise ValueError(f"no packed scan for device {table_u8.device}")
+    check_kernel_operands(table_u8, words_t)
+    h, b = table_u8.shape
+    q = words_t.shape[1]
     if q > _MAX_GRID_Y:
         raise ValueError(f"batch {q} exceeds one launch ({_MAX_GRID_Y})")
     out = torch.empty((q, b), dtype=torch.uint8, device=table_u8.device)

@@ -24,6 +24,16 @@ def pad_rows_u8(table_u8: np.ndarray, block: int) -> np.ndarray:
     )
 
 
+def pad_cols_u8(table_u8: np.ndarray, multiple: int = 4) -> np.ndarray:
+    """Zero bytes appended to each row up to a multiple of `multiple`
+    bytes, so a kernel reads every row as whole 4-byte words. Answers
+    are sliced back to the row's own bytes."""
+    pad = (-table_u8.shape[1]) % multiple
+    if not pad:
+        return table_u8
+    return np.pad(table_u8, ((0, 0), (0, pad)))
+
+
 def xor_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
     """XOR of x along `dim` (dimension kept, size 1), by halving folds."""
     while x.shape[dim] > 1:

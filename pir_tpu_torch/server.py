@@ -1,17 +1,23 @@
 """``TorchPirServer``: the device-resident 2-server PIR engine
-(counterpart of the root-start batch paths of
+(counterpart of the root-start batch paths and the serving stream of
 ``pir_tpu/server.py:TpuPirServer``).
 
 Each batch of index shares becomes one payload upload and one pass
 through ``models/pipeline.py``, against a table uploaded once in the
 storage order of its path:
 
-* fast keys: the chunk-major order of the stacked tail kernel;
-  batch-shared and distinct PRF keys both go this way;
+* fast keys: the chunk-major order of the stacked tail kernel
+  (``fast_stacked=True``, the default), or the classic bit-reversed
+  order of the per-query tail kernel (``fast_stacked=False``);
+  batch-shared and distinct PRF keys both go either way;
 * reference-exact (compat) keys: the order of the compat-stage cascade,
   in slices of at most ``COMPAT_BATCH_CAP`` queries.
 
-A batch this engine cannot serve raises; there is no other path.
+Every table pads its rows with zero bytes to a multiple of 4, the width
+the kernels read; answers are sliced back to the row's bytes.
+``fast_serving_stream()`` serves fast batches with a one-batch lag, in
+the stacked mode or through the fused scan + tail kernel. A batch this
+engine cannot serve raises; there is no other path.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from .database import Database
 from .dpf import host as dpf_host
 from .dpf.device import (
     _compat_perm,
+    _fast_leaf_perm_root,
     _fast_leaf_perm_root_stacked,
     compat_skip_levels,
     compat_stage_plan,
@@ -33,13 +40,16 @@ from .dpf.device import (
     scatter_rows_to_storage_order,
 )
 from .models.pipeline import (
+    check_overlap_layout,
     fused_compat_root_batch,
+    fused_fast_overlap_step,
+    fused_fast_root_batch_pertail,
     fused_fast_root_batch_stacked,
     payload_tensor,
     stacked_fast_geometry,
 )
 from .ops.compat_stage import MAX_TAIL
-from .ops.scan import pad_rows_u8
+from .ops.scan import pad_cols_u8, pad_rows_u8
 from .query import QueryShare, SecretSharedQueryResult
 from .slot import Slot
 from .utils import pad_tile
@@ -80,6 +90,11 @@ class TorchPirServer:
     kernels' plain versions on the CPU. With no device given and no GPU
     present the constructor raises.
 
+    fast_stacked: fast batches go through the stacked tail kernel (the
+    default) or, when False, through the per-query tail kernel of
+    ``tail_levels`` levels (at most depth - 5) against the classic table.
+    The serving stream follows the same switch (``fast_serving_stream``).
+
     Compat batches run the stage cascade of ``dpf.device.compat_stage_plan``
     at the geometry of ``_compat_geometry`` (see the COMPAT_* constants).
     """
@@ -91,7 +106,8 @@ class TorchPirServer:
     ROW_BLOCK = 8192
 
     def __init__(self, db: Database, device: str | torch.device | None = None,
-                 fast_nonshared_chunk: int = 1024):
+                 fast_nonshared_chunk: int = 1024, fast_stacked: bool = True,
+                 tail_levels: int = 5):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -105,46 +121,54 @@ class TorchPirServer:
         # distinct-key batches materialise per-step round-key operands
         # (~2.9 MB per 32-query step), so they run in chunks of this size
         self.fast_nonshared_chunk = fast_nonshared_chunk
+        self.fast_stacked = fast_stacked
+        self.tail_levels = tail_levels
         self._tables: dict[tuple, torch.Tensor] = {}
         self._lock = threading.Lock()
 
-    def _root_table_u8(self, group_size: int, depth: int, n_blk: int = 1) -> torch.Tensor:
-        """Storage-ordered raw u8 table for the stacked fast path: rows
-        scattered into the chunk-major flat order of the stacked tail
-        kernel, zero-padded to a multiple of ROW_BLOCK rows."""
-        tail = stacked_fast_geometry(depth, n_blk)[1]
-        key = (group_size, depth, n_blk, tail)
+    def _storage_table(self, key, group_size: int, perm, flat: int,
+                       row_block: int) -> torch.Tensor:
+        """The cached u8 table `key`: rows scattered to their flat bit
+        positions perm() (zero rows elsewhere, XOR-neutral), padded with
+        zero rows to a multiple of `row_block` and with zero bytes to a
+        multiple of 4 a row, on the server's device."""
         with self._lock:
             table = self._tables.get(key)
             if table is None:
                 h = self.db.db_size // group_size
-                row_bytes = group_size * self.db.slot_bytes
-                flat = (128 * n_blk) << depth
-                perm = _fast_leaf_perm_root_stacked(depth, h, n_blk, tail)
-                rows = self.db.data[: h * group_size].reshape(h, row_bytes)
-                sc = scatter_rows_to_storage_order(rows, perm, flat)
-                table = torch.from_numpy(pad_rows_u8(sc, self.ROW_BLOCK)).to(self.device)
+                rows = self.db.data[: h * group_size].reshape(h, group_size * self.db.slot_bytes)
+                sc = scatter_rows_to_storage_order(rows, perm(), flat)
+                table = torch.from_numpy(pad_cols_u8(pad_rows_u8(sc, row_block))).to(self.device)
                 self._tables[key] = table
         return table
+
+    def _root_table_u8(self, group_size: int, depth: int, n_blk: int = 1,
+                       stacked: bool = True) -> torch.Tensor:
+        """Storage-ordered raw u8 table for the fast paths, zero-padded to
+        a multiple of ROW_BLOCK rows: the chunk-major flat order of the
+        stacked tail kernel, or with ``stacked=False`` the classic
+        bit-reversed order of the per-query tail kernel."""
+        h = self.db.db_size // group_size
+        flat = (128 * n_blk) << depth
+        if stacked:
+            tail = stacked_fast_geometry(depth, n_blk)[1]
+            return self._storage_table(
+                (group_size, depth, n_blk, tail), group_size,
+                lambda: _fast_leaf_perm_root_stacked(depth, h, n_blk, tail), flat, self.ROW_BLOCK)
+        return self._storage_table(("classic", group_size, depth, n_blk), group_size,
+                                   lambda: _fast_leaf_perm_root(depth, h, n_blk), flat,
+                                   self.ROW_BLOCK)
 
     def _compat_root_table_u8(self, group_size: int, device_bits: int, w: int,
                               tails: tuple[int, ...]) -> torch.Tensor:
         """Storage-ordered raw u8 table for the compat stage cascade: rows
         scattered in the cascade's walk order, zero-padded to a multiple
         of min(2048, 2^device_bits) rows."""
-        key = ("compat", group_size, device_bits, w, tails)
-        with self._lock:
-            table = self._tables.get(key)
-            if table is None:
-                h = self.db.db_size // group_size
-                row_bytes = group_size * self.db.slot_bytes
-                flat = 1 << device_bits
-                perm = _compat_perm(device_bits, h, w, tails)
-                rows = self.db.data[: h * group_size].reshape(h, row_bytes)
-                sc = scatter_rows_to_storage_order(rows, perm, flat)
-                table = torch.from_numpy(pad_rows_u8(sc, min(2048, flat))).to(self.device)
-                self._tables[key] = table
-        return table
+        h = self.db.db_size // group_size
+        flat = 1 << device_bits
+        return self._storage_table(("compat", group_size, device_bits, w, tails), group_size,
+                                   lambda: _compat_perm(device_bits, h, w, tails), flat,
+                                   min(2048, flat))
 
     def _slice_batch_results(self, out: np.ndarray, group_size: int,
                              n: int) -> list[SecretSharedQueryResult]:
@@ -261,8 +285,12 @@ class TorchPirServer:
                 outs.append(self._dispatch_fast_root(part, shared_rk=False)[:take])
             return torch.cat(outs, dim=0)
         pay, layout = make_fast_payload_batch(queries, shared_rk=shared_rk)
-        table = self._root_table_u8(g, depth, n_blk)
-        return fused_fast_root_batch_stacked(table, payload_tensor(pay, self.device), layout)
+        pay_t = payload_tensor(pay, self.device)
+        if self.fast_stacked:
+            return fused_fast_root_batch_stacked(self._root_table_u8(g, depth, n_blk), pay_t,
+                                                 layout)
+        return fused_fast_root_batch_pertail(self._root_table_u8(g, depth, n_blk, stacked=False),
+                                             pay_t, layout, self.tail_levels)
 
     def _dispatch_compat(self, queries: list[QueryShare]) -> torch.Tensor:
         """Dispatch a uniform compat batch through the stage cascade, in
@@ -295,3 +323,118 @@ class TorchPirServer:
     ) -> list[SecretSharedQueryResult]:
         """Answer a batch of same-shape index queries."""
         return self.private_secret_shared_query_batch_async(queries)()
+
+    def fast_serving_stream(self) -> "FastServingStream":
+        """Open a steady-state fast-mode serving stream: submit(k)
+        dispatches batch k and returns a future of batch k-1's results
+        (one-batch lag); flush() drains the last batch. Batches must keep
+        one shape (size, group size, depth).
+
+        With fast_stacked (the default) each batch rides the batch API's
+        dispatch: wide-leaf keys and distinct-key batches are served.
+        With fast_stacked=False batch k's scan runs in the same kernel as
+        batch k+1's tail (ops/fused.py): 128-bit leaves and batch-shared
+        PRF keys only.
+        """
+        return FastServingStream(self)
+
+
+class FastServingStream:
+    """See TorchPirServer.fast_serving_stream."""
+
+    def __init__(self, server: TorchPirServer):
+        self._srv = server
+        self._mode = None  # "stacked" | "fused", decided on the first submit
+        self._shape = None  # (Q, group, depth) [+ layout in fused mode]
+        self._pending = None  # stacked: (out_dev, queries) not yet drained
+        self._words = None  # fused: the previous batch's selection words
+        self._prev = None  # fused: the previous batch's queries
+        self._table_key = None
+
+    def _table(self) -> torch.Tensor:
+        """The serving table, resolved at every dispatch (not pinned at
+        stream start), so a rebuilt table reaches an open stream."""
+        return self._srv._root_table_u8(*self._table_key, stacked=False)
+
+    def _check_uniform(self, queries: list[QueryShare]) -> tuple:
+        srv = self._srv
+        if not queries:
+            raise ValueError("empty batch")
+        q0 = queries[0]
+        if q0.key_fast is None or q0.is_keyword_based:
+            raise ValueError("stream serves fast-mode index queries only")
+        if not srv._fast_root_applicable(queries):
+            raise ValueError("stream needs the root-start fast path (depth >= 5)")
+        srv._validate_batch(queries)
+        return (len(queries), q0.group_size, q0.key_fast.depth)
+
+    def _prepare(self, queries: list[QueryShare]) -> torch.Tensor:
+        """Fused mode: validate a batch and build its device payload; the
+        first batch fixes the stream's shape and zero selection words.
+        Nothing changes when the batch is refused."""
+        srv = self._srv
+        shape = self._check_uniform(queries)
+        if not srv._batch_shares_prf_keys(queries):
+            raise ValueError("stream batches need batch-shared PRF keys")
+        pay, layout = make_fast_payload_batch(queries, shared_rk=True)
+        shape = shape + (layout,)
+        if self._shape is None:
+            check_overlap_layout(layout)
+            q0 = queries[0]
+            self._table_key = (q0.group_size, q0.key_fast.depth, q0.key_fast.leaf_bits // 128)
+            rows = self._table().shape[0]
+            self._words = torch.zeros((rows // 32, len(queries)), dtype=torch.int32,
+                                      device=srv.device)
+            self._shape = shape
+        elif shape != self._shape:
+            raise ValueError(f"stream batches must keep one shape: "
+                             f"{shape[:3]} != {self._shape[:3]}")
+        return payload_tensor(pay, srv.device)
+
+    def _step(self, payloads: torch.Tensor) -> torch.Tensor:
+        out_prev, self._words = fused_fast_overlap_step(
+            self._table(), self._words, payloads, self._shape[3], self._srv.tail_levels)
+        return out_prev
+
+    def _future(self, out_dev: torch.Tensor, queries: list[QueryShare]):
+        g, n = queries[0].group_size, len(queries)
+        return lambda: self._srv._slice_batch_results(out_dev.cpu().numpy(), g, n)
+
+    def submit(self, queries):
+        """Dispatch a batch; returns a zero-arg callable resolving the
+        previous batch's results (None for the first submit). A refused
+        batch raises and leaves the pending batch answerable."""
+        queries = list(queries)
+        mode = self._mode or ("stacked" if self._srv.fast_stacked else "fused")
+        if mode == "fused":
+            pay = self._prepare(queries)
+            self._mode = mode
+            out_prev = self._step(pay)
+            prev, self._prev = self._prev, queries
+            return None if prev is None else self._future(out_prev, prev)
+        shape = self._check_uniform(queries)
+        if self._shape is not None and shape != self._shape:
+            raise ValueError(f"stream batches must keep one shape: {shape} != {self._shape}")
+        out_dev = self._srv._dispatch_fast_root(queries)
+        self._mode, self._shape = mode, shape
+        prev, self._pending = self._pending, (out_dev, queries)
+        return None if prev is None else self._future(*prev)
+
+    def flush(self):
+        """Drain the last submitted batch: its results' future, or None
+        if the stream is empty. Fused mode scans it beside the tail of a
+        zero payload, whose words are discarded."""
+        if self._mode == "stacked":
+            if self._pending is None:
+                return None
+            (out, queries), self._pending = self._pending, None
+            self._shape = self._mode = None
+            return self._future(out, queries)
+        if self._prev is None:
+            return None
+        zeros = torch.zeros((self._shape[0], self._shape[3].total), dtype=torch.int32,
+                            device=self._srv.device)
+        out_last = self._step(zeros)
+        prev, self._prev = self._prev, None
+        self._words = self._shape = self._mode = None
+        return self._future(out_last, prev)

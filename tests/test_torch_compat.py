@@ -153,8 +153,10 @@ def test_payload_plan_perm_and_table_match_pir_tpu(height, w, max_tail):
     jsrv = TpuPirServer(db, use_pallas=True)
     tsrv = TorchPirServer(database_from_numpy(db.data, SLOT), device="cpu")
     want_t = np.asarray(jsrv._compat_root_table_u8(1, nbd, w, tails))
-    got_t = tsrv._compat_root_table_u8(1, nbd, w, tails)
-    assert got_t.dtype == torch.uint8 and (got_t.numpy() == want_t).all()
+    got_t = tsrv._compat_root_table_u8(1, nbd, w, tails).numpy()
+    # the port pads each row with zero bytes to a multiple of 4
+    assert got_t.dtype == np.uint8 and got_t.shape == (want_t.shape[0], 4)
+    assert (got_t[:, :SLOT] == want_t).all() and not got_t[:, SLOT:].any()
 
 
 def test_skip_levels_match_pir_tpu():

@@ -19,6 +19,8 @@ from pir_tpu_torch.ops.expand import (
     fast_tail_expand_stacked,
     fast_tail_expand_stacked_plain,
 )
+from pir_tpu_torch.ops.fast_tail import fast_tail_expand, fast_tail_expand_plain
+from pir_tpu_torch.ops.fused import fused_scan_expand, fused_scan_expand_plain
 from pir_tpu_torch.ops.packed_scan import packed_scan, packed_scan_plain
 from pir_tpu_torch.server import TorchPirServer
 
@@ -63,6 +65,52 @@ def test_tail_kernel_matches_plain(dev, distinct, n_blk, tail, w):
     torch.cuda.synchronize()
     assert fast_tail_expand_stacked.launches == before + 1
     assert torch.equal(got, fast_tail_expand_stacked_plain(*ops, tail=tail, n_blk=n_blk))
+
+
+def _pertail_operands(dev, seed, q, nw0, levels, n_blk, distinct):
+    """Random seed, t and fcw words; every other operand 0/~0 masks, the
+    form the payload unpack gives them (the kernel reads bit 0 of each)."""
+    rng = np.random.default_rng(seed)
+
+    def masks(*shape):
+        return rng.integers(0, 2, size=shape).astype(np.uint32) * FULL
+
+    rk, rkl = ((masks(q, 11, 8, 3, 16, 1), masks(q, 11, 8, 16, 1)) if distinct
+               else (masks(11, 8, 3, 16, 1), masks(11, 8, 16, 1)))
+    fcw = _words(rng, q, 8, n_blk, 16, 1) if n_blk > 1 else _words(rng, q, 8, 16, 1)
+    ops = (_words(rng, q, 8, 16, nw0), _words(rng, q, 1, nw0), masks(q, levels, 8, 16, 1),
+           masks(q, levels), masks(q, levels), rk, fcw, rkl)
+    return [torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(dev) for x in ops]
+
+
+@pytest.mark.parametrize("distinct,levels,n_blk,nw0,q", [
+    (False, 5, 8, 1, 5), (True, 5, 8, 1, 3), (False, 0, 1, 1, 4), (True, 0, 8, 2, 3),
+    (False, 5, 1, 8, 3), (True, 5, 1, 4, 2), (False, 2, 2, 16, 3), (True, 3, 1, 32, 2),
+])
+def test_fast_tail_kernel_matches_plain(dev, distinct, levels, n_blk, nw0, q):
+    ops = _pertail_operands(dev, 60 + levels + nw0, q, nw0, levels, n_blk, distinct)
+    before = fast_tail_expand.launches
+    got = fast_tail_expand(*ops, levels=levels)
+    torch.cuda.synchronize()
+    assert fast_tail_expand.launches == before + 1
+    assert torch.equal(got, fast_tail_expand_plain(*ops, levels=levels))
+
+
+@pytest.mark.parametrize("h,b,q,qe,nw0,levels", [
+    (1 << 15, 64, 37, 5, 8, 5), (4096, 8, 3, 9, 1, 0), (1 << 16, 520, 70, 2, 2, 2),
+    (4096, 16, 0, 3, 1, 2), (1 << 15, 16, 40, 0, 8, 5),  # one half empty
+])
+def test_fused_kernel_matches_plain(dev, h, b, q, qe, nw0, levels):
+    rng = np.random.default_rng(h + q + qe)
+    table = torch.from_numpy(rng.integers(0, 256, size=(h, b), dtype=np.uint8)).to(dev)
+    words = torch.from_numpy(_words(rng, h // 32, q).view(np.int32)).to(dev)
+    ops = _pertail_operands(dev, q + qe, qe, nw0, levels, 1, False)
+    before = fused_scan_expand.launches
+    got = fused_scan_expand(table, words, *ops, levels=levels)
+    torch.cuda.synchronize()
+    assert fused_scan_expand.launches == before + 1
+    want = fused_scan_expand_plain(table, words, *ops, levels=levels)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("h,b,q", [(8192, 1024, 64), (4096, 8, 37), (2048, 520, 3)])
@@ -171,3 +219,93 @@ def test_cuda_server_compat_matches_cpu_server(dev, monkeypatch):
         assert compat_stage.launches > before
         for i, (a, b) in enumerate(zip(*out)):
             assert bytes(tq.recover([a, b])[0].data) == db.data[idxs[i]].tobytes()
+
+
+def _pair_rows(srv, pairs, part):
+    return [r.shares[0].data for r in
+            srv.private_secret_shared_query_batch([p[part] for p in pairs])]
+
+
+def _check_servers(gpu, cpu, db, idxs, pairs):
+    """Both shares on the card equal the CPU server's bytes and recover
+    every row."""
+    out = []
+    for part in (0, 1):
+        g = _pair_rows(gpu, pairs, part)
+        assert g == _pair_rows(cpu, pairs, part)
+        out.append(g)
+    for i, (a, b) in enumerate(zip(*out)):
+        got = bytes(np.frombuffer(a, np.uint8) ^ np.frombuffer(b, np.uint8))
+        assert got == db.data[idxs[i]].tobytes()
+
+
+def test_cuda_pertail_server_matches_cpu_server(dev):
+    """fast_stacked=False: shared keys (35 queries, 1024-bit default leaves
+    clamped to 256 at 2^13 rows; and 128-bit leaves, one tail level) and
+    distinct keys (5, chunked at 4) through the per-query tail kernel."""
+    db = generate_random_db(1 << 13, 8)
+    gpu = TorchPirServer(db, fast_nonshared_chunk=4, fast_stacked=False)
+    cpu = TorchPirServer(db, device="cpu", fast_nonshared_chunk=4, fast_stacked=False)
+    rng = np.random.default_rng(5)
+    idxs = [int(i) for i in rng.integers(0, db.db_size, size=35)]
+    before = fast_tail_expand.launches
+    for lb in (None, 128):
+        pairs = tq.new_index_query_shares_batch(db.metadata(), idxs, 1, fast=True,
+                                                leaf_bits=lb, rand_bytes=rng.bytes)
+        _check_servers(gpu, cpu, db, idxs, pairs)
+    distinct = [tq.new_fast_index_query_shares(db.metadata(), i, 1, rand_bytes=rng.bytes)
+                for i in idxs[:5]]
+    _check_servers(gpu, cpu, db, idxs[:5], distinct)
+    assert fast_tail_expand.launches > before
+
+
+def _stream_rows(srv, batches):
+    stream = srv.fast_serving_stream()
+    futs = [stream.submit(b) for b in batches][1:] + [stream.flush()]
+    return [[r.shares[0].data for r in f()] for f in futs]
+
+
+@pytest.mark.parametrize("slot", [8, 3])
+@pytest.mark.parametrize("stacked", [True, False])
+def test_cuda_stream_matches_batch_api(dev, slot, stacked):
+    """Three batches of 16 and a flush, in both stream modes, equal the
+    card's batch API and recover every row; fused mode launches the
+    fused kernel once a batch and once for the flush."""
+    db = generate_random_db(1 << 13, slot)
+    gpu = TorchPirServer(db, fast_stacked=stacked)
+    rng = np.random.default_rng(slot)
+    batches = [[int(i) for i in rng.integers(0, db.db_size, size=16)] for _ in range(3)]
+    pairs = [tq.new_index_query_shares_batch(db.metadata(), b, 1, fast=True, leaf_bits=128,
+                                             rand_bytes=rng.bytes) for b in batches]
+    before = fused_scan_expand.launches
+    got = []
+    for part in (0, 1):
+        shares = [[p[part] for p in ps] for ps in pairs]
+        rows = _stream_rows(gpu, shares)
+        assert rows == [[r.shares[0].data for r in gpu.private_secret_shared_query_batch(s)]
+                        for s in shares]
+        got.append(rows)
+    assert fused_scan_expand.launches - before == (0 if stacked else 8)
+    for idxs, a_rows, b_rows in zip(batches, *got):
+        for idx, a, b in zip(idxs, a_rows, b_rows):
+            assert bytes(np.frombuffer(a, np.uint8) ^ np.frombuffer(b, np.uint8)) == \
+                db.data[idx].tobytes()
+
+
+def test_cuda_3_byte_rows_match_cpu_server(dev, monkeypatch):
+    """Rows of 3 bytes (tables padded to 4-byte words) on the stacked and
+    per-query-tail fast paths and the compat path (2^13 rows, w = 8:
+    head 8 levels, stages (3, 2)) equal the CPU server and recover."""
+    for name, v in (("COMPAT_MAX_W", 8), ("COMPAT_Q_CHUNK", 4)):
+        monkeypatch.setattr(server_mod, name, v)
+    db = generate_random_db(1 << 13, 3)
+    rng = np.random.default_rng(6)
+    idxs = [int(i) for i in rng.integers(0, db.db_size, size=10)]
+    fast = tq.new_index_query_shares_batch(db.metadata(), idxs, 1, fast=True,
+                                           rand_bytes=rng.bytes)
+    compat = tq.new_index_query_shares_batch(db.metadata(), idxs, 1, rand_bytes=rng.bytes)
+    for stacked in (True, False):
+        gpu = TorchPirServer(db, fast_stacked=stacked)
+        cpu = TorchPirServer(db, device="cpu", fast_stacked=stacked)
+        _check_servers(gpu, cpu, db, idxs, fast)
+    _check_servers(gpu, cpu, db, idxs, compat)
