@@ -6,7 +6,7 @@
 From the repository root, on a machine with one NVIDIA H100 and nvcc:
 
 0. prints the card (nvidia-smi name and power limit) and the versions;
-1. builds the five CUDA kernels from pir_tpu_torch/csrc with nvcc, one
+1. builds the six CUDA kernels from pir_tpu_torch/csrc with nvcc, one
    nvcc per source, all at once;
 2. builds a 2^20-row x 1024-byte table (1 GiB) from --seed, in the
    storage orders of every path (stacked and classic for 1024-bit keys,
@@ -18,8 +18,10 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
    the (3, 3, 2) cascade for a 64-query slice of compat shares (one
    stage launch of the main path), the per-query tail (depth 10, 5 tail
    levels) on a 64-query slice of a 4096-batch's operands and on a
-   distinct-key batch of 64, and the fused scan + tail on the stream's
-   table (depth 13) at 256 queries, both outputs;
+   distinct-key batch of 64, the fused scan + tail on the stream's
+   table (depth 13) at 256 queries, both outputs, and the masked-XOR scan
+   at Q = 1 on the natural-order word table (a fifth 1 GiB table) with a
+   compat single's bits and at Q = 8 on the stacked table's word view;
 3. serves, both shares, through TorchPirServer: 3 batches of 4096
    shared-key fast queries on the stacked path, 3 batches of 1024
    reference-exact (compat) queries (the last one through the async
@@ -32,9 +34,20 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
    stage-by-stage split of one share batch of each batch path and each
    path's kernel launch counts (every count set to 0 just before the
    path runs and read just after);
+   Then single queries and small batches, indices 0, 2^20 - 1 and one
+   random, both shares: fast singles through private_secret_shared_query
+   on both fast paths, compat singles, batches of 3 of both key styles,
+   and expand_shared_query + private_secret_shared_query_with_expanded_bits
+   for both key styles; each answer equals the host golden model and
+   recovers its row, the masked-XOR scan is launched on every such path
+   and the packed scan on none of the fast singles; per-query latency
+   and a split of one single of each kind. Then the tiny-table fallbacks
+   on small tables: a fast batch of depth < 5 and a compat batch of 12
+   on a table of 5 device levels;
 4. serves one distinct-key fast batch of 64 queries on each fast path;
 5. times each kernel, its plain version and its PyTorch yardstick at the
-   main paths' shapes, and prints one JSON line of kernels.
+   main paths' shapes (the masked-XOR scan at Q = 1 and Q = 8), and prints
+   one JSON line of kernels.
 
 Every failed check raises, so the exit code is not 0. The last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
@@ -49,6 +62,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HEIGHT = 1 << 20
 SLOT_BYTES = 1024
@@ -62,6 +76,10 @@ COMPAT_BATCHES = 2  # plus one through the async entry point
 STREAM_LEAF_BITS = 128  # the fused stream's 128-bit leaves: depth 13 here
 TAIL_CHECK_Q = 64  # per-query tail: queries of the 4096-batch checked in phase 2
 FUSED_CHECK_Q = 256  # fused kernel: queries checked in phase 2 (plain scan ~0.5 s)
+SMALL_BATCH = 3  # small batches of both key styles on the single-query paths
+TINY_COMPAT_ROWS = 20  # a compat table of 5 device levels, every level on the host
+TINY_FAST_ROWS = 1024  # fast keys of depth 3 (128-bit leaves)
+TINY_BATCH = 12  # scanned as 8 + 4
 # H100 SXM data-sheet peaks
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
@@ -98,17 +116,22 @@ def main() -> int:
     import numpy as np
 
     from pir_tpu_torch import _build
+    from pir_tpu_torch import server as server_mod
     from pir_tpu_torch.database import DBMetadata
     from pir_tpu_torch.dpf import host as dpf_host
     from pir_tpu_torch.dpf.device import (
         make_compat_payload_batch,
         make_fast_payload_batch,
+        u32_tensor,
+        unpack_key_payload,
     )
     from pir_tpu_torch.models.pipeline import (
+        MIN_BATCH,
         compat_head,
-        payload_tensor,
+        expand_bits_planes,
         pertail_head,
         pertail_words_t,
+        small_batch_scan,
         stacked_fast_geometry,
         stacked_head,
         stacked_words_t,
@@ -121,9 +144,15 @@ def main() -> int:
     from pir_tpu_torch.ops.fast_tail import fast_tail_expand, fast_tail_expand_plain
     from pir_tpu_torch.ops.fused import fused_scan_expand, fused_scan_expand_plain
     from pir_tpu_torch.ops.packed_scan import packed_scan, packed_scan_plain, unpack_words_t
-    from pir_tpu_torch.query import new_fast_index_query_shares, new_index_query_shares_batch
+    from pir_tpu_torch.ops.xor_scan import masked_xor_scan, masked_xor_scan_plain
+    from pir_tpu_torch.query import (
+        new_fast_index_query_shares,
+        new_index_query_shares,
+        new_index_query_shares_batch,
+    )
     from pir_tpu_torch.server import COMPAT_Q_CHUNK, TorchPirServer
     from pir_tpu_torch.state import database_from_numpy
+    from pir_tpu_torch.utils import pad_tile
 
     dev = torch.device("cuda", 0)
 
@@ -181,7 +210,7 @@ def main() -> int:
 
     def tail_ops(shares):
         pay, layout = make_fast_payload_batch(shares)
-        return stacked_head(payload_tensor(pay, dev), layout), layout
+        return stacked_head(u32_tensor(pay, dev), layout), layout
 
     _, pairs = batch_shares(BATCH, distinct=False)
     ops, layout = tail_ops([p[0] for p in pairs])
@@ -219,7 +248,7 @@ def main() -> int:
 
     def compat_ops(shares):
         pay, layout = make_compat_payload_batch(shares, height=HEIGHT)
-        return compat_head(payload_tensor(pay, dev), layout, cw_w)
+        return compat_head(u32_tensor(pay, dev), layout, cw_w)
 
     def stage_args(ops, seeds, t_, off, tl):
         _, _, cw_s, cw_tl, cw_tr, rk, fcw = ops
@@ -262,7 +291,7 @@ def main() -> int:
 
     def pertail_ops(shares):
         pay, layout = make_fast_payload_batch(shares)
-        return pertail_head(payload_tensor(pay, dev), layout, srv_pt.tail_levels)
+        return pertail_head(u32_tensor(pay, dev), layout, srv_pt.tail_levels)
 
     pt_ops, pt_tail = pertail_ops([p[0] for p in pairs])
     log(f"phase 2: classic tables {tuple(table_pt.shape)} (depth {depth}) and "
@@ -291,6 +320,30 @@ def main() -> int:
         f"both outputs); tolerance 0, equal bytes")
     if e_pt_shared or e_pt_distinct or e_fused:
         fail("a per-query tail or fused kernel disagrees with its plain version")
+
+    # masked-XOR scan (single queries and small batches): the natural-order
+    # word table, a fifth 1 GiB table; the kernel at Q = 1 on it with the
+    # bits of a compat single of the single-query paths below, and at
+    # Q = MIN_BATCH on the stacked table's word view with that many
+    # queries' selection words of the 4096-batch above
+    t = time.perf_counter()
+    table_w = srv._table(1)
+    torch.cuda.synchronize()
+    single_idx = [0, HEIGHT - 1, int(rng.integers(HEIGHT))]
+    singles = {kind: [new_index_query_shares(md, i, 1, fast=kind == "fast",
+                                             rand_bytes=keygen_rng.bytes) for i in single_idx]
+               for kind in ("fast", "compat")}
+    xs_bits1 = srv.expand_shared_query(singles["compat"][2][0])
+    table_sw = table.view(torch.int32)
+    xs_bits8 = unpack_words_t(words_t[:, :MIN_BATCH])
+    e_xs1 = err(masked_xor_scan(table_w, xs_bits1), masked_xor_scan_plain(table_w, xs_bits1))
+    e_xs8 = err(masked_xor_scan(table_sw, xs_bits8), masked_xor_scan_plain(table_sw, xs_bits8))
+    log(f"phase 2: natural word table {tuple(table_w.shape)} int32 and a compat single's "
+        f"expansion in {time.perf_counter() - t:.2f} s; masked-XOR scan vs plain max_abs_err: "
+        f"Q = 1 on the natural table {e_xs1}, Q = {MIN_BATCH} on the stacked table's words "
+        f"{tuple(table_sw.shape)} {e_xs8} (tolerance 0, equal bytes)")
+    if e_xs1 or e_xs8:
+        fail("the masked-XOR scan kernel disagrees with its plain version")
 
     def rows_of(results):
         return np.stack([np.frombuffer(bytes(r.shares[0].data), np.uint8) for r in results])
@@ -329,19 +382,21 @@ def main() -> int:
 
     counted = {"stacked_tail": fast_tail_expand_stacked, "packed_scan": packed_scan,
                "compat_stage": compat_stage, "fast_tail": fast_tail_expand,
-               "fused_scan_expand": fused_scan_expand}
+               "fused_scan_expand": fused_scan_expand, "masked_xor_scan": masked_xor_scan}
     path_launches = {}  # path -> {kernel: launches in that path's run}
 
     def reset_counts():
         for fn in counted.values():
             fn.launches = 0
 
-    def read_counts(path, needs):
+    def read_counts(path, needs, forbid=()):
         got = {name: fn.launches for name, fn in counted.items() if fn.launches}
         path_launches[path] = got
         log(f"  launches on the {path} path: {got}")
         if not all(got.get(name) for name in needs):
             fail(f"a kernel of the {path} path was never launched: {got} (needs {needs})")
+        if any(got.get(name) for name in forbid):
+            fail(f"the {path} path launched one of {forbid}: {got}")
         return got
 
     # ---- phase 3: the main paths -----------------------------------------
@@ -371,7 +426,7 @@ def main() -> int:
 
     pay, layout = make_fast_payload_batch([p[0] for p in pairs])
     mark("payload build")
-    pay_t = payload_tensor(pay, dev)
+    pay_t = u32_tensor(pay, dev)
     mark("upload")
     ops = stacked_head(pay_t, layout)
     mark("head walk")
@@ -422,7 +477,7 @@ def main() -> int:
 
     cpay, clayout = make_compat_payload_batch([p[0] for p in cpairs], height=HEIGHT)
     mark_c("payload build")
-    cpay_t = payload_tensor(cpay, dev)
+    cpay_t = u32_tensor(cpay, dev)
     mark_c("upload")
     cops = compat_head(cpay_t, clayout, cw_w)
     mark_c("head walk")
@@ -490,7 +545,7 @@ def main() -> int:
 
     pay, layout = make_fast_payload_batch([p[0] for p in pairs])
     mark_pt("payload build")
-    pay_t = payload_tensor(pay, dev)
+    pay_t = u32_tensor(pay, dev)
     mark_pt("upload")
     pt_ops, pt_tail = pertail_head(pay_t, layout, srv_pt.tail_levels)
     mark_pt("head walk")
@@ -539,6 +594,169 @@ def main() -> int:
             f"{BATCHES * BATCH / secs[1]:.0f} queries/s per server; all recovered, equal to "
             f"the batch API's bytes")
     del rows, s_batches
+
+    # single queries and small batches on the 1 GiB table: the host golden
+    # of every share first (numpy, in threads), then each path with the
+    # launch counts set to 0 just before it and read just after
+    t = time.perf_counter()
+    sh_keys = [(kind, q, part) for kind in singles for q in range(len(single_idx))
+               for part in (0, 1)]
+
+    def host_answer(key):
+        kind, q, part = key
+        return bytes(server_mod.private_secret_shared_query(db, singles[kind][q][part])
+                     .shares[0].data)
+
+    with ThreadPoolExecutor(max_workers=min(len(sh_keys), os.cpu_count() or 1)) as pool:
+        golden = dict(zip(sh_keys, pool.map(host_answer, sh_keys)))
+    log(f"phase 3: host golden of {len(sh_keys)} single shares in "
+        f"{time.perf_counter() - t:.2f} s")
+
+    def check_answers(kind, label, got):
+        """got[q][part]: answer bytes of singles[kind][q][part]."""
+        for q, idx in enumerate(single_idx):
+            for part in (0, 1):
+                if got[q][part] != golden[(kind, q, part)]:
+                    fail(f"{label}: index {idx} share {part} differs from the host golden")
+            rec = np.frombuffer(got[q][0], np.uint8) ^ np.frombuffer(got[q][1], np.uint8)
+            if not np.array_equal(rec, data[idx]):
+                fail(f"{label}: index {idx} does not recover")
+
+    def first_slot(res):
+        return bytes(res.shares[0].data)
+
+    single_s = {}  # path -> seconds per query per server
+    for path, style, server, answer, needs, forbid in (
+            ("fast single, stacked", "fast", srv, None, ("stacked_tail", "masked_xor_scan"),
+             ("packed_scan",)),
+            ("fast single, per-query tail", "fast", srv_pt, None,
+             ("fast_tail", "masked_xor_scan"), ("packed_scan",)),
+            ("compat single", "compat", srv, None, ("masked_xor_scan",), ()),
+            ("fast expand + scan", "fast", srv, "expand", ("masked_xor_scan",), ()),
+            ("compat expand + scan", "compat", srv, "expand", ("masked_xor_scan",), ()),
+            (f"fast batch of {SMALL_BATCH}", "fast", srv, "batch",
+             ("stacked_tail", "masked_xor_scan"), ("packed_scan",)),
+            (f"compat batch of {SMALL_BATCH}", "compat", srv, "batch", ("masked_xor_scan",), ())):
+        reset_counts()
+        t = time.perf_counter()
+        if answer == "batch":  # the three indices' shares as one batch a share
+            rows = [[first_slot(r) for r in server.private_secret_shared_query_batch(
+                [pair[part] for pair in singles[style]])] for part in (0, 1)]
+            got = [[rows[0][q], rows[1][q]] for q in range(SMALL_BATCH)]
+        elif answer == "expand":
+            got = [[first_slot(server.private_secret_shared_query_with_expanded_bits(
+                s, server.expand_shared_query(s))) for s in pair] for pair in singles[style]]
+        else:
+            got = [[first_slot(server.private_secret_shared_query(s)) for s in pair]
+                   for pair in singles[style]]
+        single_s[path] = (time.perf_counter() - t) / (2 * len(single_idx))
+        read_counts(path, needs, forbid)
+        check_answers(style, path, got)
+        log(f"phase 3: {path}: {single_s[path]:.4f} s per query per server (mean of "
+            f"{2 * len(single_idx)}, first use included); indices {single_idx}, both shares, "
+            f"equal to the host golden, all recovered")
+
+    # one single of each kind again, stage by stage, each stage synchronised
+    single_split = {}
+
+    def split_single(label, fn):
+        marks = {}
+        t0 = [time.perf_counter()]
+
+        def mark_s(stage):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            marks[stage] = now - t0[0]
+            t0[0] = now
+
+        fn(mark_s)
+        single_split[label] = marks
+        log(f"phase 3: split of one {label} (s): " +
+            ", ".join(f"{name} {sec:.4f}" for name, sec in marks.items()) +
+            f"; sum {sum(marks.values()):.4f}")
+
+    f_share = singles["fast"][2][0]
+    c_share = singles["compat"][2][0]
+
+    def fast_stacked_single(mark_s):
+        pay, layout = make_fast_payload_batch(pad_tile([f_share], MIN_BATCH), shared_rk=True)
+        mark_s("payload build")
+        pay_t = u32_tensor(pay, dev)
+        mark_s("upload")
+        pay_k = torch.cat([pay_t, pay_t[:1].expand(k - MIN_BATCH, -1)])  # the step of k
+        s_ops = stacked_head(pay_k, layout)
+        mark_s("head walk")
+        s_packed = fast_tail_expand_stacked(*s_ops, tail=tail, n_blk=n_blk)
+        mark_s("tail kernel")
+        s_words = stacked_words_t(s_packed, k, table.shape[0])[:, :MIN_BATCH]
+        mark_s("words regroup")
+        s_out = small_batch_scan(table, s_words)
+        mark_s("scan kernel")
+        s_out[:1].cpu()
+        mark_s("download")
+
+    def fast_pertail_single(mark_s):
+        pay, layout = make_fast_payload_batch(pad_tile([f_share], MIN_BATCH), shared_rk=True)
+        mark_s("payload build")
+        pay_t = u32_tensor(pay, dev)
+        mark_s("upload")
+        p_ops, p_tail = pertail_head(pay_t, layout, srv_pt.tail_levels)
+        mark_s("head walk")
+        p_packed = fast_tail_expand(*p_ops, levels=p_tail)
+        mark_s("tail kernel")
+        p_words = pertail_words_t(p_packed, table_pt.shape[0])
+        mark_s("words")
+        p_out = small_batch_scan(table_pt, p_words)
+        mark_s("scan kernel")
+        p_out[:1].cpu()
+        mark_s("download")
+
+    def compat_single(mark_s):
+        pay, layout, dkey = srv._index_payload(c_share, HEIGHT)
+        mark_s("key build (host levels) and payload")
+        pay_t = u32_tensor(pay, dev)
+        mark_s("upload")
+        k_ops = unpack_key_payload(pay_t, layout)
+        bits = expand_bits_planes(*k_ops[:5], k_ops[6], k_ops[5],
+                                  srv._perm(dkey.plan.num_bits, HEIGHT),
+                                  d_levels=layout.d_levels)
+        mark_s(f"expansion ({layout.d_levels} device levels)")
+        c_out = masked_xor_scan(table_w, bits)
+        mark_s("scan kernel")
+        c_out.cpu()
+        mark_s("download")
+
+    split_single("fast single, stacked", fast_stacked_single)
+    split_single("fast single, per-query tail", fast_pertail_single)
+    split_single("compat single", compat_single)
+
+    # the tiny-table fallbacks: fast keys of depth < 5 and a compat table of
+    # 5 device levels (every level walked on the host) run per query
+    for path, style, rows in ((f"fast batch of {TINY_BATCH}, depth < 5", "fast", TINY_FAST_ROWS),
+                             (f"compat batch of {TINY_BATCH}, 5 device levels", "compat",
+                              TINY_COMPAT_ROWS)):
+        tiny = database_from_numpy(data[:rows], SLOT_BYTES)
+        tiny_srv = TorchPirServer(tiny)
+        idx = [0, rows - 1] + [int(i) for i in rng.integers(0, rows, TINY_BATCH - 2)]
+        pairs = new_index_query_shares_batch(tiny.metadata(), idx, 1, fast=style == "fast",
+                                             leaf_bits=128 if style == "fast" else None,
+                                             rand_bytes=keygen_rng.bytes)
+        if style == "fast" and pairs[0][0].key_fast.depth >= 5:
+            fail(f"the tiny fast table has depth {pairs[0][0].key_fast.depth}")
+        if style == "compat" and tiny_srv._compat_device_bits(1) > 5:
+            fail("the tiny compat table has more than 5 device levels")
+        reset_counts()
+        ans = [rows_of(tiny_srv.private_secret_shared_query_batch([p[part] for p in pairs]))
+               for part in (0, 1)]
+        read_counts(path, ("masked_xor_scan",))
+        for i, pair in enumerate(pairs):
+            for part in (0, 1):
+                want = bytes(server_mod.private_secret_shared_query(tiny, pair[part])
+                             .shares[0].data)
+                if ans[part][i].tobytes() != want:
+                    fail(f"{path}: query {i} share {part} differs from the host golden")
+        check_recovered(idx, ans, path)
+        log(f"phase 3: {path} ({rows} rows): equal to the host golden, all recovered")
 
     # ---- phase 4: distinct-key batches -----------------------------------
     idx, dpairs = batch_shares(DISTINCT_BATCH, distinct=True)
@@ -734,6 +952,26 @@ def main() -> int:
         fail("the fused kernel disagrees at the stream's shapes")
     del f_ops, f_words, fz_out
 
+    # masked-XOR scan: Q = 1 on the natural table (a single query's scan)
+    # and Q = MIN_BATCH on the stacked table's word view (a small fast batch)
+    def time_xor_scan(tbl, bits, label):
+        q = 1 if bits.dim() == 1 else bits.shape[0]
+        ms, out = cuda_ms(lambda: masked_xor_scan(tbl, bits), 10)
+        plain_ms, plain = cuda_ms(lambda: masked_xor_scan_plain(tbl, bits), 1, warm=False)
+        e = err(out, plain)
+        del plain
+        bound = {"bytes": nbytes(tbl, bits, out) / HBM_BYTES_PER_S * 1e3,
+                 "operations": 2 * q * tbl.numel() / INT32_OPS_PER_S * 1e3}
+        log(f"phase 5: masked-XOR scan, {label} ({q} queries x {tbl.shape[0]} rows x "
+            f"{tbl.shape[1]} words): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bounds {bound}, max_abs_err {e}")
+        if e:
+            fail(f"the masked-XOR scan disagrees at the {label} shape")
+        return ms, plain_ms, bound, e
+
+    xs1 = time_xor_scan(table_w, xs_bits1, "single query, natural table")
+    xs8 = time_xor_scan(table_sw, xs_bits8, "small fast batch, stacked table")
+
     launches = {name: sum(run.get(name, 0) for run in path_launches.values())
                 for name in counted}
 
@@ -763,6 +1001,11 @@ def main() -> int:
         entry("fused_scan_expand", "pir_tpu_torch/csrc/fused_scan_expand.cu",
               "pir_tpu/ops/pallas_fused.py:118", fz_ms, fz_plain_ms, fz_bound, None,
               max(e_fz, e_fused)),
+        # at Q = 1 on the natural table (Q = 8 on the stacked table: log, --out);
+        # no one PyTorch call XOR-reduces, hence no library time
+        entry("masked_xor_scan", "pir_tpu_torch/csrc/masked_xor_scan.cu",
+              "pir_tpu/ops/pallas_scan.py:182", xs1[0], xs1[1], xs1[2], None,
+              max(xs1[3], xs8[3], e_xs1, e_xs8)),
     ]}
     if args.out:
         summary = dict(kernels, card=smi, per_share_batch_s=per_batch,
@@ -776,6 +1019,9 @@ def main() -> int:
                        pertail_per_share_batch_s=per_pt_batch, pertail_split_s=split_pt,
                        stream_s=stream_s, fused_parts_ms=fz_parts, scan_then_tail_ms=seq_ms,
                        fused_halves_ms=half_ms,
+                       single_s_per_query=single_s, single_split_s=single_split,
+                       masked_xor_scan_q8={"ms": xs8[0], "plain_ms": xs8[1],
+                                           "bound_ms": xs8[2]},
                        elapsed_s=time.perf_counter() - T0)
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)

@@ -6,8 +6,10 @@ walk (plain torch), then for fast keys the stacked tail kernel (or the
 per-query tail kernel, ``fast_stacked=False``) and for reference-exact
 (compat) keys the compat-stage kernel, and the packed scan kernel; the
 serving stream's fused mode runs the scan and the next batch's tail in
-one kernel (hand-written CUDA, ``csrc/``). Nothing of JAX or of pir_tpu
-is imported; each module names its pir_tpu counterpart.
+one kernel. Single queries and small batches expand per query and scan
+with the masked-XOR scan kernel (hand-written CUDA, ``csrc/``). Nothing
+of JAX or of pir_tpu is imported; each module names its pir_tpu
+counterpart.
 """
 
 from .database import Database, DBMetadata, generate_random_db

@@ -20,6 +20,11 @@ compat-stage cascade (``ops/compat_stage.py``) walks the rest in stages
 planned by ``compat_stage_plan``; ``_compat_perm`` is the matching
 storage order of the table rows.
 
+Single queries and small batches expand per query instead
+(``make_device_key``, ``make_device_fast_key``, ``expand_query_bits``,
+``fast_leaf_bits``; the per-query subset below): a host prefix, then
+breadth-first device levels, then a gather into natural row order.
+
 Device tensors hold the bit pattern of the JAX package's uint32 words as
 ``torch.int32``.
 """
@@ -32,8 +37,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .aes_host import key_schedule_batch
-from .bitslice import aes_encrypt_planes
+from ..utils.bits import go_varint_vec
+from .aes_host import key_schedule, key_schedule_batch, prf_blocks
+from .bitslice import aes_encrypt_planes, blocks_to_planes, key_masks
+from .host import Key2P, _leaf_blocks_wide
 
 _FULL = np.uint32(0xFFFFFFFF)
 
@@ -76,6 +83,20 @@ def _leaf_ctr_masks(n_blk: int) -> np.ndarray:
         ctr[b, :8] = np.frombuffer(b.to_bytes(8, "little"), np.uint8)
     bits = ((ctr[None] >> np.arange(8, dtype=np.uint8)[:, None, None]) & 1)
     return (bits.astype(np.uint32) * _FULL)[..., None]
+
+
+def u32_tensor(a, device=None) -> torch.Tensor:
+    """A numpy uint32 array or scalar (a payload, a key array) -> its int32
+    bit pattern as a tensor on `device`."""
+    return torch.from_numpy(np.asarray(a, dtype=np.uint32).view(np.int32)).to(device)
+
+
+def _bit_reverse(x: np.ndarray, nbits: int) -> np.ndarray:
+    """Each value's low `nbits` bits reversed (int64 arrays)."""
+    rev = np.zeros_like(x)
+    for b in range(nbits):
+        rev |= ((x >> b) & 1) << (nbits - 1 - b)
+    return rev
 
 
 def scatter_rows_to_storage_order(rows: np.ndarray, perm: np.ndarray,
@@ -407,10 +428,7 @@ def _fast_leaf_perm_root(depth: int, height: int, n_blk: int = 1) -> np.ndarray:
     wb = within & 127
     byte_i = wb >> 3
     bit_k = wb & 7
-    rev = np.zeros_like(leaf)
-    for b in range(depth):
-        rev |= ((leaf >> b) & 1) << (depth - 1 - b)
-    return ((bit_k * 16 + byte_i) * n_blk + blk) * (1 << depth) + rev
+    return ((bit_k * 16 + byte_i) * n_blk + blk) * (1 << depth) + _bit_reverse(leaf, depth)
 
 
 def _fast_leaf_perm_root_stacked(depth: int, height: int, n_blk: int,
@@ -433,13 +451,9 @@ def _fast_leaf_perm_root_stacked(depth: int, height: int, n_blk: int,
     wb = within & 127
     byte_i = wb >> 3
     bit_k = wb & 7
-    top = leaf >> tail
     c = leaf & ((1 << tail) - 1)
-    rev = np.zeros_like(top)
-    for b in range(head):
-        rev |= ((top >> b) & 1) << (head - 1 - b)
     return (((bit_k << tail) * n_blk + c * n_blk + blk) * 16
-            + byte_i) * (1 << head) + rev
+            + byte_i) * (1 << head) + _bit_reverse(leaf >> tail, head)
 
 
 # --------------------------------------------------------------------------
@@ -540,17 +554,14 @@ def _compat_perm(device_bits: int, height: int, w: int,
     stages' branch bits appended MSB-first per stage.
     """
     split = 5 + int(np.log2(w))
-    r = np.arange(height, dtype=np.int64)
-    # rev bit (i-1) = branch at level i (MSB-first path bits of r)
-    rev = np.zeros_like(r)
-    for b in range(device_bits):
-        rev |= ((r >> b) & 1) << (device_bits - 1 - b)
+    # rev bit (i-1) = branch at level i (MSB-first path bits of the row)
+    rev = _bit_reverse(np.arange(height, dtype=np.int64), device_bits)
     bitpos = rev & 31
     word = (rev >> 5) & (w - 1)
-    chunk = np.zeros_like(r)
+    chunk = np.zeros_like(rev)
     lvl = split
     for t in tails:
-        b_bits = np.zeros_like(r)
+        b_bits = np.zeros_like(rev)
         for jj in range(t):  # the stage's first level ends up most significant
             b_bits = (b_bits << 1) | ((rev >> (lvl + jj)) & 1)
         chunk = (chunk << t) | b_bits
@@ -640,3 +651,420 @@ def expand_planes_from_root(seeds, t_plane, cw_seed_masks, cw_tl, cw_tr, rk_mask
             x, t_plane, cw_seed_masks[:, i].transpose(0, 1), cw_tl[:, i:i + 1],
             cw_tr[:, i:i + 1], rk, i)
     return x.transpose(0, 1), t_plane
+
+
+# --------------------------------------------------------------------------
+# Per-query expansion: single queries and small batches
+# --------------------------------------------------------------------------
+# (counterpart of pir_tpu/dpf/device.py:84-296, :300-562 and :1222-1277)
+# The first levels run on the host (exact numpy AES, natural node order,
+# pruned to the nodes whose subtree meets [0, height)) until
+# min_device_nodes (32 by default) nodes are live; the device walks the
+# rest breadth first, concatenating [left children | right children] each
+# level, and a gather with the plan's permutation restores natural row
+# order at the leaf stage. Key material is built on the host as numpy
+# uint32 arrays (the JAX package's arrays, value for value) and reaches
+# the device as one payload row.
+
+def _leaf_select_bits(seeds: torch.Tensor, t_plane: torch.Tensor,
+                      fcw_mask: torch.Tensor) -> torch.Tensor:
+    """Packed PIR selection bits, bit = (leaf value % 2 == 0): seeds
+    (8,16,NW) or (8,Q,16,NW) -> (NW,) or (Q,NW) words.
+
+    Varint parity = (byte0.bit1 ^ byte0.bit0) unless all 8 continuation
+    bits are set (value 0); the final value's parity adds t * (FinalCW & 1).
+    """
+    allcont = seeds[7, ..., 0, :]
+    for i in range(1, 8):
+        allcont = allcont & seeds[7, ..., i, :]
+    parity_s = (seeds[0, ..., 0, :] ^ seeds[1, ..., 0, :]) & ~allcont
+    return ~(parity_s ^ (t_plane & fcw_mask))  # inverted convention (db.go:142)
+
+
+def _unpack_bits(packed: torch.Tensor) -> torch.Tensor:
+    """(..., NW) words -> (..., 32 * NW) uint8 bits {0,1}, LSB first."""
+    shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1], -1).to(torch.uint8)
+
+
+@dataclass(frozen=True)
+class ExpandPlan:
+    """Geometry of a pruned breadth-first expansion."""
+
+    num_bits: int
+    height: int
+    host_levels: int  # levels expanded on the host (natural order)
+    m_nodes: int  # live nodes at host_levels
+    m_padded: int  # padded to a multiple of 32
+    device_levels: int
+
+
+def make_plan(num_bits: int, height: int, min_device_nodes: int = 32) -> ExpandPlan:
+    lvl = 0
+    m = 1
+    while lvl < num_bits and m < min_device_nodes:
+        lvl += 1
+        m = -(-height // (1 << (num_bits - lvl)))  # ceil: live nodes at lvl
+    m_padded = -(-m // 32) * 32 if lvl < num_bits else m
+    return ExpandPlan(num_bits, height, lvl, m, m_padded, num_bits - lvl)
+
+
+@functools.lru_cache(maxsize=64)
+def _leaf_perm(num_bits: int, height: int, min_device_nodes: int = 32) -> np.ndarray:
+    """Gather indices: natural row -> storage position."""
+    plan = make_plan(num_bits, height, min_device_nodes)
+    d = plan.device_levels
+    x = np.arange(height, dtype=np.int64)
+    return _bit_reverse(x & ((1 << d) - 1), d) * plan.m_padded + (x >> d)
+
+
+def _host_prefix(server, key, plan: ExpandPlan):
+    """Expand levels [0, host_levels) on the host, pruned, natural order:
+    -> (m_nodes, 16) uint8 seeds and (m_nodes,) t bits."""
+    seeds = np.frombuffer(key.s_init, dtype=np.uint8)[None, :].copy()
+    t_bits = np.array([key.t_init], dtype=np.uint8)
+    nb = plan.num_bits
+    for i in range(plan.host_levels):
+        flat = prf_blocks(seeds, server.ciphers, 3).reshape(seeds.shape[0], 48)
+        cw_i = key.cw[i]
+        cw_seed = np.frombuffer(cw_i[:16], dtype=np.uint8)
+        t_mask = t_bits[:, None]
+        s_l = flat[:, 0:16] ^ cw_seed[None, :] * t_mask
+        s_r = flat[:, 17:33] ^ cw_seed[None, :] * t_mask
+        t_l = (flat[:, 16] & 1) ^ (t_bits & cw_i[16])
+        t_r = (flat[:, 33] & 1) ^ (t_bits & cw_i[17])
+        # interleave children -> natural order, then keep the live ones
+        live = -(-plan.height // (1 << (nb - i - 1)))
+        seeds = np.stack([s_l, s_r], axis=1).reshape(-1, 16)[:live]
+        t_bits = np.stack([t_l, t_r], axis=1).reshape(-1).astype(np.uint8)[:live]
+    return seeds, t_bits
+
+
+@dataclass
+class DeviceKey2P:
+    """Device-ready arrays (numpy uint32) for one server's compat share."""
+
+    plan: ExpandPlan
+    seeds0: np.ndarray | None  # (8, 16, NW0) packed level-`host_levels` seeds
+    t0: np.ndarray | None  # (NW0,) packed t bits
+    cw_seed_masks: np.ndarray | None  # (d, 8, 16, 1)
+    cw_tl: np.ndarray | None  # (d,)
+    cw_tr: np.ndarray | None  # (d,)
+    rk_masks: np.ndarray | None  # (11, 8, 3, 16, 1)
+    fcw_mask: np.uint32 | None
+    perm: np.ndarray | None  # (height,) natural -> storage gather
+    host_bits: np.ndarray | None  # (height,) uint8, when device_levels == 0
+
+
+def _pack_t(t_bits: np.ndarray, m_padded: int) -> np.ndarray:
+    padded = np.zeros(m_padded, dtype=np.uint32)
+    padded[: len(t_bits)] = t_bits
+    w = padded.reshape(-1, 32)
+    return (w << np.arange(32, dtype=np.uint32)).sum(axis=1, dtype=np.uint32)
+
+
+def _block_masks(block: bytes) -> np.ndarray:
+    """16-byte block -> (8, 16, 1) full-word bit masks."""
+    return _block_masks_wide(block)[:, 0]
+
+
+def _block_masks_wide(block: bytes) -> np.ndarray:
+    """16*n-byte wide final CW -> (8, n, 16, 1) full-word bit masks."""
+    b = np.frombuffer(block, dtype=np.uint8).reshape(-1, 16)
+    bits = (b[None] >> np.arange(8, dtype=np.uint8)[:, None, None]) & 1
+    return (bits.astype(np.uint32) * _FULL)[..., None]
+
+
+def _cw_masks_list(cws: list[bytes]):
+    """Correction words -> (d, 8, 16, 1) seed masks, (d,) tL and tR masks."""
+    d = len(cws)
+    seed_masks = np.zeros((d, 8, 16, 1), dtype=np.uint32)
+    tl = np.zeros(d, dtype=np.uint32)
+    tr = np.zeros(d, dtype=np.uint32)
+    for i, cw in enumerate(cws):
+        seed_masks[i] = _block_masks(cw[:16])
+        tl[i] = _FULL if cw[16] & 1 else 0
+        tr[i] = _FULL if cw[17] & 1 else 0
+    return seed_masks, tl, tr
+
+
+def prf_key_masks(server) -> np.ndarray:
+    """(11, 8, 3, 16, 1) round-key masks for the first 3 fixed PRF keys."""
+    rks = np.stack([key_schedule(c.key) for c in server.ciphers[:3]])
+    m = key_masks(rks)  # (11, 8, 16, 3)
+    return np.ascontiguousarray(m.transpose(0, 1, 3, 2))[..., None]
+
+
+def make_device_key(server, key, height: int, min_device_nodes: int = 32) -> DeviceKey2P:
+    """Host prefix + device arrays of a compat share (`server` a
+    ``dpf.host.Dpf`` over the table's num_bits). Tiny domains, whose every
+    level runs on the host, carry their selection bits in ``host_bits``."""
+    plan = make_plan(server.num_bits, height, min_device_nodes)
+    seeds, t_bits = _host_prefix(server, key, plan)
+
+    if plan.device_levels == 0:
+        vals = go_varint_vec(np.ascontiguousarray(seeds[:, :8])) + t_bits.astype(
+            np.int64) * key.final_cw
+        host_bits = ((vals & 1) == 0)[:height].astype(np.uint8)
+        return DeviceKey2P(plan, None, None, None, None, None, None, None, None, host_bits)
+
+    pad = plan.m_padded - seeds.shape[0]
+    if pad:
+        seeds = np.concatenate([seeds, np.zeros((pad, 16), dtype=np.uint8)])
+        t_bits = np.concatenate([t_bits, np.zeros(pad, dtype=np.uint8)])
+    cw_seed_masks, tl, tr = _cw_masks_list(key.cw[plan.host_levels:])
+    return DeviceKey2P(
+        plan=plan,
+        seeds0=blocks_to_planes(seeds),
+        t0=_pack_t(t_bits, plan.m_padded),
+        cw_seed_masks=cw_seed_masks,
+        cw_tl=tl,
+        cw_tr=tr,
+        rk_masks=prf_key_masks(server),
+        fcw_mask=np.uint32(_FULL if (key.final_cw & 1) else 0),
+        perm=_leaf_perm(plan.num_bits, height, min_device_nodes),
+        host_bits=None,
+    )
+
+
+def _level_step(seeds, t_plane, cw_seed_mask, cw_tl, cw_tr, rk_masks):
+    """One breadth-first doubling level: (8,16,NW) -> (8,16,2NW), or with
+    queries on the second axis (8,Q,16,NW) -> (8,Q,16,2NW) (cw_seed_mask
+    (8,Q,16,1), cw_tl / cw_tr (Q,1), rk_masks (11,8,3,Q,16,1))."""
+    out = _prf_triple(seeds, rk_masks)
+    s_l, t_l, s_r, t_r = _children(out, t_plane, cw_seed_mask, cw_tl, cw_tr)
+    return torch.cat([s_l, s_r], dim=-1), torch.cat([t_l, t_r], dim=-1)
+
+
+def _leaf_stage(seeds, t_plane, fcw_mask, perm: torch.Tensor) -> torch.Tensor:
+    """Leaf selection bits, gathered into natural row order by the int64
+    `perm` (on the seeds' device): -> (rows,) or (Q, rows) uint8."""
+    return _unpack_bits(_leaf_select_bits(seeds, t_plane, fcw_mask))[..., perm]
+
+
+def expand_query_bits(dkey: DeviceKey2P, device=None,
+                      perm: torch.Tensor | None = None) -> torch.Tensor:
+    """(height,) uint8 selection bits, natural row order, on `device`.
+    `perm` is the leaf permutation already on the device (servers cache
+    one per geometry); by default dkey.perm is uploaded."""
+    if dkey.host_bits is not None:
+        return torch.from_numpy(dkey.host_bits).to(device)
+    seeds, t_plane = u32_tensor(dkey.seeds0, device), u32_tensor(dkey.t0, device)
+    cw_s, cw_tl, cw_tr, rk = (u32_tensor(a, device) for a in (
+        dkey.cw_seed_masks, dkey.cw_tl, dkey.cw_tr, dkey.rk_masks))
+    for i in range(dkey.plan.device_levels):
+        seeds, t_plane = _level_step(seeds, t_plane, cw_s[i], cw_tl[i], cw_tr[i], rk)
+    if perm is None:
+        perm = torch.from_numpy(dkey.perm).to(device)
+    return _leaf_stage(seeds, t_plane, u32_tensor(dkey.fcw_mask, device), perm)
+
+
+@dataclass
+class DeviceFastKey2P:
+    """Device-ready arrays (numpy uint32) for a fast-mode share."""
+
+    plan: ExpandPlan  # over *leaves* (each leaf = leaf_bits rows)
+    height: int
+    seeds0: np.ndarray | None
+    t0: np.ndarray | None
+    cw_seed_masks: np.ndarray | None
+    cw_tl: np.ndarray | None
+    cw_tr: np.ndarray | None
+    fcw_masks: np.ndarray | None  # (8, 16, 1), or (8, n_blk, 16, 1) for wide leaves
+    rk_masks: np.ndarray | None  # (11, 8, 3, 16, 1) tree PRF keys
+    rk_leaf: np.ndarray | None  # (11, 8, 16, 1) output-layer PRF key (key 3)
+    perm: np.ndarray | None  # (height,) natural row -> flat bit position
+    host_bits: np.ndarray | None
+
+
+@functools.lru_cache(maxsize=64)
+def _fast_leaf_perm(depth: int, height: int, m_padded: int, n_blk: int = 1) -> np.ndarray:
+    """Natural row -> flat index into the unpacked (8,16,[n_blk,]NW*32)
+    bit tensor (n_blk > 1: wide leaves, block-major lanes; see
+    fast_leaf_bits_flat)."""
+    nw32 = (m_padded << depth) if depth else m_padded
+    r = np.arange(height, dtype=np.int64)
+    leaf = r // (128 * n_blk)
+    within = r % (128 * n_blk)
+    blk = within >> 7
+    wb = within & 127
+    pos = _bit_reverse(leaf & ((1 << depth) - 1), depth) * m_padded + (leaf >> depth)
+    return (((wb & 7) * 16 + (wb >> 3)) * n_blk + blk) * nw32 + pos
+
+
+def make_device_fast_key(server, fkey, min_device_nodes: int = 32) -> DeviceFastKey2P:
+    """Host prefix + device arrays of a fast share. A tree of fewer than
+    `min_device_nodes` leaves (depth < 5 at the default) runs wholly on
+    the host and carries its selection bits in ``host_bits``."""
+    n_blk = fkey.leaf_bits // 128
+    n_leaves = -(-fkey.height // fkey.leaf_bits)
+    plan = make_plan(fkey.depth, n_leaves, min_device_nodes)
+
+    # host prefix over the (depth, n_leaves) tree
+    tree_key = Key2P(fkey.s_init, fkey.t_init, fkey.cw, 0)
+    saved = server.num_bits
+    server.num_bits = fkey.depth
+    try:
+        seeds, t_bits = _host_prefix(server, tree_key, plan)
+    finally:
+        server.num_bits = saved
+
+    if plan.device_levels == 0 and plan.host_levels == fkey.depth:
+        blocks = _leaf_blocks_wide(server, seeds, n_blk)
+        fcw = np.frombuffer(fkey.final_cw_block, dtype=np.uint8)
+        blocks = blocks ^ fcw[None, :] * t_bits[:, None]
+        bits = np.unpackbits(blocks, axis=1, bitorder="little").reshape(-1)
+        return DeviceFastKey2P(plan, fkey.height, None, None, None, None, None, None, None,
+                               None, None, bits[: fkey.height].astype(np.uint8))
+
+    pad = plan.m_padded - seeds.shape[0]
+    if pad:
+        seeds = np.concatenate([seeds, np.zeros((pad, 16), dtype=np.uint8)])
+        t_bits = np.concatenate([t_bits, np.zeros(pad, dtype=np.uint8)])
+    cw_seed_masks, tl, tr = _cw_masks_list(fkey.cw[plan.host_levels:])
+    return DeviceFastKey2P(
+        plan=plan,
+        height=fkey.height,
+        seeds0=blocks_to_planes(seeds),
+        t0=_pack_t(t_bits, plan.m_padded),
+        cw_seed_masks=cw_seed_masks,
+        cw_tl=tl,
+        cw_tr=tr,
+        fcw_masks=(_block_masks(fkey.final_cw_block) if n_blk == 1
+                   else _block_masks_wide(fkey.final_cw_block)),
+        rk_masks=prf_key_masks(server),
+        rk_leaf=key_masks(key_schedule(server.ciphers[3].key)[None]),  # (11,8,16,1)
+        perm=_fast_leaf_perm(plan.device_levels, fkey.height, plan.m_padded, n_blk),
+        host_bits=None,
+    )
+
+
+def fast_leaf_bits_flat(seeds, t_plane, fcw_masks, rk_leaf) -> torch.Tensor:
+    """Leaf stage without reordering: seeds (8,16,NW) -> flat uint8 bits.
+
+    128-bit leaves (fcw_masks (8,16,1)): index (bit*16 + byte)*NW*32 +
+    leafpos. Wide leaves (fcw_masks (8,n_blk,16,1)): each leaf seed
+    CTR-extends into n_blk MMO blocks, block-major along lanes (one
+    bitsliced AES over an (8, 16, n_blk*NW) state); index ((bit*16 +
+    byte)*n_blk + blk)*NW*32 + leafpos, as _fast_leaf_perm expects."""
+    if fcw_masks.dim() == 4:  # wide leaf
+        n_blk = fcw_masks.shape[1]
+        nw = seeds.shape[-1]
+        ctr = u32_tensor(_leaf_ctr_masks(n_blk), seeds.device)
+        x = torch.cat([seeds ^ ctr[:, b] for b in range(n_blk)], dim=-1)
+        tt = t_plane.repeat(n_blk)
+        fcw = torch.cat([fcw_masks[:, b].expand(8, 16, nw) for b in range(n_blk)], dim=-1)
+    else:
+        x, tt, fcw = seeds, t_plane, fcw_masks
+    out = (aes_encrypt_planes(x, rk_leaf) ^ x) ^ (tt[None, None, :] & fcw)
+    return _unpack_bits(out).reshape(-1)
+
+
+def fast_leaf_bits(seeds, t_plane, fcw_masks, rk_leaf, perm: torch.Tensor) -> torch.Tensor:
+    """Leaf stage: seeds (8,16,NW) -> (height,) uint8 natural-order bits."""
+    return fast_leaf_bits_flat(seeds, t_plane, fcw_masks, rk_leaf)[perm]
+
+
+# Packed key payloads: one upload a query. Every array of a device key,
+# flattened into one uint32 row and sliced apart on the device.
+
+@dataclass(frozen=True)
+class PayloadLayout:
+    nw0: int
+    d_levels: int
+    height: int
+
+    @property
+    def sizes(self):
+        nw0, d = self.nw0, self.d_levels
+        return (8 * 16 * nw0, nw0, d * 128, d, d, 1, 11 * 8 * 16 * 3)
+
+    @property
+    def total(self):
+        return sum(self.sizes)
+
+
+def _concat_u32(parts) -> np.ndarray:
+    return np.concatenate([np.asarray(p, dtype=np.uint32).ravel() for p in parts])
+
+
+def pack_key_payload(dkey: DeviceKey2P) -> tuple[np.ndarray, PayloadLayout]:
+    plan = dkey.plan
+    layout = PayloadLayout(plan.m_padded // 32, plan.device_levels, plan.height)
+    payload = _concat_u32([dkey.seeds0, dkey.t0, dkey.cw_seed_masks, dkey.cw_tl, dkey.cw_tr,
+                           dkey.fcw_mask, dkey.rk_masks])
+    assert payload.shape[0] == layout.total
+    return payload, layout
+
+
+def _segments(payload: torch.Tensor, sizes) -> list[torch.Tensor]:
+    offs = np.cumsum((0,) + tuple(sizes))
+    return [payload[..., offs[i]:offs[i + 1]] for i in range(len(sizes))]
+
+
+def unpack_key_payload(payload: torch.Tensor, layout: PayloadLayout):
+    """Device-side inverse of pack_key_payload: payload (total,) or (Q,
+    total) int32 -> seeds (8,16,NW0), t (NW0,), cw_s (d,8,16,1), cw_tl /
+    cw_tr (d,), fcw (), rk (11,8,3,16,1), each with the leading Q axis
+    of a batch of payload rows."""
+    nw0, d = layout.nw0, layout.d_levels
+    lead = payload.shape[:-1]
+    seg = _segments(payload, layout.sizes)
+    return (
+        seg[0].reshape(*lead, 8, 16, nw0),
+        seg[1],
+        seg[2].reshape(*lead, d, 8, 16, 1),
+        seg[3],
+        seg[4],
+        seg[5][..., 0],
+        seg[6].reshape(*lead, 11, 8, 3, 16, 1),
+    )
+
+
+def make_key_payload(server, key, height: int, min_device_nodes: int = 32):
+    """Host keygen-to-payload shortcut: (payload, layout), or (the host-bits
+    DeviceKey2P, None) for tiny domains."""
+    dkey = make_device_key(server, key, height, min_device_nodes)
+    if dkey.host_bits is not None:
+        return dkey, None
+    return pack_key_payload(dkey)
+
+
+@dataclass(frozen=True)
+class FastPayloadLayout:
+    nw0: int
+    d_levels: int
+    height: int
+    leaf_blocks: int = 1  # wide leaves: fcw masks are (8, n_blk, 16, 1)
+
+    @property
+    def sizes(self):
+        nw0, d = self.nw0, self.d_levels
+        return (128 * nw0, nw0, d * 128, d, d, 128 * self.leaf_blocks,
+                11 * 8 * 3 * 16, 11 * 8 * 16)
+
+    @property
+    def total(self):
+        return sum(self.sizes)
+
+
+def pack_fast_payload(dk: DeviceFastKey2P) -> tuple[np.ndarray, FastPayloadLayout]:
+    n_blk = dk.fcw_masks.shape[1] if dk.fcw_masks.ndim == 4 else 1
+    layout = FastPayloadLayout(dk.plan.m_padded // 32, dk.plan.device_levels, dk.height, n_blk)
+    payload = _concat_u32([dk.seeds0, dk.t0, dk.cw_seed_masks, dk.cw_tl, dk.cw_tr,
+                           dk.fcw_masks, dk.rk_masks, dk.rk_leaf])
+    assert payload.shape[0] == layout.total
+    return payload, layout
+
+
+def unpack_fast_payload(payload: torch.Tensor, layout: FastPayloadLayout):
+    """Device-side inverse of pack_fast_payload: (total,) int32 -> seeds
+    (8,16,NW0), t (NW0,), cw_s (d,8,16,1), cw_tl / cw_tr (d,), fcw
+    (8,16,1) or (8,n_blk,16,1), rk (11,8,3,16,1), rk_leaf (11,8,16,1)."""
+    nw0, d = layout.nw0, layout.d_levels
+    seg = _segments(payload, layout.sizes)
+    fcw = (seg[5].reshape(8, 16, 1) if layout.leaf_blocks == 1
+           else seg[5].reshape(8, layout.leaf_blocks, 16, 1))
+    return (seg[0].reshape(8, 16, nw0), seg[1], seg[2].reshape(d, 8, 16, 1), seg[3], seg[4],
+            fcw, seg[6].reshape(11, 8, 3, 16, 1), seg[7].reshape(11, 8, 16, 1))

@@ -1,12 +1,20 @@
-"""The root-start batched answer pipelines (counterpart of
-``stacked_fast_geometry``, ``fused_fast_root_batch_stacked_fn``,
+"""The answer pipelines (counterpart of the per-query functions
+``expand_bits_planes`` ... ``fused_answer_batch_fn``,
+``_expand_planes_loop`` and ``fused_fast_bits_fn``, and of the root-start
+batch paths ``stacked_fast_geometry``, ``fused_fast_root_batch_stacked_fn``,
 ``fused_fast_root_batch_pallas_fn``, ``fused_fast_overlap_step_fn``,
 ``_compat_skip_walk`` and ``fused_compat_root_batch_pallas_fn`` in
 ``pir_tpu/models/pipeline.py``).
 
+Single queries and small batches (per-query key payloads): breadth-first
+expansion from the host prefix (plain torch, ``dpf/device.py``) -> leaf
+bits gathered into natural row order -> masked-XOR scan kernel
+(``ops/xor_scan.py``) against the natural-order word table.
+
 Fast keys, against the chunk-major storage table: head walk (plain
 torch, ``dpf/device.py``) -> stacked tail kernel (``ops/expand.py``) ->
-packed scan kernel (``ops/packed_scan.py``).
+packed scan kernel (``ops/packed_scan.py``), or for at most MIN_BATCH
+queries the masked-XOR scan kernel on the same table.
 
 Fast keys, against the classic bit-reversed storage table (the server's
 ``fast_stacked=False``): head walk with Q in lanes -> per-query tail
@@ -21,32 +29,135 @@ batched head walk (plain torch) -> compat-stage kernel once per stage
 
 from __future__ import annotations
 
-import numpy as np
+import functools
+
 import torch
 
 from ..dpf.device import (
     CompatRootLayout,
+    FastPayloadLayout,
     FastRootLayout,
+    PayloadLayout,
     _children,
+    _leaf_stage,
+    _level_step,
     _prf_triple,
     _rk_bit_first,
+    fast_leaf_bits,
     expand_planes_from_root,
     expand_root_head_grouped,
     expand_root_head_lanes,
     regroup_rk_stacked,
     unpack_compat_root_payload,
+    unpack_fast_payload,
     unpack_fast_root_payload,
     unpack_fast_root_payload_lanes_rk,
+    unpack_key_payload,
 )
 from ..ops.compat_stage import compat_stage
 from ..ops.expand import fast_tail_expand_stacked
 from ..ops.fast_tail import fast_tail_expand
 from ..ops.fused import fused_scan_expand
-from ..ops.packed_scan import packed_scan
+from ..ops.packed_scan import packed_scan, unpack_words_t
+from ..ops.xor_scan import masked_xor_scan
 
 # queries per stacked step at most; the table's storage order follows
 # from it, so table build and dispatch share this one constant
 STACKED_K_MAX = 32
+# fast batches of at most this many queries (the server pads smaller ones
+# up to it) scan with the masked-XOR scan kernel, which reads the table
+# once for them all, instead of the packed scan (the JAX package's
+# mxu_batch_threshold, below which TpuPirServer prefers its VPU scan)
+MIN_BATCH = 8
+
+
+def expand_bits_planes(seeds, t_plane, cw_seed_masks, cw_tl, cw_tr, rk_masks, fcw_mask,
+                       perm, *, d_levels: int) -> torch.Tensor:
+    """Breadth-first expansion of packed seed planes into selection bits:
+    seeds (8,16,NW0), t_plane (NW0,), cw_* (d,...), perm (rows,) int64 ->
+    (rows,) uint8 natural-order bits. The same walk takes a batch with
+    queries on the second axis (``_queries_in_lanes``) -> (Q, rows)."""
+    seeds, t_plane = _expand_planes_loop(seeds, t_plane, cw_seed_masks, cw_tl, cw_tr, rk_masks,
+                                         d_levels)
+    return _leaf_stage(seeds, t_plane, fcw_mask, perm)
+
+
+def answer_query(table, seeds, t_plane, cw_seed_masks, cw_tl, cw_tr, rk_masks, fcw_mask, perm,
+                 *, d_levels: int) -> torch.Tensor:
+    """Full single-shard answer: expand + masked-XOR scan (ops/xor_scan.py).
+    table (H, C) int32 words -> answer share (C,) int32, or (Q, C) for a
+    batch in the ``_queries_in_lanes`` layout."""
+    bits = expand_bits_planes(seeds, t_plane, cw_seed_masks, cw_tl, cw_tr, rk_masks, fcw_mask,
+                              perm, d_levels=d_levels)
+    return masked_xor_scan(table, bits)
+
+
+def make_answer_fn(d_levels: int):
+    """answer_query with the level count bound (the JAX package's jittable
+    flagship forward; here a plain partial)."""
+    return functools.partial(answer_query, d_levels=d_levels)
+
+
+def fused_answer(table: torch.Tensor, payload: torch.Tensor, perm: torch.Tensor,
+                 layout: PayloadLayout) -> torch.Tensor:
+    """One compat answer from one packed key payload (pir_tpu's
+    fused_answer_fn(layout), with no jit cache): table (H, C) int32,
+    payload (total,) int32, perm (H,) int64 -> (C,) int32."""
+    seeds, t, cw_s, cw_tl, cw_tr, fcw, rk = unpack_key_payload(payload, layout)
+    return answer_query(table, seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, perm,
+                        d_levels=layout.d_levels)
+
+
+def fused_bits(payload: torch.Tensor, perm: torch.Tensor, layout: PayloadLayout) -> torch.Tensor:
+    """Compat expansion from one payload (pir_tpu's fused_bits_fn(layout),
+    with no jit cache) -> (rows,) uint8 bits."""
+    seeds, t, cw_s, cw_tl, cw_tr, fcw, rk = unpack_key_payload(payload, layout)
+    return expand_bits_planes(seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, perm,
+                              d_levels=layout.d_levels)
+
+
+def _queries_in_lanes(seeds, t, cw_s, cw_tl, cw_tr, fcw, rk):
+    """Unpacked payload rows with a leading Q axis -> the layout the
+    per-level ops broadcast over: seeds (8,Q,16,NW0), t (Q,NW0), cw_s
+    (d,8,Q,16,1), cw_tl / cw_tr (d,Q,1), fcw (Q,1), rk (11,8,3,Q,16,1)."""
+    return (seeds.transpose(0, 1), t, cw_s.permute(1, 2, 0, 3, 4), cw_tl.t()[..., None],
+            cw_tr.t()[..., None], fcw[:, None], _rk_bit_first(rk))
+
+
+def fused_answer_batch(table: torch.Tensor, payloads: torch.Tensor, perm: torch.Tensor,
+                       layout: PayloadLayout) -> torch.Tensor:
+    """Compat answers of a batch of payloads (Q, total) -> (Q, C) int32
+    (pir_tpu's fused_answer_batch_fn(layout): its vmap is the Q axis of
+    ``_queries_in_lanes``; one expansion walks every query, one scan
+    reads the table for them all)."""
+    seeds, t, cw_s, cw_tl, cw_tr, fcw, rk = _queries_in_lanes(
+        *unpack_key_payload(payloads, layout))
+    return answer_query(table, seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, perm,
+                        d_levels=layout.d_levels)
+
+
+def _expand_planes_loop(seeds, t_plane, cw_s, cw_tl, cw_tr, rk, d_levels: int):
+    for i in range(d_levels):
+        seeds, t_plane = _level_step(seeds, t_plane, cw_s[i], cw_tl[i], cw_tr[i], rk)
+    return seeds, t_plane
+
+
+def fused_fast_bits(payload: torch.Tensor, perm: torch.Tensor,
+                    layout: FastPayloadLayout) -> torch.Tensor:
+    """Fast-mode expansion from one payload (pir_tpu's
+    fused_fast_bits_fn(layout), with no jit cache) -> (height,) uint8 bits."""
+    seeds, t, cw_s, cw_tl, cw_tr, fcw, rk, rk_leaf = unpack_fast_payload(payload, layout)
+    seeds, t = _expand_planes_loop(seeds, t, cw_s, cw_tl, cw_tr, rk, layout.d_levels)
+    return fast_leaf_bits(seeds, t, fcw, rk_leaf, perm)
+
+
+def small_batch_scan(table_u8: torch.Tensor, words_t: torch.Tensor) -> torch.Tensor:
+    """The packed scan's function for at most MIN_BATCH queries, through
+    the masked-XOR scan kernel: table (H, B) uint8 with B % 4 == 0 (the
+    storage tables' padded rows), read as (H, B/4) words in place, and
+    selection words (H // 32, Q) -> (Q, B) uint8."""
+    words = masked_xor_scan(table_u8.view(torch.int32), unpack_words_t(words_t))
+    return words.view(torch.uint8)
 
 
 def stacked_fast_geometry(depth: int, n_blk: int) -> tuple[int, int]:
@@ -112,6 +223,8 @@ def fused_fast_root_batch_stacked(table_u8: torch.Tensor, payloads: torch.Tensor
     ops = stacked_head(payloads, layout)
     packed = fast_tail_expand_stacked(*ops, tail=tail, n_blk=layout.leaf_blocks)
     words_t = stacked_words_t(packed, k, table_u8.shape[0])
+    if q <= MIN_BATCH:
+        return small_batch_scan(table_u8, words_t[:, :q])
     return packed_scan(table_u8, words_t)[:q]
 
 
@@ -156,7 +269,10 @@ def fused_fast_root_batch_pertail(table_u8: torch.Tensor, payloads: torch.Tensor
     the TPU's VMEM; the bytes are the same)."""
     ops, tail = pertail_head(payloads, layout, tail_levels)
     packed = fast_tail_expand(*ops, levels=tail)
-    return packed_scan(table_u8, pertail_words_t(packed, table_u8.shape[0]))
+    words_t = pertail_words_t(packed, table_u8.shape[0])
+    if payloads.shape[0] <= MIN_BATCH:
+        return small_batch_scan(table_u8, words_t)
+    return packed_scan(table_u8, words_t)
 
 
 def check_overlap_layout(layout: FastRootLayout) -> None:
@@ -260,8 +376,3 @@ def fused_compat_root_batch(table_u8: torch.Tensor, payloads: torch.Tensor,
     if rows // 32 > words.shape[1]:  # zero bits for the XOR-neutral padded rows
         words = torch.cat([words, words.new_zeros(q, rows // 32 - words.shape[1])], dim=1)
     return packed_scan(table_u8, words.t().contiguous())
-
-
-def payload_tensor(payload: np.ndarray, device) -> torch.Tensor:
-    """(Q, total) uint32 host payload -> int32 tensor on `device`."""
-    return torch.from_numpy(np.ascontiguousarray(payload).view(np.int32)).to(device)

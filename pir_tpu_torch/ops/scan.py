@@ -1,10 +1,11 @@
-"""Plain torch references for the batched XOR scan (counterpart of
+"""Plain torch references for the XOR scan (counterpart of
 ``pir_tpu/ops/matmul_scan.py`` and ``pir_tpu/ops/scan.py``).
 
 The 2-server PIR answer share is ``XOR over rows r with bit[r] = 1 of
 row r``. These functions compute it the straightforward way — mask the
-rows, fold them with XOR — and are the plain version that the packed
-scan kernel (``ops/packed_scan.py``) is held against.
+rows, fold them with XOR — and are the plain versions that the packed
+scan kernel (``ops/packed_scan.py``) and the masked-XOR scan kernel
+(``ops/xor_scan.py``) are held against.
 """
 
 from __future__ import annotations
@@ -56,28 +57,38 @@ def _word_table(table_u8: torch.Tensor) -> torch.Tensor:
     return table_u8.contiguous().view(torch.int32)
 
 
-def batched_xor_scan(table_u8: torch.Tensor, bits: torch.Tensor,
-                     max_elems: int = 1 << 27) -> torch.Tensor:
-    """table (H, B) uint8, bits (Q, H) {0,1} -> (Q, B) uint8: row q is the
-    XOR of the table rows r with bits[q, r] = 1.
+def masked_xor_scan(table: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """table (H, C) int32 words, bits (H,) {0,1} -> (C,) int32: the XOR of
+    the rows whose bit is set (each row masked by 0 - bit)."""
+    return masked_xor_scan_batched(table, bits[None])[0]
+
+
+def masked_xor_scan_batched(table: torch.Tensor, bits: torch.Tensor,
+                            max_elems: int = 1 << 27) -> torch.Tensor:
+    """table (H, C) int32 words, bits (Q, H) {0,1} -> (Q, C) int32.
 
     Works in (query, row) chunks of at most `max_elems` masked words so
     large tables stay within memory.
     """
-    h, b = table_u8.shape
+    h, c = table.shape
     q = bits.shape[0]
-    words = _word_table(table_u8)  # (H, BW)
-    bw = words.shape[1]
-    out = torch.zeros((q, bw), dtype=torch.int32, device=table_u8.device)
-    qc = min(q, 256)
-    rc = max(1, min(h, max_elems // (qc * bw)))
+    out = torch.zeros((q, c), dtype=torch.int32, device=table.device)
+    qc = max(1, min(q, 256))
+    rc = max(1, min(h, max_elems // (qc * max(1, c))))
     for q0 in range(0, q, qc):
         acc = out[q0:q0 + qc]
         for r0 in range(0, h, rc):
             mask = -bits[q0:q0 + qc, r0:r0 + rc].to(torch.int32)
-            sel = words[None, r0:r0 + rc] & mask[:, :, None]
-            acc ^= xor_reduce(sel, 1)[:, 0]
-    return out.view(torch.uint8)[:, :b]
+            acc ^= xor_reduce(table[None, r0:r0 + rc] & mask[:, :, None], 1)[:, 0]
+    return out
+
+
+def batched_xor_scan(table_u8: torch.Tensor, bits: torch.Tensor,
+                     max_elems: int = 1 << 27) -> torch.Tensor:
+    """table (H, B) uint8, bits (Q, H) {0,1} -> (Q, B) uint8: row q is the
+    XOR of the table rows r with bits[q, r] = 1."""
+    words = masked_xor_scan_batched(_word_table(table_u8), bits, max_elems)
+    return words.view(torch.uint8)[:, :table_u8.shape[1]]
 
 
 def pack_table_u32(data: np.ndarray, height: int, group_size: int) -> np.ndarray:

@@ -1,6 +1,9 @@
 """``TorchPirServer``: the device-resident 2-server PIR engine
-(counterpart of the root-start batch paths and the serving stream of
-``pir_tpu/server.py:TpuPirServer``).
+(counterpart of the single-query API, the batch paths and the serving
+stream of ``pir_tpu/server.py:TpuPirServer``), and the host golden model
+of its answers (the module-level ``expand_shared_query``,
+``private_secret_shared_query_with_expanded_bits`` and
+``private_secret_shared_query``, numpy).
 
 Each batch of index shares becomes one payload upload and one pass
 through ``models/pipeline.py``, against a table uploaded once in the
@@ -13,11 +16,20 @@ storage order of its path:
 * reference-exact (compat) keys: the order of the compat-stage cascade,
   in slices of at most ``COMPAT_BATCH_CAP`` queries.
 
-Every table pads its rows with zero bytes to a multiple of 4, the width
-the kernels read; answers are sliced back to the row's bytes.
-``fast_serving_stream()`` serves fast batches with a one-batch lag, in
-the stacked mode or through the fused scan + tail kernel. A batch this
-engine cannot serve raises; there is no other path.
+Every storage table pads its rows with zero bytes to a multiple of 4,
+the width the kernels read; answers are sliced back to the row's bytes.
+Fast batches of at most MIN_BATCH queries scan with the masked-XOR scan
+kernel instead of the packed scan.
+
+Single queries (``private_secret_shared_query``,
+``expand_shared_query`` + ``private_secret_shared_query_with_expanded_bits``)
+and the batches the root-start paths do not take (compat batches below
+MIN_BATCH, compat tables of at most 5 device levels, fast keys of depth
+< 5) run per query: the host walks the first levels, the device the rest,
+and the masked-XOR scan kernel reads the natural-order word table
+(``_table``). ``fast_serving_stream()`` serves fast batches with a
+one-batch lag, in the stacked mode or through the fused scan + tail
+kernel. Keyword and multi-party shares raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,25 +43,37 @@ from .database import Database
 from .dpf import host as dpf_host
 from .dpf.device import (
     _compat_perm,
+    _fast_leaf_perm,
     _fast_leaf_perm_root,
     _fast_leaf_perm_root_stacked,
+    _leaf_perm,
     compat_skip_levels,
     compat_stage_plan,
+    expand_query_bits,
     make_compat_payload_batch,
+    make_device_fast_key,
+    make_device_key,
     make_fast_payload_batch,
+    pack_fast_payload,
+    pack_key_payload,
     scatter_rows_to_storage_order,
+    u32_tensor,
 )
 from .models.pipeline import (
+    MIN_BATCH,
     check_overlap_layout,
+    fused_answer,
+    fused_answer_batch,
     fused_compat_root_batch,
+    fused_fast_bits,
     fused_fast_overlap_step,
     fused_fast_root_batch_pertail,
     fused_fast_root_batch_stacked,
-    payload_tensor,
     stacked_fast_geometry,
 )
 from .ops.compat_stage import MAX_TAIL
-from .ops.scan import pad_cols_u8, pad_rows_u8
+from .ops.scan import pack_table_u32, pad_cols_u8, pad_rows_u8, unpack_result_u32
+from .ops.xor_scan import masked_xor_scan
 from .query import QueryShare, SecretSharedQueryResult
 from .slot import Slot
 from .utils import pad_tile
@@ -82,6 +106,51 @@ def validate_fast_key_geometry(key_fast, dim_height: int) -> None:
         raise ValueError("fast key geometry does not match the database")
 
 
+def check_index_share(query: QueryShare) -> None:
+    """Raise NotImplementedError unless `query` is a 2-party index share."""
+    if (query.is_keyword_based or not query.is_two_party
+            or (query.key_fast is None and query.key_two_party is None)):
+        raise NotImplementedError(
+            "the port serves 2-party index shares; keyword and multi-party point "
+            "evaluation come with ROADMAP item [11]")
+
+
+def expand_shared_query(db: Database, query: QueryShare) -> np.ndarray:
+    """Host expansion of a 2-party index share into (H,) bool selection
+    bits, natural row order (db.go:109-174; numpy, the golden model)."""
+    check_index_share(query)
+    dim_height = db.db_size // query.group_size
+    if query.key_fast is not None:
+        validate_fast_key_geometry(query.key_fast, dim_height)
+        pf = dpf_host.server_initialize(query.prf_keys, query.key_fast.depth)
+        return dpf_host.eval_full_domain_fast_bits(pf, query.key_fast)
+    pf = dpf_host.server_initialize(query.prf_keys, num_bits_for_height(dim_height))
+    return dpf_host.eval_full_domain_bits(pf, query.share_number, query.key_two_party,
+                                          dim_height)
+
+
+def private_secret_shared_query_with_expanded_bits(
+    db: Database, query: QueryShare, bits: np.ndarray
+) -> SecretSharedQueryResult:
+    """The XOR scan over the selected rows (db.go:74-107), in numpy."""
+    dim_width = query.group_size
+    dim_height = db.db_size // dim_width
+    rows = db.data[: dim_height * dim_width].reshape(dim_height, dim_width, db.slot_bytes)
+    mask = np.asarray(bits[:dim_height], dtype=bool)
+    if mask.any():
+        acc = np.bitwise_xor.reduce(rows[mask], axis=0)
+    else:
+        acc = np.zeros((dim_width, db.slot_bytes), dtype=np.uint8)
+    return SecretSharedQueryResult(db.slot_bytes, [Slot(acc[c].tobytes())
+                                                   for c in range(dim_width)])
+
+
+def private_secret_shared_query(db: Database, query: QueryShare) -> SecretSharedQueryResult:
+    """One answer share on the host (db.go:67-72)."""
+    return private_secret_shared_query_with_expanded_bits(db, query,
+                                                         expand_shared_query(db, query))
+
+
 class TorchPirServer:
     """Device-resident PIR server answering 2-party index batches of fast
     and of reference-exact (compat) keys.
@@ -95,19 +164,21 @@ class TorchPirServer:
     ``tail_levels`` levels (at most depth - 5) against the classic table.
     The serving stream follows the same switch (``fast_serving_stream``).
 
-    Compat batches run the stage cascade of ``dpf.device.compat_stage_plan``
-    at the geometry of ``_compat_geometry`` (see the COMPAT_* constants).
+    Compat batches of at least MIN_BATCH queries run the stage cascade of
+    ``dpf.device.compat_stage_plan`` at the geometry of
+    ``_compat_geometry`` (see the COMPAT_* constants).
+
+    min_device_nodes: per-query expansion walks levels on the host until
+    this many nodes are live (``dpf.device.make_plan``), as TpuPirServer.
     """
 
-    # batches below this pad up to it (one minimum batch shape)
-    MIN_BATCH = 8
     # storage tables pad their rows to a multiple of this (as TpuPirServer's
     # default mxu_block, so the two tables are equal bytes)
     ROW_BLOCK = 8192
 
     def __init__(self, db: Database, device: str | torch.device | None = None,
                  fast_nonshared_chunk: int = 1024, fast_stacked: bool = True,
-                 tail_levels: int = 5):
+                 tail_levels: int = 5, min_device_nodes: int = 32):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -123,8 +194,17 @@ class TorchPirServer:
         self.fast_nonshared_chunk = fast_nonshared_chunk
         self.fast_stacked = fast_stacked
         self.tail_levels = tail_levels
+        self.min_device_nodes = min_device_nodes
         self._tables: dict[tuple, torch.Tensor] = {}
         self._lock = threading.Lock()
+
+    def _cached(self, key, build) -> torch.Tensor:
+        """The device tensor cached under `key`, built once by build()."""
+        with self._lock:
+            val = self._tables.get(key)
+            if val is None:
+                val = self._tables[key] = build()
+        return val
 
     def _storage_table(self, key, group_size: int, perm, flat: int,
                        row_block: int) -> torch.Tensor:
@@ -132,15 +212,37 @@ class TorchPirServer:
         positions perm() (zero rows elsewhere, XOR-neutral), padded with
         zero rows to a multiple of `row_block` and with zero bytes to a
         multiple of 4 a row, on the server's device."""
-        with self._lock:
-            table = self._tables.get(key)
-            if table is None:
-                h = self.db.db_size // group_size
-                rows = self.db.data[: h * group_size].reshape(h, group_size * self.db.slot_bytes)
-                sc = scatter_rows_to_storage_order(rows, perm(), flat)
-                table = torch.from_numpy(pad_cols_u8(pad_rows_u8(sc, row_block))).to(self.device)
-                self._tables[key] = table
-        return table
+        def build():
+            h = self.db.db_size // group_size
+            rows = self.db.data[: h * group_size].reshape(h, group_size * self.db.slot_bytes)
+            sc = scatter_rows_to_storage_order(rows, perm(), flat)
+            return torch.from_numpy(pad_cols_u8(pad_rows_u8(sc, row_block))).to(self.device)
+
+        return self._cached(key, build)
+
+    def _table(self, group_size: int) -> torch.Tensor:
+        """The natural-order (H, G * words) int32 word table of the
+        per-query paths (ops.scan.pack_table_u32): each slot padded to whole
+        words, no padded rows; unpack_result_u32 slices the answers."""
+        def build():
+            h = self.db.db_size // group_size
+            words = pack_table_u32(self.db.data, h, group_size)
+            return torch.from_numpy(words.view(np.int32)).to(self.device)
+
+        return self._cached(("words", group_size), build)
+
+    def _perm(self, num_bits: int, height: int) -> torch.Tensor:
+        """The compat leaf permutation (int64) on the device, per geometry."""
+        mdn = self.min_device_nodes
+        return self._cached(("perm", num_bits, height, mdn), lambda: torch.from_numpy(
+            _leaf_perm(num_bits, height, mdn)).to(self.device))
+
+    def _fast_perm(self, dkey) -> torch.Tensor:
+        """The fast-mode leaf permutation (int64) on the device, per shape."""
+        n_blk = dkey.fcw_masks.shape[1] if dkey.fcw_masks.ndim == 4 else 1
+        shape = (dkey.plan.device_levels, dkey.height, dkey.plan.m_padded, n_blk)
+        return self._cached(("fast perm",) + shape, lambda: torch.from_numpy(
+            _fast_leaf_perm(*shape)).to(self.device))
 
     def _root_table_u8(self, group_size: int, depth: int, n_blk: int = 1,
                        stacked: bool = True) -> torch.Tensor:
@@ -181,10 +283,100 @@ class TorchPirServer:
             for i in range(n)
         ]
 
+    def _result_from_words(self, res_words: torch.Tensor,
+                           group_size: int) -> SecretSharedQueryResult:
+        """(G * words,) int32 answer words of the natural table -> result."""
+        out = unpack_result_u32(res_words.cpu().numpy().view(np.uint32), group_size,
+                                self.db.slot_bytes)
+        return SecretSharedQueryResult(self.db.slot_bytes,
+                                       [Slot(out[c].tobytes()) for c in range(group_size)])
+
+    def _index_payload(self, query: QueryShare, height: int):
+        """(payload, layout, dkey) of one 2-party index share, payload a
+        numpy uint32 row; payload and layout are None when the host walked
+        every level (dkey.host_bits holds the selection bits)."""
+        if query.key_fast is not None:
+            validate_fast_key_geometry(query.key_fast, height)
+            pf = dpf_host.server_initialize(query.prf_keys, query.key_fast.depth)
+            dkey = make_device_fast_key(pf, query.key_fast, self.min_device_nodes)
+            pack = pack_fast_payload
+        else:
+            pf = dpf_host.server_initialize(query.prf_keys, num_bits_for_height(height))
+            dkey = make_device_key(pf, query.key_two_party, height, self.min_device_nodes)
+            pack = pack_key_payload
+        if dkey.host_bits is not None:
+            return None, None, dkey
+        return (*pack(dkey), dkey)
+
+    def _bits(self, query: QueryShare, payload, layout, dkey) -> torch.Tensor:
+        """(H,) uint8 selection bits of one share (_index_payload's triple)
+        on the device: host bits uploaded, else expanded on the device."""
+        if dkey.host_bits is not None:
+            return torch.from_numpy(dkey.host_bits).to(self.device)
+        if query.key_fast is not None:
+            return fused_fast_bits(u32_tensor(payload, self.device), self._fast_perm(dkey),
+                                   layout)
+        return expand_query_bits(dkey, self.device, self._perm(dkey.plan.num_bits,
+                                                               dkey.plan.height))
+
+    def expand_shared_query(self, query: QueryShare) -> torch.Tensor:
+        """Device DPF expansion of one 2-party index share -> (H,) uint8
+        selection bits in natural row order, on the server's device."""
+        self._validate_batch([query])
+        h = self.db.db_size // query.group_size
+        return self._bits(query, *self._index_payload(query, h))
+
+    def private_secret_shared_query_with_expanded_bits(
+        self, query: QueryShare, bits
+    ) -> SecretSharedQueryResult:
+        """The masked-XOR scan of the natural-order table with the given
+        (H,) selection bits in {0, 1}: a tensor (expand_shared_query's) or
+        a numpy array (the host golden's bools)."""
+        if isinstance(bits, torch.Tensor):
+            bits = bits.to(self.device, torch.uint8).contiguous()
+        else:
+            bits = torch.from_numpy(np.asarray(bits, dtype=np.uint8)).to(self.device)
+        g = query.group_size
+        return self._result_from_words(masked_xor_scan(self._table(g), bits), g)
+
+    def private_secret_shared_query(self, query: QueryShare) -> SecretSharedQueryResult:
+        """One answer share. A fast share of depth >= 5 rides the batch path
+        (padded to MIN_BATCH, so the masked-XOR scan kernel reads the storage
+        table once); a compat share expands from one payload and scans the
+        natural table; a tiny domain's host bits scan the same table."""
+        self._validate_batch([query])
+        if self._fast_root_applicable([query]):
+            return self.private_secret_shared_query_batch([query])[0]
+        g = query.group_size
+        h = self.db.db_size // g
+        payload, layout, dkey = self._index_payload(query, h)
+        if payload is not None and query.key_fast is None:
+            res = fused_answer(self._table(g), u32_tensor(payload, self.device),
+                               self._perm(dkey.plan.num_bits, h), layout)
+            return self._result_from_words(res, g)
+        return self.private_secret_shared_query_with_expanded_bits(
+            query, self._bits(query, payload, layout, dkey))
+
+    def _dispatch_per_query(self, queries: list[QueryShare]) -> torch.Tensor:
+        """The per-query batch path (pir_tpu/server.py:1085-1108) for what
+        the root-start paths do not take: compat batches below MIN_BATCH,
+        compat tables of at most 5 device levels, fast keys of depth < 5.
+        Returns the (Q, G * words) int32 answer words (not yet fetched)."""
+        g = queries[0].group_size
+        h = self.db.db_size // g
+        keyed = [self._index_payload(q, h) for q in queries]
+        payload, layout, dkey = keyed[0]
+        table = self._table(g)
+        if payload is not None and queries[0].key_fast is None:
+            pays = u32_tensor(np.stack([k[0] for k in keyed]), self.device)
+            return fused_answer_batch(table, pays, self._perm(dkey.plan.num_bits, h), layout)
+        return masked_xor_scan(table, torch.stack([self._bits(q, *k)
+                                                   for q, k in zip(queries, keyed)]))
+
     @staticmethod
     def _fast_root_applicable(queries: list[QueryShare]) -> bool:
         """Root-start expansion needs >= one full 32-bit word of leaves
-        (depth >= 5)."""
+        (depth >= 5); shallower keys run per query."""
         q0 = queries[0]
         return (q0.key_fast is not None and not q0.is_keyword_based
                 and q0.key_fast.depth >= 5)
@@ -221,9 +413,11 @@ class TorchPirServer:
 
     def _compat_applicable(self, queries: list[QueryShare]) -> bool:
         """The compat stage cascade needs a batch of at least MIN_BATCH
-        and a head of >= 5 levels followed by a stage: device_bits >= 6."""
+        and a head of >= 5 levels followed by a stage: device_bits >= 6.
+        Other compat batches run per query (pir_tpu sends device_bits == 5
+        through its preplane route, not yet ported; the bytes are equal)."""
         q0 = queries[0]
-        if q0.key_fast is not None or q0.is_keyword_based or len(queries) < self.MIN_BATCH:
+        if q0.key_fast is not None or q0.is_keyword_based or len(queries) < MIN_BATCH:
             return False
         return self._compat_device_bits(q0.group_size) >= 6
 
@@ -232,8 +426,7 @@ class TorchPirServer:
             raise ValueError("empty batch")
         q0 = queries[0]
         g = q0.group_size
-        if q0.is_keyword_based or (q0.key_fast is None and q0.key_two_party is None):
-            raise NotImplementedError("the port serves 2-party index queries only")
+        check_index_share(q0)
         fast = q0.key_fast is not None
         if fast:
             validate_fast_key_geometry(q0.key_fast, self.db.db_size // g)
@@ -250,13 +443,6 @@ class TorchPirServer:
                 raise ValueError("batch cannot mix fast-key leaf widths")
             if not fast and len(query.key_two_party.cw) != nb:
                 raise ValueError("compat key geometry does not match the database")
-        if fast and not self._fast_root_applicable(queries):
-            raise NotImplementedError(
-                "fast keys of depth < 5 have no root-start device path in the port")
-        if not fast and not self._compat_applicable(queries):
-            raise ValueError(
-                f"compat batches below {self.MIN_BATCH} queries or of at most 5 device "
-                "levels take the preplane or per-query paths of pir_tpu, not yet ported")
 
     def _dispatch_fast_root(self, queries: list[QueryShare],
                             shared_rk: bool | None = None) -> torch.Tensor:
@@ -272,7 +458,7 @@ class TorchPirServer:
         # since tiling duplicates q0 and must not flip a distinct-key batch
         # to the shared layout. Distinct-key batches pad only up to the
         # chunk cap, or the chunk split below would recurse on its padding.
-        pad_to = self.MIN_BATCH if shared_rk else min(self.MIN_BATCH, cap)
+        pad_to = MIN_BATCH if shared_rk else min(MIN_BATCH, cap)
         if len(queries) < pad_to:
             queries = pad_tile(queries, pad_to)
         if not shared_rk and len(queries) > cap:
@@ -285,7 +471,7 @@ class TorchPirServer:
                 outs.append(self._dispatch_fast_root(part, shared_rk=False)[:take])
             return torch.cat(outs, dim=0)
         pay, layout = make_fast_payload_batch(queries, shared_rk=shared_rk)
-        pay_t = payload_tensor(pay, self.device)
+        pay_t = u32_tensor(pay, self.device)
         if self.fast_stacked:
             return fused_fast_root_batch_stacked(self._root_table_u8(g, depth, n_blk), pay_t,
                                                  layout)
@@ -303,7 +489,7 @@ class TorchPirServer:
         outs = []
         for i in range(0, len(queries), COMPAT_BATCH_CAP):
             pay, layout = make_compat_payload_batch(queries[i:i + COMPAT_BATCH_CAP], height=h)
-            outs.append(fused_compat_root_batch(table, payload_tensor(pay, self.device), layout,
+            outs.append(fused_compat_root_batch(table, u32_tensor(pay, self.device), layout,
                                                 w=w, tails=tails, q_chunk=COMPAT_Q_CHUNK))
         return torch.cat(outs) if len(outs) > 1 else outs[0]
 
@@ -312,10 +498,13 @@ class TorchPirServer:
         zero-arg callable producing the results."""
         self._validate_batch(queries)
         g, n = queries[0].group_size, len(queries)
-        if queries[0].key_fast is None:
+        if self._fast_root_applicable(queries):
+            out_dev = self._dispatch_fast_root(queries)
+        elif self._compat_applicable(queries):
             out_dev = self._dispatch_compat(queries)
         else:
-            out_dev = self._dispatch_fast_root(queries)
+            words = self._dispatch_per_query(queries)
+            return lambda: [self._result_from_words(w, g) for w in words.cpu()]
         return lambda: self._slice_batch_results(out_dev.cpu().numpy(), g, n)
 
     def private_secret_shared_query_batch(
@@ -389,7 +578,7 @@ class FastServingStream:
         elif shape != self._shape:
             raise ValueError(f"stream batches must keep one shape: "
                              f"{shape[:3]} != {self._shape[:3]}")
-        return payload_tensor(pay, srv.device)
+        return u32_tensor(pay, srv.device)
 
     def _step(self, payloads: torch.Tensor) -> torch.Tensor:
         out_prev, self._words = fused_fast_overlap_step(

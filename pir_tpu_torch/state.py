@@ -1,16 +1,19 @@
 """Carry the JAX package's state into the port.
 
 The "weights" of a PIR server are its table and the query shares it is
-asked to answer. Both arrive here as plain numpy arrays, bytes and ints
-(the fields of a ``pir_tpu`` database or share), so nothing of the JAX
-package is imported.
+asked to answer, and of a single answer step its device key. All arrive
+here as plain numpy arrays, bytes and ints (the fields of a ``pir_tpu``
+database, share or device key), so nothing of the JAX package is
+imported.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .database import Database
+from .dpf.device import u32_tensor
 from .dpf.host import FastKey2P, Key2P, PrfKey
 from .query import QueryShare
 
@@ -53,3 +56,25 @@ def compat_share_from_fields(*, prf_keys, s_init: bytes, t_init: int, cw, final_
     return QueryShare(key_two_party=key, key_multi_party=None, prf_keys=_prf_keys(prf_keys),
                       is_keyword_based=False, is_two_party=True,
                       share_number=int(share_number), group_size=int(group_size))
+
+
+def device_key_from_numpy(*, seeds0, t0, cw_seed_masks, cw_tl, cw_tr, rk_masks, fcw_mask, perm,
+                          device=None) -> tuple[torch.Tensor, ...]:
+    """The arrays of a compat device key (the fields of a ``pir_tpu``
+    ``DeviceKey2P``, as numpy uint32 arrays, perm int64) -> the port's
+    tensors on `device`, in ``models.pipeline.answer_query``'s order:
+    (seeds, t_plane, cw_seed_masks, cw_tl, cw_tr, rk_masks, fcw_mask, perm)."""
+    words = [u32_tensor(a, device) for a in (seeds0, t0, cw_seed_masks, cw_tl, cw_tr, rk_masks,
+                                             fcw_mask)]
+    return (*words, torch.from_numpy(np.asarray(perm, dtype=np.int64)).to(device))
+
+
+def device_fast_key_from_numpy(*, seeds0, t0, cw_seed_masks, cw_tl, cw_tr, fcw_masks, rk_masks,
+                               rk_leaf, perm, device=None) -> tuple[torch.Tensor, ...]:
+    """The arrays of a fast device key (the fields of a ``pir_tpu``
+    ``DeviceFastKey2P``) -> the port's tensors on `device`, in the order of
+    ``dpf.device.unpack_fast_payload`` and then perm: (seeds, t, cw_s,
+    cw_tl, cw_tr, fcw, rk, rk_leaf, perm)."""
+    words = [u32_tensor(a, device) for a in (seeds0, t0, cw_seed_masks, cw_tl, cw_tr, fcw_masks,
+                                             rk_masks, rk_leaf)]
+    return (*words, torch.from_numpy(np.asarray(perm, dtype=np.int64)).to(device))

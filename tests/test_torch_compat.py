@@ -28,7 +28,7 @@ from pir_tpu.server import TpuPirServer
 from pir_tpu_torch import query as tq
 from pir_tpu_torch.dpf import device as tdev
 from pir_tpu_torch.dpf import host as thost
-from pir_tpu_torch.models.pipeline import compat_head, payload_tensor
+from pir_tpu_torch.models.pipeline import compat_head
 from pir_tpu_torch.ops.compat_stage import compat_stage, compat_stage_plain
 from pir_tpu_torch import server as tsrv_mod
 from pir_tpu_torch.server import TorchPirServer
@@ -187,7 +187,7 @@ def stage_ops():
     pairs = [jq.new_index_query_shares(db.metadata(), i, 1, 2) for i in idxs]  # own keys
     shares = to_port([p[1] for p in pairs])
     pay, layout = tdev.make_compat_payload_batch(shares, height=height)
-    ops = compat_head(payload_tensor(pay, "cpu"), layout, w)
+    ops = compat_head(tdev.u32_tensor(pay, "cpu"), layout, w)
     js, jt = _jax_head(pay, layout, w, max_tail)
     assert (_u32(ops[0][:, :, 0]) == np.asarray(js)).all()
     assert (_u32(ops[1]).reshape(len(idxs), w) == np.asarray(jt)).all()
@@ -329,6 +329,10 @@ def test_small_compat_tables_are_served(rows):
     assert ((got[0] ^ got[1]) == db.data[idxs]).all()
 
 
+def thost_golden(db, share) -> bytes:
+    return bytes(tsrv_mod.private_secret_shared_query(db, share).shares[0].data)
+
+
 def test_compat_batches_the_port_cannot_serve_raise(port_server):
     db, srv = port_server
     md = db.metadata()
@@ -340,8 +344,9 @@ def test_compat_batches_the_port_cannot_serve_raise(port_server):
         srv.private_secret_shared_query_batch(compat[:7] + [fast])
     with pytest.raises(ValueError, match="mix fast and compat"):
         srv.private_secret_shared_query_batch([fast] + compat[:7])
-    with pytest.raises(ValueError, match="not yet ported"):
-        srv.private_secret_shared_query_batch(compat[:7])
+    # below MIN_BATCH the batch runs per query (it raised before that path)
+    for k, r in enumerate(srv.private_secret_shared_query_batch(compat[:7])):
+        assert bytes(r.shares[0].data) == thost_golden(db, compat[k])
     k = compat[0].key_two_party
     crafted = compat_share_from_fields(prf_keys=compat[0].prf_keys, s_init=k.s_init,
                                        t_init=k.t_init, cw=k.cw * 3, final_cw=k.final_cw,
@@ -353,5 +358,5 @@ def test_compat_batches_the_port_cannot_serve_raise(port_server):
     shallow = [p[0] for p in tq.new_index_query_shares_batch(small.db.metadata(),
                                                              list(range(8)), 1)]
     assert small._compat_device_bits(1) == 5
-    with pytest.raises(ValueError, match="not yet ported"):
-        small.private_secret_shared_query_batch(shallow)
+    for k, r in enumerate(small.private_secret_shared_query_batch(shallow)):
+        assert bytes(r.shares[0].data) == thost_golden(small.db, shallow[k])

@@ -24,7 +24,8 @@ from pir_tpu_torch.dpf.device import (
     compat_stage_plan,
     make_compat_payload_batch,
 )
-from pir_tpu_torch.models.pipeline import compat_head, payload_tensor
+from pir_tpu_torch.dpf.device import u32_tensor
+from pir_tpu_torch.models.pipeline import compat_head
 from pir_tpu_torch.ops.compat_stage import compat_stage_plain
 from pir_tpu_torch.utils.bits import num_bits_for_height
 
@@ -71,7 +72,7 @@ def test_host_build_matches_plain_stage(host_stage, height, w, max_tail, tails):
     nb = num_bits_for_height(height)
     assert layout.device_bits == nb - compat_skip_levels(nb, height)
     assert compat_stage_plan(layout.device_bits, w, max_tail)[1] == tails
-    seeds, t, cw_s, cw_tl, cw_tr, rk, fcw = compat_head(payload_tensor(pay, "cpu"), layout, w)
+    seeds, t, cw_s, cw_tl, cw_tr, rk, fcw = compat_head(u32_tensor(pay, "cpu"), layout, w)
     assert cw_s.shape[1] == sum(tails)
     off = 0
     for tl in tails:

@@ -22,6 +22,7 @@ from pir_tpu_torch.ops.expand import (
 from pir_tpu_torch.ops.fast_tail import fast_tail_expand, fast_tail_expand_plain
 from pir_tpu_torch.ops.fused import fused_scan_expand, fused_scan_expand_plain
 from pir_tpu_torch.ops.packed_scan import packed_scan, packed_scan_plain
+from pir_tpu_torch.ops.xor_scan import masked_xor_scan, masked_xor_scan_plain
 from pir_tpu_torch.server import TorchPirServer
 
 pytestmark = pytest.mark.cuda
@@ -154,6 +155,37 @@ def test_compat_stage_kernel_matches_plain(dev, q, nc, w, tail, emit_bits):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("q", [1, 3, 8])
+@pytest.mark.parametrize("c", [1, 3, 256, 257])
+def test_masked_xor_scan_kernel_matches_plain(dev, q, c):
+    """Rows not a multiple of any row chunk; C = 256 reads 16 bytes a
+    thread, 1, 3 and 257 read 4."""
+    h = 4099 if c < 256 else 2053
+    rng = np.random.default_rng(q * 1000 + c)
+    table = torch.from_numpy(_words(rng, h, c).view(np.int32)).to(dev)
+    bits = torch.from_numpy(rng.integers(0, 2, size=(q, h)).astype(np.uint8)).to(dev)
+    before = masked_xor_scan.launches
+    got = masked_xor_scan(table, bits)
+    torch.cuda.synchronize()
+    assert masked_xor_scan.launches == before + 1
+    assert torch.equal(got, masked_xor_scan_plain(table, bits))
+    assert torch.equal(masked_xor_scan(table, bits[0]), masked_xor_scan_plain(table, bits[0]))
+
+
+def test_masked_xor_scan_kernel_slices_and_long_tables(dev):
+    """12 queries run as launches of 8 and 4; 2^20 + 5 rows take more than
+    one chunk per block column."""
+    rng = np.random.default_rng(12)
+    for h, c, q, launches in ((1000, 16, 12, 2), ((1 << 20) + 5, 4, 2, 1)):
+        table = torch.from_numpy(_words(rng, h, c).view(np.int32)).to(dev)
+        bits = torch.from_numpy(rng.integers(0, 2, size=(q, h)).astype(np.uint8)).to(dev)
+        before = masked_xor_scan.launches
+        got = masked_xor_scan(table, bits)
+        torch.cuda.synchronize()
+        assert masked_xor_scan.launches == before + launches
+        assert torch.equal(got, masked_xor_scan_plain(table, bits))
+
+
 def test_wrappers_reject_strided_cuda_operands(dev):
     table = torch.zeros((64, 16), dtype=torch.uint8, device=dev)
     words = torch.zeros((4, 2), dtype=torch.int32, device=dev).t()  # (2, 4), strided
@@ -167,6 +199,16 @@ def test_wrappers_reject_strided_cuda_operands(dev):
     ops[0] = ops[0].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         compat_stage(*ops, tail=1, emit_bits=True)
+    table_w = torch.zeros((16, 64), dtype=torch.int32, device=dev)
+    bits = torch.zeros((2, 64), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        masked_xor_scan(table_w.t(), bits)
+    with pytest.raises(ValueError, match="contiguous"):
+        masked_xor_scan(table_w.t().contiguous(), bits.t().contiguous().t())
+    with pytest.raises(ValueError, match="uint8"):
+        masked_xor_scan(table_w.t().contiguous(), bits.to(torch.int32))
+    with pytest.raises(ValueError, match="int32"):
+        masked_xor_scan(table_w.t().contiguous().to(torch.int64), bits)
 
 
 def test_cuda_server_matches_cpu_server(dev):
@@ -309,3 +351,43 @@ def test_cuda_3_byte_rows_match_cpu_server(dev, monkeypatch):
         cpu = TorchPirServer(db, device="cpu", fast_stacked=stacked)
         _check_servers(gpu, cpu, db, idxs, fast)
     _check_servers(gpu, cpu, db, idxs, compat)
+
+
+@pytest.mark.parametrize("slot", [16, 3])
+def test_cuda_single_queries_match_cpu_server(dev, slot):
+    """Single queries and small batches on the card: fast singles (both
+    fast_stacked values) scan with the masked-XOR scan kernel and not the
+    packed scan; compat singles, batches of 3 and expand + scan equal the
+    CPU server's bytes and recover; so do the tiny-table fallbacks."""
+    db = generate_random_db(1 << 13, slot)
+    rng = np.random.default_rng(slot)
+    idxs = [0, db.db_size - 1, int(rng.integers(db.db_size))]
+    cpu = TorchPirServer(db, device="cpu")
+    for fast in (True, False):
+        pairs = [tq.new_index_query_shares(db.metadata(), i, 1, fast=fast,
+                                           rand_bytes=rng.bytes) for i in idxs]
+        for stacked in ((True, False) if fast else (True,)):
+            gpu = TorchPirServer(db, fast_stacked=stacked)
+            scans, packed = masked_xor_scan.launches, packed_scan.launches
+            for idx, pair in zip(idxs, pairs):
+                res = [gpu.private_secret_shared_query(s) for s in pair]
+                assert [r.shares[0].data for r in res] == \
+                    [cpu.private_secret_shared_query(s).shares[0].data for s in pair]
+                assert bytes(tq.recover(res)[0].data) == db.data[idx].tobytes()
+                bits = [gpu.expand_shared_query(s) for s in pair]
+                assert all(b.is_cuda for b in bits)
+                res = [gpu.private_secret_shared_query_with_expanded_bits(s, b)
+                       for s, b in zip(pair, bits)]
+                assert bytes(tq.recover(res)[0].data) == db.data[idx].tobytes()
+            assert masked_xor_scan.launches > scans
+            assert packed_scan.launches == packed
+            batch = tq.new_index_query_shares_batch(db.metadata(), idxs, 1, fast=fast,
+                                                    rand_bytes=rng.bytes)
+            _check_servers(gpu, cpu, db, idxs, batch)
+    tiny = generate_random_db(20, slot)
+    t_idxs = [int(i) for i in rng.integers(0, 20, size=12)]
+    for fast in (True, False):
+        batch = tq.new_index_query_shares_batch(tiny.metadata(), t_idxs, 1, fast=fast,
+                                                rand_bytes=rng.bytes)
+        _check_servers(TorchPirServer(tiny), TorchPirServer(tiny, device="cpu"), tiny, t_idxs,
+                       batch)

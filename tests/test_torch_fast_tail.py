@@ -25,7 +25,8 @@ from pir_tpu.ops.pallas_fused import fused_geometry, fused_scan_expand_pallas
 from pir_tpu.server import TpuPirServer
 from pir_tpu_torch.database import DBMetadata
 from pir_tpu_torch.dpf import device as tdev
-from pir_tpu_torch.models.pipeline import payload_tensor, pertail_head
+from pir_tpu_torch.dpf.device import u32_tensor
+from pir_tpu_torch.models.pipeline import pertail_head
 from pir_tpu_torch.ops.fast_tail import fast_tail_expand
 from pir_tpu_torch.ops.fused import fused_scan_expand
 from pir_tpu_torch.server import TorchPirServer
@@ -76,7 +77,7 @@ def test_head_matches_pir_tpu(height, leaf_bits, tail_levels, distinct):
                                                                leaf_bits=leaf_bits)]
     pay, layout = tdev.make_fast_payload_batch(to_port(shares))
     assert layout.shared_rk != distinct
-    got, tail = pertail_head(payload_tensor(pay, "cpu"), layout, tail_levels)
+    got, tail = pertail_head(u32_tensor(pay, "cpu"), layout, tail_levels)
     head = layout.depth - tail
     jlayout = jdev.FastRootLayout(layout.depth, layout.height, layout.shared_rk,
                                   layout.leaf_blocks)

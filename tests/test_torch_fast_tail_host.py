@@ -22,7 +22,8 @@ import torch
 from pir_tpu_torch import query as tq
 from pir_tpu_torch.database import DBMetadata
 from pir_tpu_torch.dpf.device import make_fast_payload_batch
-from pir_tpu_torch.models.pipeline import payload_tensor, pertail_head
+from pir_tpu_torch.dpf.device import u32_tensor
+from pir_tpu_torch.models.pipeline import pertail_head
 from pir_tpu_torch.ops.fast_tail import fast_tail_expand_plain, leaf_blocks_of
 
 CSRC = Path(__file__).resolve().parent.parent / "pir_tpu_torch" / "csrc"
@@ -57,7 +58,7 @@ def test_host_build_matches_plain_tail(host_tail, height, leaf_bits, levels, n_b
         shares = [p[0] for p in tq.new_index_query_shares_batch(
             md, idxs, 1, fast=True, leaf_bits=leaf_bits, rand_bytes=rng.bytes)]
     pay, layout = make_fast_payload_batch(shares)
-    ops, tail = pertail_head(payload_tensor(pay, "cpu"), layout, 5)
+    ops, tail = pertail_head(u32_tensor(pay, "cpu"), layout, 5)
     assert (tail, leaf_blocks_of(ops[6]), layout.shared_rk) == (levels, n_blk, not distinct)
     want = fast_tail_expand_plain(*ops, levels=tail)
     got = torch.empty_like(want)

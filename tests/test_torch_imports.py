@@ -19,6 +19,7 @@ SLICE_MODULES = [
     "pir_tpu_torch/ops/expand.py", "pir_tpu_torch/ops/packed_scan.py",
     "pir_tpu_torch/ops/compat_stage.py", "pir_tpu_torch/models/pipeline.py",
     "pir_tpu_torch/ops/fast_tail.py", "pir_tpu_torch/ops/fused.py",
+    "pir_tpu_torch/ops/xor_scan.py", "pir_tpu_torch/ops/scan.py", "pir_tpu_torch/entry.py",
 ]
 
 

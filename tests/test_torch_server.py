@@ -5,6 +5,8 @@ pir_tpu_torch.state — over the same rows; answer shares must be equal
 bytes and recover the rows exactly.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -110,11 +112,18 @@ def test_batches_the_port_cannot_serve_raise(servers):
         tsrv.private_secret_shared_query_batch([a, b])
     with pytest.raises(ValueError, match="empty"):
         tsrv.private_secret_shared_query_batch([])
+    # keyword shares wait for ROADMAP item [11]; a fast key of depth < 5,
+    # which raised before the per-query path, is served (host bits)
+    keyword = dataclasses.replace(a, is_keyword_based=True)
+    with pytest.raises(NotImplementedError, match=r"\[11\]"):
+        tsrv.private_secret_shared_query_batch([keyword])
+    with pytest.raises(NotImplementedError, match=r"\[11\]"):
+        tsrv.private_secret_shared_query(keyword)
     tiny = TorchPirServer(database_from_numpy(db.data[:512], SLOT), device="cpu")
-    shallow = tq.new_fast_index_query_shares(tiny.db.metadata(), 3, 1)[0]
-    assert shallow.key_fast.depth < 5
-    with pytest.raises(NotImplementedError):
-        tiny.private_secret_shared_query_batch([shallow])
+    shallow = tq.new_fast_index_query_shares(tiny.db.metadata(), 3, 1)
+    assert shallow[0].key_fast.depth < 5
+    res = [tiny.private_secret_shared_query_batch([s])[0] for s in shallow]
+    assert bytes(tq.recover(res)[0].data) == db.data[3].tobytes()
 
 
 def test_default_device_is_cuda_and_raises_without_one(servers):

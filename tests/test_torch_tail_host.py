@@ -19,7 +19,8 @@ import torch
 from pir_tpu_torch import query as tq
 from pir_tpu_torch.database import DBMetadata
 from pir_tpu_torch.dpf.device import make_fast_payload_batch
-from pir_tpu_torch.models.pipeline import payload_tensor, stacked_fast_geometry, stacked_head
+from pir_tpu_torch.dpf.device import u32_tensor
+from pir_tpu_torch.models.pipeline import stacked_fast_geometry, stacked_head
 from pir_tpu_torch.ops.expand import fast_tail_expand_stacked_plain
 
 CSRC = Path(__file__).resolve().parent.parent / "pir_tpu_torch" / "csrc"
@@ -55,7 +56,7 @@ def test_host_build_matches_plain_tail(host_tail, height, leaf_bits, distinct):
     pay, layout = make_fast_payload_batch(shares)
     k, tail = stacked_fast_geometry(layout.depth, layout.leaf_blocks)
     assert tail > 0 and len(idxs) == k
-    ops = [x.contiguous() for x in stacked_head(payload_tensor(pay, "cpu"), layout)]
+    ops = [x.contiguous() for x in stacked_head(u32_tensor(pay, "cpu"), layout)]
     want = fast_tail_expand_stacked_plain(*ops, tail=tail, n_blk=layout.leaf_blocks)
     got = torch.empty_like(want)
     s_n, w = ops[0].shape[0], ops[0].shape[-1]
