@@ -6,7 +6,7 @@
 From the repository root, on a machine with one NVIDIA H100 and nvcc:
 
 0. prints the card (nvidia-smi name and power limit) and the versions;
-1. builds the six CUDA kernels from pir_tpu_torch/csrc with nvcc, one
+1. builds the seven CUDA kernels from pir_tpu_torch/csrc with nvcc, one
    nvcc per source, all at once;
 2. builds a 2^20-row x 1024-byte table (1 GiB) from --seed, in the
    storage orders of every path (stacked and classic for 1024-bit keys,
@@ -21,7 +21,10 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
    distinct-key batch of 64, the fused scan + tail on the stream's
    table (depth 13) at 256 queries, both outputs, and the masked-XOR scan
    at Q = 1 on the natural-order word table (a fifth 1 GiB table) with a
-   compat single's bits and at Q = 8 on the stacked table's word view;
+   compat single's bits and at Q = 8 on the stacked table's word view,
+   and the bit-plane scan at Q = 1, 13 and 64 on a 2^16-row slice of the
+   natural table's bytes and at Q = 13 and 64 on a whole 2^20-row table
+   of 3-byte slots (4-byte rows);
 3. serves, both shares, through TorchPirServer: 3 batches of 4096
    shared-key fast queries on the stacked path, 3 batches of 1024
    reference-exact (compat) queries (the last one through the async
@@ -43,11 +46,16 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
    and the packed scan on none of the fast singles; per-query latency
    and a split of one single of each kind. Then the tiny-table fallbacks
    on small tables: a fast batch of depth < 5 and a compat batch of 12
-   on a table of 5 device levels;
+   on a table of 5 device levels. Then, with 2^20 distinct keywords on
+   the rows, a keyword batch of 64 (both shares, and a split of one),
+   keyword singles (one absent), 3-party index and keyword singles,
+   their device bits against the host golden, and lookups in both
+   keyword search trees (PrivateSqrtST, PrivateBST) made with no device;
 4. serves one distinct-key fast batch of 64 queries on each fast path;
 5. times each kernel, its plain version and its PyTorch yardstick at the
-   main paths' shapes (the masked-XOR scan at Q = 1 and Q = 8), and prints
-   one JSON line of kernels.
+   main paths' shapes (the masked-XOR scan at Q = 1 and Q = 8, the
+   bit-plane scan at Q = 64 and Q = 1024 on the natural table's bytes),
+   and prints one JSON line of kernels.
 
 Every failed check raises, so the exit code is not 0. The last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
@@ -80,6 +88,13 @@ SMALL_BATCH = 3  # small batches of both key styles on the single-query paths
 TINY_COMPAT_ROWS = 20  # a compat table of 5 device levels, every level on the host
 TINY_FAST_ROWS = 1024  # fast keys of depth 3 (128-bit leaves)
 TINY_BATCH = 12  # scanned as 8 + 4
+PLANES_CHECK_ROWS = 1 << 16  # bit-plane scan: rows of the 1 GiB table checked in phase 2
+KW_BATCH = 64  # keyword batch: queries a share batch
+KW_TIMING_Q = (64, 1024)  # bit-plane scan: batch sizes timed in phase 5
+GOLDEN_POINTS = 4096  # host golden of a keyword or multi-party single: random rows checked
+MP_PARTIES = 3
+TREE_KEYS = 1 << 16  # keyword search trees: a 256 x 256 sqrt tree, and a
+BST_KEYS = 1 << 12   # binary search tree of 12 levels
 # H100 SXM data-sheet peaks
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
@@ -120,11 +135,16 @@ def main() -> int:
     from pir_tpu_torch.database import DBMetadata
     from pir_tpu_torch.dpf import host as dpf_host
     from pir_tpu_torch.dpf.device import (
+        POINT_EVAL_CHUNK,
+        eval_point_operands_bits,
         make_compat_payload_batch,
+        make_device_point_key,
         make_fast_payload_batch,
+        point_eval_operands,
         u32_tensor,
         unpack_key_payload,
     )
+    from pir_tpu_torch.keyword import new_private_bst, new_private_sqrt_st
     from pir_tpu_torch.models.pipeline import (
         MIN_BATCH,
         compat_head,
@@ -144,15 +164,21 @@ def main() -> int:
     from pir_tpu_torch.ops.fast_tail import fast_tail_expand, fast_tail_expand_plain
     from pir_tpu_torch.ops.fused import fused_scan_expand, fused_scan_expand_plain
     from pir_tpu_torch.ops.packed_scan import packed_scan, packed_scan_plain, unpack_words_t
+    from pir_tpu_torch.ops.matmul_scan import mxu_batched_scan
+    from pir_tpu_torch.ops.planes_scan import planes_scan
     from pir_tpu_torch.ops.xor_scan import masked_xor_scan, masked_xor_scan_plain
     from pir_tpu_torch.query import (
         new_fast_index_query_shares,
         new_index_query_shares,
         new_index_query_shares_batch,
+        new_keyword_query_shares,
+        new_keyword_query_shares_batch,
+        recover,
     )
     from pir_tpu_torch.server import COMPAT_Q_CHUNK, TorchPirServer
     from pir_tpu_torch.state import database_from_numpy
     from pir_tpu_torch.utils import pad_tile
+    from pir_tpu_torch.utils.bits import num_bits_for_height
 
     dev = torch.device("cuda", 0)
 
@@ -345,6 +371,27 @@ def main() -> int:
     if e_xs1 or e_xs8:
         fail("the masked-XOR scan kernel disagrees with its plain version")
 
+    # bit-plane scan (keyword batches): Q = 1, 13 and 64 on a 2^16-row
+    # slice of the natural table's bytes; Q = 13 and 64 on a whole table
+    # of 3-byte slots, whose rows pad to 4 bytes (the plain version's
+    # products are small there)
+    t = time.perf_counter()
+    table_b = table_w.view(torch.uint8)
+    table_3 = TorchPirServer(database_from_numpy(np.ascontiguousarray(data[:, :3]), 3))._table(1)
+    table_3 = table_3.view(torch.uint8)
+    e_ps = {}
+    for label, tbl, qs in ((f"{PLANES_CHECK_ROWS} rows x {SLOT_BYTES} B",
+                            table_b[:PLANES_CHECK_ROWS], (1, 13, 64)),
+                           (f"{HEIGHT} rows x 3 B slots", table_3, (13, 64))):
+        for q in qs:
+            bits = torch.from_numpy(rng.integers(0, 2, (q, tbl.shape[0]), dtype=np.uint8)).to(dev)
+            e_ps[f"{label}, Q = {q}"] = err(planes_scan(tbl, bits), mxu_batched_scan(tbl, bits))
+    del table_3, bits
+    log(f"phase 2: bit-plane scan vs plain max_abs_err (tolerance 0, equal bytes) "
+        f"{e_ps} in {time.perf_counter() - t:.2f} s")
+    if any(e_ps.values()):
+        fail("the bit-plane scan kernel disagrees with its plain version")
+
     def rows_of(results):
         return np.stack([np.frombuffer(bytes(r.shares[0].data), np.uint8) for r in results])
 
@@ -382,7 +429,8 @@ def main() -> int:
 
     counted = {"stacked_tail": fast_tail_expand_stacked, "packed_scan": packed_scan,
                "compat_stage": compat_stage, "fast_tail": fast_tail_expand,
-               "fused_scan_expand": fused_scan_expand, "masked_xor_scan": masked_xor_scan}
+               "fused_scan_expand": fused_scan_expand, "masked_xor_scan": masked_xor_scan,
+               "planes_scan": planes_scan}
     path_launches = {}  # path -> {kernel: launches in that path's run}
 
     def reset_counts():
@@ -758,6 +806,166 @@ def main() -> int:
         check_recovered(idx, ans, path)
         log(f"phase 3: {path} ({rows} rows): equal to the host golden, all recovered")
 
+    # keyword and multi-party queries on the 1 GiB table: one distinct
+    # uint32 keyword a row, from --seed
+    t = time.perf_counter()
+    kw_rng = np.random.default_rng(args.seed + 2)
+    keywords = kw_rng.choice(1 << 32, size=HEIGHT, replace=False).astype(np.uint64)
+    db.set_keywords(keywords)
+    kw_rows = [int(i) for i in kw_rng.integers(0, HEIGHT, KW_BATCH)]
+    kw_pairs = new_keyword_query_shares_batch(md, [int(keywords[r]) for r in kw_rows], 1,
+                                              rand_bytes=keygen_rng.bytes)
+    log(f"phase 3: {HEIGHT} keywords and a keyword batch of {KW_BATCH} (client keygen) in "
+        f"{time.perf_counter() - t:.2f} s")
+    reset_counts()
+    kw_answers = []
+    kw_times = serve_and_check(kw_rows, kw_pairs, "keyword batch", answers=kw_answers)
+    read_counts("keyword batch", ("planes_scan",), ("packed_scan", "masked_xor_scan"))
+    log(f"phase 3: keyword batch of {KW_BATCH}: server answers {kw_times[0]:.4f} s + "
+        f"{kw_times[1]:.4f} s for the two shares = {kw_times[0] / KW_BATCH:.4f} / "
+        f"{kw_times[1] / KW_BATCH:.4f} s per query per server; all {KW_BATCH} recovered")
+
+    # one keyword share batch again, stage by stage, each stage synchronised
+    split_kw = {}
+    t = time.perf_counter()
+
+    def mark_k(stage):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split_kw[stage] = now - t
+        t = now
+
+    dkeys = [make_device_point_key(dpf_host.server_initialize(p[0].prf_keys, 32),
+                                   p[0].key_two_party) for p in kw_pairs]
+    mark_k("key build")
+    kw_planes = srv._kw_plane_table(1)
+    kw_ops = point_eval_operands(dkeys, kw_planes)
+    mark_k("upload")
+    kw_bits = eval_point_operands_bits(kw_ops, kw_planes, HEIGHT)
+    mark_k(f"point walk (32 levels, {-(-KW_BATCH // POINT_EVAL_CHUNK)} chunks)")
+    kw_out = planes_scan(srv._table(1).view(torch.uint8), kw_bits)
+    mark_k("kernel 6")
+    kw_host = kw_out.view(torch.int32).cpu()
+    mark_k("download")
+    kw_res = [srv._result_from_words(w, 1) for w in kw_host]
+    mark_k("result objects")
+    if not np.array_equal(rows_of(kw_res), kw_answers[0][0]):
+        fail("the keyword batch split differs from the batch API")
+    del kw_ops, kw_bits, kw_out
+    log(f"phase 3: split of one {KW_BATCH}-query keyword share batch (s): " +
+        ", ".join(f"{name} {sec:.4f}" for name, sec in split_kw.items()) +
+        f"; sum {sum(split_kw.values()):.4f}")
+
+    # keyword and multi-party singles through private_secret_shared_query
+    # (counted), then each share's device bits against the host golden on
+    # GOLDEN_POINTS random rows and the target, all rows of the shares'
+    # bits XORed (one-hot at the target, or zero for an absent keyword),
+    # and expand + scan against the single's answer
+    cands = kw_rng.integers(0, 1 << 32, 64, dtype=np.uint64)
+    absent = int(cands[~np.isin(cands, keywords)][0])
+    kw_single_rows = [0, HEIGHT - 1, int(kw_rng.integers(HEIGHT)), None]
+    mp_kw_row = int(kw_rng.integers(HEIGHT))
+    single_kinds = (
+        ("keyword single", kw_single_rows,
+         lambda r: new_keyword_query_shares(md, absent if r is None else int(keywords[r]), 1,
+                                            rand_bytes=keygen_rng.bytes)),
+        (f"{MP_PARTIES}-party index single", single_idx,
+         lambda r: new_index_query_shares(md, r, 1, num_shares=MP_PARTIES,
+                                          rand_bytes=keygen_rng.bytes)),
+        (f"{MP_PARTIES}-party keyword single", [mp_kw_row],
+         lambda r: new_keyword_query_shares(md, int(keywords[r]), 1, num_shares=MP_PARTIES,
+                                            rand_bytes=keygen_rng.bytes)))
+    for path, rows, make in single_kinds:
+        t = time.perf_counter()
+        shares = [make(r) for r in rows]
+        keygen_s = time.perf_counter() - t
+        reset_counts()
+        t = time.perf_counter()
+        answers = [[first_slot(srv.private_secret_shared_query(s)) for s in sh] for sh in shares]
+        n_ans = sum(len(sh) for sh in shares)
+        single_s[path] = (time.perf_counter() - t) / n_ans
+        read_counts(path, ("masked_xor_scan",), ("planes_scan", "packed_scan"))
+        t = time.perf_counter()
+        for r, sh, ans in zip(rows, shares, answers):
+            rec = np.bitwise_xor.reduce(np.stack([np.frombuffer(a, np.uint8) for a in ans]))
+            want = np.zeros(SLOT_BYTES, np.uint8) if r is None else data[r]
+            if not np.array_equal(rec, want):
+                fail(f"{path}: row {r} does not recover")
+            pts = kw_rng.integers(0, HEIGHT, GOLDEN_POINTS)
+            if r is not None:
+                pts = np.append(pts, r)
+            onehot = torch.zeros(HEIGHT, dtype=torch.uint8, device=dev)
+            for s, a in zip(sh, ans):
+                bits = srv.expand_shared_query(s)
+                onehot ^= bits
+                if first_slot(srv.private_secret_shared_query_with_expanded_bits(s, bits)) != a:
+                    fail(f"{path}: expand + scan differs from the single's answer")
+                nb = 32 if s.is_keyword_based else num_bits_for_height(HEIGHT)
+                pf = dpf_host.server_initialize(s.prf_keys, nb)
+                xs = keywords[pts] if s.is_keyword_based else pts
+                if s.is_two_party:
+                    gold = (dpf_host.eval_points(pf, s.share_number, s.key_two_party, xs) & 1) == 0
+                else:
+                    gold = (dpf_host.eval_points_mp(pf, s.key_multi_party, xs) & 1) == 1
+                if not np.array_equal(bits.cpu().numpy()[pts].astype(bool), gold):
+                    fail(f"{path}: row {r} share {s.share_number}: device bits differ from "
+                         f"the host golden")
+            hot = torch.nonzero(onehot).flatten().tolist()
+            if hot != ([] if r is None else [r]):
+                fail(f"{path}: the shares' bits XOR to rows {hot[:4]}, not {r}")
+        log(f"phase 3: {path}: {single_s[path]:.4f} s per query per server (mean of {n_ans}, "
+            f"first use included; client keygen {keygen_s:.2f} s); rows {rows}, every share; "
+            f"device bits equal the host golden on {GOLDEN_POINTS} random rows and the target, "
+            f"XOR one-hot, expand + scan equal, all recovered ({time.perf_counter() - t:.2f} s "
+            f"of checks)")
+
+    # the keyword search trees, made with no device, so their servers are
+    # on the card: three lookups in each, every query through
+    # private_secret_shared_query
+    t = time.perf_counter()
+    tree_keys = [f"key-{i:08d}" for i in range(TREE_KEYS)][::-1]  # descending
+    sqst = new_private_sqrt_st()
+    sqst.build_for_data(tree_keys)
+    bst = new_private_bst()
+    bst.build_for_data(tree_keys[:BST_KEYS])
+    bst_data_srv = TorchPirServer(bst.data_layer)
+    tree_build_s = time.perf_counter() - t
+
+    def bst_level(lvl, index):
+        shares = new_index_query_shares(bst.levels[lvl].metadata(), index, 1,
+                                        rand_bytes=keygen_rng.bytes)
+        return recover([bst.private_level_query(lvl, s) for s in shares])[0]
+
+    def bst_data(index):
+        shares = new_index_query_shares(bst.data_layer.metadata(), index, 1,
+                                        rand_bytes=keygen_rng.bytes)
+        return recover([bst_data_srv.private_secret_shared_query(s) for s in shares])
+
+    reset_counts()
+    tree_s = {}
+    t = time.perf_counter()
+    for i in (0, TREE_KEYS - 1, int(kw_rng.integers(TREE_KEYS))):
+        row = sqst.find_bucket(tree_keys[i])
+        shares = new_index_query_shares(sqst.get_second_layer_metadata(), row, sqst.height,
+                                        rand_bytes=keygen_rng.bytes)
+        slots = recover([sqst.private_query(s) for s in shares])
+        if row * sqst.width + sqst.find_in_row(slots, tree_keys[i]) != i:
+            fail(f"the sqrt tree does not find key {i}")
+    tree_s["sqrt tree"] = (time.perf_counter() - t) / 3
+    t = time.perf_counter()
+    for i in (0, BST_KEYS - 1, int(kw_rng.integers(BST_KEYS))):
+        idx, slots = bst.lookup(tree_keys[i], bst_level, bst_data)
+        if idx != i or slots[0].to_string() != tree_keys[i]:
+            fail(f"the binary search tree does not find key {i}")
+    tree_s["binary search tree"] = (time.perf_counter() - t) / 3
+    read_counts("keyword trees", ("masked_xor_scan",), ("planes_scan",))
+    log(f"phase 3: keyword trees on {sqst.server().device} ({TREE_KEYS}-key sqrt tree, "
+        f"{BST_KEYS}-key binary search tree of {bst.depth} levels, built in "
+        f"{tree_build_s:.2f} s): s per lookup, both servers and client keygen included, "
+        f"{tree_s}; every key found")
+    del sqst, bst, bst_data_srv
+
     # ---- phase 4: distinct-key batches -----------------------------------
     idx, dpairs = batch_shares(DISTINCT_BATCH, distinct=True)
     for path, server, needs in (("stacked fast distinct", srv, ("stacked_tail", "packed_scan")),
@@ -972,6 +1180,30 @@ def main() -> int:
     xs1 = time_xor_scan(table_w, xs_bits1, "single query, natural table")
     xs8 = time_xor_scan(table_sw, xs_bits8, "small fast batch, stacked table")
 
+    # bit-plane scan: Q = 64 (the keyword batch) and Q = 1024 on the
+    # natural table's bytes, random bits; the yardstick is 8 int8 products
+    # (torch._int_mm) with the table's bit planes, made once
+    lib_planes = [((table_b >> p) & 1).to(torch.int8) for p in range(8)]
+    ps_time = {}
+    for q in KW_TIMING_Q:
+        bits = torch.randint(0, 2, (q, HEIGHT), dtype=torch.uint8, device=dev)
+        ms, out = cuda_ms(lambda: planes_scan(table_b, bits), 5)
+        plain_ms, plain = cuda_ms(lambda: mxu_batched_scan(table_b, bits), 1, warm=False)
+        e = err(out, plain)
+        bits_i8 = bits.view(torch.int8)
+        lib_ms, acc = cuda_ms(lambda: [torch._int_mm(bits_i8, pl) for pl in lib_planes], 1)
+        e_lib = err(sum((a & 1) << p for p, a in enumerate(acc)).to(torch.uint8), out)
+        bound = {"bytes": nbytes(table_b, bits, out) / HBM_BYTES_PER_S * 1e3,
+                 "operations": 8 * 2 * q * table_b.numel() / INT8_TENSOR_OPS_PER_S * 1e3}
+        ps_time[q] = (ms, plain_ms, bound, lib_ms, e)
+        del bits, out, plain, acc, bits_i8
+        log(f"phase 5: bit-plane scan ({q} queries x {HEIGHT} rows x {table_b.shape[1]} B): "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm x8 {lib_ms:.4f} ms, "
+            f"bounds {bound}, max_abs_err {e} (library {e_lib})")
+        if e or e_lib:
+            fail(f"the bit-plane scan disagrees at Q = {q}")
+    del lib_planes
+
     launches = {name: sum(run.get(name, 0) for run in path_launches.values())
                 for name in counted}
 
@@ -1006,6 +1238,10 @@ def main() -> int:
         entry("masked_xor_scan", "pir_tpu_torch/csrc/masked_xor_scan.cu",
               "pir_tpu/ops/pallas_scan.py:182", xs1[0], xs1[1], xs1[2], None,
               max(xs1[3], xs8[3], e_xs1, e_xs8)),
+        # at Q = 64, the keyword batch's shape (Q = 1024: log, --out)
+        entry("planes_scan", "pir_tpu_torch/csrc/planes_scan.cu",
+              "pir_tpu/ops/pallas_scan.py:53", *ps_time[KW_BATCH][:4],
+              max([v[4] for v in ps_time.values()] + list(e_ps.values()))),
     ]}
     if args.out:
         summary = dict(kernels, card=smi, per_share_batch_s=per_batch,
@@ -1022,6 +1258,9 @@ def main() -> int:
                        single_s_per_query=single_s, single_split_s=single_split,
                        masked_xor_scan_q8={"ms": xs8[0], "plain_ms": xs8[1],
                                            "bound_ms": xs8[2]},
+                       keyword_per_share_batch_s=kw_times, keyword_split_s=split_kw,
+                       planes_scan={str(q): {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
+                                             "library_ms": v[3]} for q, v in ps_time.items()},
                        elapsed_s=time.perf_counter() - T0)
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)

@@ -7,8 +7,11 @@ per-query tail kernel, ``fast_stacked=False``) and for reference-exact
 (compat) keys the compat-stage kernel, and the packed scan kernel; the
 serving stream's fused mode runs the scan and the next batch's tail in
 one kernel. Single queries and small batches expand per query and scan
-with the masked-XOR scan kernel (hand-written CUDA, ``csrc/``). Nothing
-of JAX or of pir_tpu is imported; each module names its pir_tpu
+with the masked-XOR scan kernel. Keyword queries (2-party, and with
+multi-party shares for >= 3 servers) and multi-party index queries
+evaluate on the device too; keyword batches scan with the bit-plane
+scan kernel. The kernels are hand-written CUDA (``csrc/``). Nothing of
+JAX or of pir_tpu is imported; each module names its pir_tpu
 counterpart.
 """
 
@@ -19,6 +22,8 @@ from .query import (
     new_fast_index_query_shares,
     new_index_query_shares,
     new_index_query_shares_batch,
+    new_keyword_query_shares,
+    new_keyword_query_shares_batch,
     recover,
 )
 from .server import FastServingStream, TorchPirServer
@@ -36,5 +41,7 @@ __all__ = [
     "new_fast_index_query_shares",
     "new_index_query_shares",
     "new_index_query_shares_batch",
+    "new_keyword_query_shares",
+    "new_keyword_query_shares_batch",
     "recover",
 ]

@@ -125,17 +125,16 @@ def prf_blocks(x: np.ndarray, ciphers: list[EcbCipher], num_blocks: int) -> np.n
     out[:, i] = AES_{k_i}(x) ^ x for i < len(ciphers). Beyond that the
     PRG extends as out_i = AES_{k_{i mod K}}(x ^ ctr) ^ x ^ ctr with
     ctr = LE64(i // K), which for a single cipher is the wide-leaf CTR
-    extension of fast mode.
+    extension of fast mode. The blocks of one cipher encrypt together.
     """
     n = x.shape[0]
     k = len(ciphers)
     out = np.empty((n, num_blocks, 16), dtype=np.uint8)
-    for i in range(num_blocks):
-        if i < k:
-            out[:, i] = ciphers[i].encrypt_blocks(x) ^ x
-        else:
-            ctr = np.zeros(16, dtype=np.uint8)
-            ctr[:8] = np.frombuffer((i // k).to_bytes(8, "little"), np.uint8)
-            xi = x ^ ctr[None, :]
-            out[:, i] = ciphers[i % k].encrypt_blocks(xi) ^ xi
+    idx = np.arange(num_blocks)
+    ctr = np.zeros((num_blocks, 16), dtype=np.uint8)  # zero for i < K
+    ctr[:, :8] = (idx // k).astype("<u8").view(np.uint8).reshape(-1, 8)
+    for c in range(min(k, num_blocks)):
+        sel = idx[c::k]
+        xi = x[:, None, :] ^ ctr[None, sel, :]
+        out[:, sel] = ciphers[c].encrypt_blocks(xi) ^ xi
     return out

@@ -214,11 +214,11 @@ def blocks_to_planes(blocks: np.ndarray) -> np.ndarray:
     nw = -(-n // 32)
     padded = np.zeros((nw * 32, 16), dtype=np.uint8)
     padded[:n] = blocks
-    bits = (padded[:, :, None] >> np.arange(8, dtype=np.uint8)) & 1  # (N,16,8)
-    bits = bits.transpose(2, 1, 0).astype(np.uint32)  # (8,16,N)
-    bits = bits.reshape(8, 16, nw, 32)
-    shifts = np.arange(32, dtype=np.uint32)
-    return (bits << shifts).sum(axis=-1, dtype=np.uint32)
+    by = np.ascontiguousarray(padded.reshape(nw, 32, 16).transpose(2, 0, 1))  # (16, nw, 32)
+    out = np.empty((8, 16, nw), dtype=np.uint32)
+    for k in range(8):
+        out[k] = np.packbits((by >> k) & 1, axis=-1, bitorder="little").view("<u4")[..., 0]
+    return out
 
 
 def planes_to_blocks(planes: np.ndarray, n: int) -> np.ndarray:

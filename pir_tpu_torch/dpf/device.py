@@ -25,6 +25,13 @@ Single queries and small batches expand per query instead
 ``fast_leaf_bits``; the per-query subset below): a host prefix, then
 breadth-first device levels, then a gather into natural row order.
 
+Keyword shares evaluate at each row's keyword instead of the whole
+domain: the 2-party point walk (``eval_points_bits[_batch]``) follows
+each point's own branch over packed branch-bit planes, and multi-party
+shares run the sigma-slot PRG walk over the whole index domain
+(``expand_mp_full_domain_bits``) or at arbitrary points
+(``eval_points_mp_bits``); the last sections below.
+
 Device tensors hold the bit pattern of the JAX package's uint32 words as
 ``torch.int32``.
 """
@@ -40,7 +47,7 @@ import torch
 from ..utils.bits import go_varint_vec
 from .aes_host import key_schedule, key_schedule_batch, prf_blocks
 from .bitslice import aes_encrypt_planes, blocks_to_planes, key_masks
-from .host import Key2P, _leaf_blocks_wide
+from .host import Key2P, KeyMP, _leaf_blocks_wide, _mp_params
 
 _FULL = np.uint32(0xFFFFFFFF)
 
@@ -1068,3 +1075,277 @@ def unpack_fast_payload(payload: torch.Tensor, layout: FastPayloadLayout):
            else seg[5].reshape(8, layout.leaf_blocks, 16, 1))
     return (seg[0].reshape(8, 16, nw0), seg[1], seg[2].reshape(d, 8, 16, 1), seg[3], seg[4],
             fcw, seg[6].reshape(11, 8, 3, 16, 1), seg[7].reshape(11, 8, 16, 1))
+
+
+# --------------------------------------------------------------------------
+# 2-party point evaluation: keyword queries (db.go:119-135)
+# --------------------------------------------------------------------------
+# (counterpart of pir_tpu/dpf/device.py:1280-1421) Every point walks the
+# 32-level tree on its own branch: 32 points a lane word, the branch bit
+# of level i of each point packed in plane i, so one bitsliced MMO step
+# per level serves 32 * NW points. The JAX package vmaps a whole batch;
+# here queries walk in chunks of POINT_EVAL_CHUNK, which bounds the live
+# planes (about 0.4 GiB a query at NW = 32768, 2^20 keywords).
+
+POINT_EVAL_CHUNK = 8
+
+
+def _pack_bits_u32(bits: np.ndarray) -> np.ndarray:
+    """(..., 32 * nw) {0, 1} -> (..., nw) uint32, bit j of word w =
+    element 32w + j."""
+    packed = np.packbits(bits.astype(np.uint8), axis=-1, bitorder="little")
+    return np.ascontiguousarray(packed).view("<u4").astype(np.uint32, copy=False)
+
+
+def pack_point_bit_planes(points: np.ndarray, num_bits: int) -> np.ndarray:
+    """(num_bits, NW) uint32 branch-bit planes: level i's plane holds,
+    packed, bit ``num_bits - 1 - i`` of each point, MSB first over the
+    num_bits-bit domain (dpf/server.go:63-66)."""
+    n = len(points)
+    nw = -(-n // 32)
+    padded = np.zeros(nw * 32, dtype=np.uint64)
+    padded[:n] = np.asarray(points).astype(np.uint64)
+    return np.stack([_pack_bits_u32((padded >> np.uint64(num_bits - 1 - i)) & np.uint64(1))
+                     for i in range(num_bits)])
+
+
+@dataclass
+class DevicePointKey2P:
+    """Device-ready arrays (numpy uint32) of one 2-party point-eval share."""
+
+    num_bits: int
+    s_init_masks: np.ndarray  # (8, 16, 1) root seed masks
+    t_init_mask: np.uint32
+    cw_seed_masks: np.ndarray  # (num_bits, 8, 16, 1)
+    cw_tl: np.ndarray  # (num_bits,)
+    cw_tr: np.ndarray
+    rk_masks: np.ndarray  # (11, 8, 3, 16, 1)
+    fcw_mask: np.uint32
+
+
+def make_device_point_key(server, key: Key2P) -> DevicePointKey2P:
+    """The point-eval arrays of a reference-exact key (`server` a
+    ``dpf.host.Dpf`` over the 32-bit keyword domain)."""
+    cw_seed_masks, tl, tr = _cw_masks_list(key.cw)
+    return DevicePointKey2P(
+        num_bits=server.num_bits,
+        s_init_masks=_block_masks(key.s_init),
+        t_init_mask=np.uint32(_FULL if key.t_init else 0),
+        cw_seed_masks=cw_seed_masks,
+        cw_tl=tl,
+        cw_tr=tr,
+        rk_masks=prf_key_masks(server),
+        fcw_mask=np.uint32(_FULL if (key.final_cw & 1) else 0),
+    )
+
+
+def point_eval_packed_core(s_masks, t_mask, cw_seed_masks, cw_tl, cw_tr, rk_masks, fcw_mask,
+                           xbits, num_bits: int) -> torch.Tensor:
+    """The 2-party point walk of Q shares over packed branch-bit planes
+    (dpf/server.go:55-101, the inverted parity included): s_masks
+    (Q,8,16,1), t_mask (Q,), cw_seed_masks (Q,>=num_bits,8,16,1), cw_tl /
+    cw_tr (Q,>=num_bits), rk_masks (Q,11,8,3,16,1), fcw_mask (Q,), xbits
+    (num_bits, NW) -> (Q, NW) packed selection words, 32 points a word.
+    A pure function of its tensors (the mesh step will call it on a
+    shard's slice of the planes)."""
+    seeds = s_masks.transpose(0, 1)  # (8, Q, 16, 1): lanes broadcast at level 0
+    t_plane = t_mask[:, None]
+    rk = _rk_bit_first(rk_masks)
+    for i in range(num_bits):
+        out = _prf_triple(seeds, rk)
+        s_l, t_l, s_r, t_r = _children(out, t_plane, cw_seed_masks[:, i].transpose(0, 1),
+                                       cw_tl[:, i:i + 1], cw_tr[:, i:i + 1])
+        xb = xbits[i]
+        seeds = s_l ^ ((s_l ^ s_r) & xb)
+        t_plane = t_l ^ ((t_l ^ t_r) & xb)
+    return _leaf_select_bits(seeds, t_plane, fcw_mask[:, None])
+
+
+def point_eval_operands(dkeys: list[DevicePointKey2P], xbit_planes: torch.Tensor) -> list:
+    """The Q keys' operands of point_eval_packed_core, stacked and
+    uploaded to the device of `xbit_planes`. All keys share num_bits
+    (32 for keyword shares), and the planes have as many rows."""
+    nb = dkeys[0].num_bits
+    if any(k.num_bits != nb for k in dkeys) or xbit_planes.shape[0] != nb:
+        raise ValueError("point-eval keys and planes must share one domain")
+    return [u32_tensor(np.stack([np.asarray(getattr(k, a)) for k in dkeys]), xbit_planes.device)
+            for a in ("s_init_masks", "t_init_mask", "cw_seed_masks", "cw_tl", "cw_tr",
+                      "rk_masks", "fcw_mask")]
+
+
+def eval_point_operands_bits(ops: list, xbit_planes: torch.Tensor,
+                             n_points: int) -> torch.Tensor:
+    """(Q, n_points) uint8 selection bits from point_eval_operands, in
+    chunks of POINT_EVAL_CHUNK queries."""
+    out = torch.empty((ops[0].shape[0], n_points), dtype=torch.uint8, device=xbit_planes.device)
+    c = POINT_EVAL_CHUNK
+    for q0 in range(0, out.shape[0], c):
+        packed = point_eval_packed_core(*(x[q0:q0 + c] for x in ops), xbit_planes,
+                                        xbit_planes.shape[0])
+        out[q0:q0 + c] = _unpack_bits(packed)[:, :n_points]
+    return out
+
+
+def eval_points_bits_batch(dkeys: list[DevicePointKey2P], xbit_planes: torch.Tensor,
+                           n_points: int) -> torch.Tensor:
+    """(Q, n_points) uint8 selection bits of Q point-eval shares at the
+    points of `xbit_planes` (pack_point_bit_planes as an int32 tensor, on
+    the device the walk runs on): upload, then the walk."""
+    return eval_point_operands_bits(point_eval_operands(dkeys, xbit_planes), xbit_planes,
+                                    n_points)
+
+
+def eval_points_bits(dkey: DevicePointKey2P, xbit_planes: torch.Tensor,
+                     n_points: int) -> torch.Tensor:
+    """(n_points,) uint8 selection bits of one point-eval share."""
+    return eval_points_bits_batch([dkey], xbit_planes, n_points)[0]
+
+
+# --------------------------------------------------------------------------
+# Multi-party (>= 3 server) evaluation
+# --------------------------------------------------------------------------
+# (counterpart of pir_tpu/dpf/device.py:1423-1665) The sigma-slot PRG walk
+# of dpf/server.go:110-144, as completed by host.generate_multi_server.
+# Only the parity of each mu-word is needed: bit 0 of u32 word delta is
+# bit plane 0 of byte 4 * (delta % 4) of PRG block delta // 4, so each AES
+# block gives 4 selection-bit planes.
+
+MP_CHUNK_WORDS = 1 << 22  # plane words of AES input a chunk of PRG blocks
+
+
+def _pack_lane_mask(flags: np.ndarray, nw: int) -> np.ndarray:
+    """(n,) bool -> (nw,) uint32 with bit j of word w = flags[32w + j]."""
+    padded = np.zeros(nw * 32, dtype=bool)
+    padded[: len(flags)] = flags
+    return _pack_bits_u32(padded)
+
+
+def _mp_fixed_rk4(server) -> list[np.ndarray]:
+    """Bitsliced round-key masks of the four fixed PRG keys (prf_blocks:
+    block b uses ciphers[b % 4]); each (11, 8, 16, 1)."""
+    return [key_masks(key_schedule(server.ciphers[i].key)[None])[..., 0][..., None]
+            for i in range(4)]
+
+
+def _ctr_block_masks(blocks: np.ndarray) -> np.ndarray:
+    """(n,) PRG block numbers -> (n, 8, 16) full-word masks of their
+    counter LE64(b // 4) in bytes 0..7 (aes_host.prf_blocks)."""
+    ctr = np.zeros((len(blocks), 16), dtype=np.uint8)
+    ctr[:, :8] = (np.asarray(blocks, dtype=np.int64) // 4).astype("<u8").view(
+        np.uint8).reshape(-1, 8)
+    bits = (ctr[:, None, :] >> np.arange(8, dtype=np.uint8)[None, :, None]) & 1
+    return bits.astype(np.uint32) * _FULL
+
+
+def expand_mp_full_domain_bits(server, key: KeyMP, height: int, device=None) -> torch.Tensor:
+    """(height,) uint8 selection-bit share of a multi-party index key over
+    rows [0, height), equal to ``(host.eval_points_mp(...) & 1) == 1``
+    (the XOR-share convention of server.expand_shared_query). Row x =
+    gamma * 2^delta_bits + delta; the gamma rows lie in lanes, the p2
+    seed slots on a small axis, and the PRG blocks walk in chunks of
+    about MP_CHUNK_WORDS plane words."""
+    p2, mu, gamma_bits, delta_bits = _mp_params(server.num_bits, key.num_parties)
+    n_gamma = 1 << gamma_bits
+    seeds = np.frombuffer(b"".join(key.sigma), dtype=np.uint8).reshape(n_gamma, p2, 16)
+    seed_planes = np.stack([blocks_to_planes(np.ascontiguousarray(seeds[:, i]))
+                            for i in range(p2)], axis=1)  # (8, p2, 16, NWg)
+    nwg = seed_planes.shape[-1]
+    # zero seeds skip G and CW (dpf/server.go:127-136)
+    present = np.stack([_pack_lane_mask(seeds[:, i].any(axis=1), nwg) for i in range(p2)])
+    num_blocks = -(-server.m * mu // 16)
+    blocks = np.arange(num_blocks)
+    rk4 = np.stack(_mp_fixed_rk4(server))  # (4, 11, 8, 16, 1)
+    cw_bits = np.zeros((p2, num_blocks * 4), dtype=np.uint32)
+    for i in range(p2):
+        cw_bits[i, :mu] = np.asarray(key.cw[i][:mu], dtype=np.uint32) & 1
+    cw_par = (cw_bits * _FULL).reshape(p2, num_blocks, 4).transpose(1, 0, 2)  # (nbk, p2, 4)
+
+    x0 = u32_tensor(seed_planes, device)[:, None]  # (8, 1, p2, 16, NWg)
+    present_t = u32_tensor(present, device)[None, :, None, :]  # (1, p2, 1, NWg)
+    step = max(1, MP_CHUNK_WORDS // (8 * p2 * 16 * nwg))
+    ys = []
+    for b0 in range(0, num_blocks, step):
+        blk = blocks[b0:b0 + step]
+        ctr = u32_tensor(_ctr_block_masks(blk), device)  # (n, 8, 16)
+        x = x0 ^ ctr.permute(1, 0, 2)[:, :, None, :, None]  # (8, n, p2, 16, NWg)
+        rk = u32_tensor(rk4[blk % 4], device).permute(1, 2, 0, 3, 4)[:, :, :, None]
+        out = aes_encrypt_planes(x, rk) ^ x  # MMO (dpf/common.go:60-75)
+        par = out[0][:, :, 0:16:4, :]  # (n, p2, 4, NWg): bit 0 of bytes 0, 4, 8, 12
+        cwp = u32_tensor(np.ascontiguousarray(cw_par[blk]), device)[..., None]
+        contrib = present_t & (par ^ cwp)
+        y = contrib[:, 0]
+        for i in range(1, p2):
+            y = y ^ contrib[:, i]
+        ys.append(y.reshape(-1, nwg))  # (4n, NWg): parity words of deltas 4*b0 ..
+    y = torch.cat(ys)  # (mu_pad, NWg)
+    # the bit of gamma 32w + j and delta d is bit j of y[d, w]
+    bits = _unpack_bits(y)[:, :n_gamma]  # (mu_pad, n_gamma)
+    return bits.t()[:, : 1 << delta_bits].reshape(-1)[:height].contiguous()
+
+
+def mp_point_operands(server, key: KeyMP, points):
+    """Host-side packed operands of the multi-party point eval: (xp, rk4,
+    ksel, bytesel, present, cwm, p2) as numpy uint32, shaped as
+    mp_point_packed_core takes them (the lanes past the points evaluate
+    point 0, and the caller drops them)."""
+    p2, mu, gamma_bits, delta_bits = _mp_params(server.num_bits, key.num_parties)
+    pts = np.asarray(points, dtype=np.int64)
+    n = len(pts)
+    nw = -(-n // 32)
+    if nw * 32 != n:
+        pts = np.concatenate([pts, np.zeros(nw * 32 - n, dtype=np.int64)])
+    deltas = pts & ((1 << delta_bits) - 1)
+    gammas = (pts >> delta_bits) & ((1 << gamma_bits) - 1)
+    b = deltas >> 2  # the PRG block holding word delta
+    kidx = b & 3  # its fixed key (prf_blocks: ciphers[b % 4])
+    ctr = b >> 2  # its counter (prf_blocks: b // 4)
+    widx = deltas & 3  # the word within the block
+
+    sigma = np.frombuffer(b"".join(key.sigma), dtype=np.uint8).reshape(1 << gamma_bits, p2, 16)
+    seeds = sigma[gammas]  # (n_pad, p2, 16)
+    present_rows = seeds.any(axis=2)
+    x = seeds.copy()
+    x[:, :, :8] ^= ctr.astype("<u8").view(np.uint8).reshape(-1, 8)[:, None, :]
+    xp = np.stack([blocks_to_planes(np.ascontiguousarray(x[:, i])) for i in range(p2)],
+                  axis=1)  # (8, p2, 16, NW)
+    rk4 = np.stack(_mp_fixed_rk4(server))[:, :, :, None]  # (4, 11, 8, 1, 16, 1)
+    ksel = np.stack([_pack_lane_mask(kidx == k, nw) for k in range(4)])
+    bytesel = np.stack([_pack_lane_mask(widx == k, nw) for k in range(4)])
+    present = np.stack([_pack_lane_mask(present_rows[:, i], nw) for i in range(p2)])
+    cwm = np.stack([_pack_lane_mask((np.asarray(key.cw[i], dtype=np.uint32)[deltas] & 1) == 1,
+                                    nw) for i in range(p2)])
+    return xp, rk4, ksel, bytesel, present, cwm, p2
+
+
+def mp_point_packed_core(xp, rk4, ksel, bytesel, present, cwm, p2: int) -> torch.Tensor:
+    """The multi-party point eval over packed per-lane operands: xp
+    (8,p2,16,NW), rk4 (4,11,8,1,16,1), ksel / bytesel (4,NW), present /
+    cwm (p2,NW) -> (NW,) packed XOR-share parity words. Each lane's round
+    keys are the fixed-key schedule its one-hot ksel mask selects (the
+    masks are disjoint, so OR composes them); the parity of its word
+    (delta & 3) is bit 0 of byte 4 * (delta & 3), chosen by bytesel. A
+    pure function of its tensors (the mesh step will reuse it)."""
+    rk = rk4[0] & ksel[0]
+    for k in range(1, 4):
+        rk = rk | (rk4[k] & ksel[k])
+    out = aes_encrypt_planes(xp, rk) ^ xp  # MMO (dpf/common.go:60-75)
+    p0 = out[0]  # bit-0 planes, (p2, 16, NW)
+    par = ((p0[:, 0] & bytesel[0]) ^ (p0[:, 4] & bytesel[1]) ^ (p0[:, 8] & bytesel[2])
+           ^ (p0[:, 12] & bytesel[3]))  # (p2, NW)
+    contrib = present & (par ^ cwm)  # zero-seed slots skip G and CW
+    y = contrib[0]
+    for i in range(1, p2):
+        y = y ^ contrib[i]
+    return y
+
+
+def eval_points_mp_bits(server, key: KeyMP, points, device=None) -> torch.Tensor:
+    """(len(points),) uint8 selection-bit share of a multi-party key at
+    arbitrary points (keyword shares, db.go:132-135 with >= 3 servers),
+    equal to ``(host.eval_points_mp(...) & 1) == 1``. Each point needs
+    the one 16-byte PRG block that holds its output word: one bitsliced
+    AES per sigma slot per 32 points."""
+    xp, rk4, ksel, bytesel, present, cwm, p2 = mp_point_operands(server, key, points)
+    y = mp_point_packed_core(*(u32_tensor(a, device) for a in (xp, rk4, ksel, bytesel, present,
+                                                               cwm)), p2)
+    return _unpack_bits(y)[: len(points)]

@@ -16,12 +16,20 @@ Two key styles:
   ``leaf_bits``-wide final correction word. ``bits0 ^ bits1`` is one-hot
   at the target row, so answers recover exactly.
 
+Keyword queries use reference-exact keys over the 32-bit keyword domain,
+evaluated at each row's keyword (``eval_points``, the keyword golden).
+Multi-party (>= 3 server) keys (``KeyMP``, ``generate_multi_server``,
+``evaluate_mp``, ``eval_points_mp``) give XOR shares of the point
+function (dpf/server.go:110-144; the reference's keygen is a stub that
+the JAX package completes, and this is its copy).
+
 Keygen draws its randomness from ``rand_bytes`` (default ``os.urandom``);
 tests pass a seeded source to make a run repeatable.
 """
 
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass, field
 from typing import Callable
@@ -49,6 +57,7 @@ class Dpf:
     prf_keys: list[PrfKey]
     ciphers: list[EcbCipher] = field(repr=False)
     n: int = GO_UINT_BITS
+    m: int = 4  # multi-party word size in bytes
 
 
 def client_initialize(num_bits: int, rand_bytes: RandBytes = os.urandom) -> Dpf:
@@ -277,6 +286,32 @@ def eval_full_domain_bits(dpf: Dpf, server_num: int, key: Key2P,
     return ((vals & 1) == 0)[:height]
 
 
+def eval_points(dpf: Dpf, server_num: int, key: Key2P, xs: np.ndarray) -> np.ndarray:
+    """``evaluate_2p`` at many points at once (the keyword golden model):
+    all points walk the tree together, each following its own branch
+    (dpf/server.go:55-94). Returns int64 values."""
+    nb = dpf.num_bits
+    xs = np.asarray(xs, dtype=np.uint64)
+    n = len(xs)
+    seeds = np.tile(np.frombuffer(key.s_init, dtype=np.uint8), (n, 1))
+    t_bits = np.full(n, key.t_init, dtype=np.uint8)
+    for i in range(nb):
+        out = prf_blocks(seeds, dpf.ciphers, 3).reshape(n, 48)
+        cw_i = key.cw[i]
+        cw_seed = np.frombuffer(cw_i[:16], dtype=np.uint8)
+        t_mask = t_bits[:, None]
+        s_l = out[:, 0:16] ^ cw_seed[None, :] * t_mask
+        s_r = out[:, 17:33] ^ cw_seed[None, :] * t_mask
+        t_l = (out[:, 16] & 1) ^ (t_bits & cw_i[16])
+        t_r = (out[:, 33] & 1) ^ (t_bits & cw_i[17])
+        x_bit = ((xs >> np.uint64(nb - 1 - i)) & np.uint64(1)).astype(bool)
+        seeds = np.where(x_bit[:, None], s_r, s_l)
+        t_bits = np.where(x_bit, t_r, t_l).astype(np.uint8)
+    s_final = go_varint_vec(np.ascontiguousarray(seeds[:, :8]))
+    res = s_final + t_bits.astype(np.int64) * key.final_cw
+    return res if server_num == 0 else -res
+
+
 # --------------------------------------------------------------------------
 # Fast keys
 # --------------------------------------------------------------------------
@@ -488,3 +523,141 @@ def eval_full_domain_fast_bits(dpf: Dpf, key: FastKey2P) -> np.ndarray:
     blocks = blocks ^ fcw[None, :] * t_bits[:, None]
     bits = np.unpackbits(blocks, axis=1, bitorder="little").reshape(-1)
     return bits[: key.height].astype(bool)
+
+
+# --------------------------------------------------------------------------
+# Multi-party (>= 3 server) keys
+# --------------------------------------------------------------------------
+
+@dataclass
+class KeyMP:
+    """Multi-party DPF key (dpf/common.go:37-42)."""
+
+    num_parties: int
+    cw: list[np.ndarray]  # p2 uint32 arrays of mu words
+    sigma: list[bytes]  # one row of p2 16-byte seed slots per gamma
+
+
+def _mp_params(num_bits: int, num_parties: int):
+    """(p2, mu, gamma_bits, delta_bits), exactly as the eval derives them
+    (dpf/server.go:119-124)."""
+    p2 = 1 << (num_parties - 1)
+    mu = int(math.ceil(math.pow(2, num_bits / 2) * math.pow(2, (num_parties - 1) / 2)))
+    return p2, mu, (num_bits + 1) // 2, num_bits // 2
+
+
+def generate_multi_server(dpf: Dpf, a: int, b: int, num_parties: int,
+                          rand_bytes: RandBytes = os.urandom) -> list[KeyMP]:
+    """p-party (>= 3) keygen for f(a) = b with XOR-output shares: the
+    seed-sharing construction the multi-party eval implies.
+
+    * Each row gamma has 2^(p-1) seed slots; parties holding a slot share
+      its seed. Presence vectors v_j XOR to all-ones at gamma_a and to
+      zero elsewhere, so expansions cancel except at the target row.
+    * Correction words satisfy XOR_i CW_i = XOR_i G(s_{gamma_a, i}) ^
+      b * e_{delta_a}.
+    * 1-private: presence vectors are re-drawn per row until no single
+      party holds every slot of any row, so each party's per-row view is
+      the same for every row.
+    """
+    if num_parties < 3:
+        raise ValueError("use generate_two_server for 2 parties")
+    p2, mu, gamma_bits, delta_bits = _mp_params(dpf.num_bits, num_parties)
+    n_gamma = 1 << gamma_bits
+    gamma_a = (a >> delta_bits) & (n_gamma - 1)
+    delta_a = a & ((1 << delta_bits) - 1)
+    num_blocks = -(-dpf.m * mu // BLOCK_SIZE)
+
+    seeds = np.frombuffer(rand_bytes(n_gamma * p2 * 16), dtype=np.uint8).reshape(
+        n_gamma, p2, 16).copy()
+    # avoid the eval's all-zero-seed skip (dpf/server.go:127-136)
+    seeds[~seeds.any(axis=2), 0] = 1
+
+    g_out = prf_blocks(seeds[gamma_a], dpf.ciphers, num_blocks)  # (p2, nbl, 16)
+    g_words = g_out.reshape(p2, -1)[:, : dpf.m * mu].copy().view("<u4").reshape(p2, mu)
+
+    cw = np.frombuffer(rand_bytes(p2 * mu * 4), dtype="<u4").reshape(p2, mu).copy()
+    target = np.zeros(mu, dtype=np.uint32)
+    target[delta_a] = np.uint32(b & 0xFFFFFFFF)
+    acc = np.bitwise_xor.reduce(cw[:-1], axis=0)
+    cw[-1] = acc ^ np.bitwise_xor.reduce(g_words, axis=0) ^ target
+
+    def presence(k: int, rows: np.ndarray) -> np.ndarray:
+        """(p, k, p2) presence bits for `rows`: p - 1 random vectors and
+        the last one fixing the XOR (all-ones at gamma_a)."""
+        v = np.frombuffer(rand_bytes(k * (num_parties - 1) * p2), dtype=np.uint8).reshape(
+            num_parties - 1, k, p2) & 1
+        last = np.bitwise_xor.reduce(v, axis=0)
+        last[rows == gamma_a] ^= 1
+        return np.concatenate([v, last[None]], axis=0)
+
+    v = presence(n_gamma, np.arange(n_gamma))
+    for _ in range(64):
+        full = v.all(axis=2).any(axis=0)  # rows where some party holds every slot
+        if not full.any():
+            break
+        rows = np.flatnonzero(full)
+        v[:, full] = presence(len(rows), rows)
+    else:  # pragma: no cover
+        raise RuntimeError("presence-vector sampling failed to converge")
+
+    cw_list = [cw[i] for i in range(p2)]
+    return [KeyMP(num_parties, [c.copy() for c in cw_list],
+                  [(seeds[g] * v[j, g][:, None]).tobytes() for g in range(n_gamma)])
+            for j in range(num_parties)]
+
+
+def evaluate_mp(dpf: Dpf, key: KeyMP, x: int) -> int:
+    """Multi-party XOR-homomorphic eval at one point (dpf/server.go:110-144)."""
+    p2, mu, gamma_bits, delta_bits = _mp_params(dpf.num_bits, key.num_parties)
+    delta = x & ((1 << delta_bits) - 1)
+    gamma = (x >> delta_bits) & ((1 << gamma_bits) - 1)
+    num_blocks = -(-dpf.m * mu // BLOCK_SIZE)
+    y = np.zeros(mu, dtype=np.uint32)
+    for i in range(p2):
+        s = key.sigma[gamma][i * BLOCK_SIZE:(i + 1) * BLOCK_SIZE]
+        if not any(s):
+            continue  # zero-seed slots skip G and CW
+        out = prf_blocks(np.frombuffer(s, dtype=np.uint8)[None, :], dpf.ciphers,
+                         num_blocks)[0].reshape(-1)
+        y ^= out[: dpf.m * mu].view("<u4")[:mu]
+        y ^= np.asarray(key.cw[i][:mu], dtype=np.uint32)
+    return int(y[delta])
+
+
+def eval_points_mp(dpf: Dpf, key: KeyMP, xs) -> np.ndarray:
+    """``evaluate_mp`` at many points (the multi-party golden model),
+    block-sparse: output word delta of a row's CTR-extended MMO stream
+    depends only on its own 16-byte block b = delta // 4,
+    AES_{k_{b%4}}(seed ^ LE64(b//4)) ^ (seed ^ LE64(b//4)), so only the
+    (gamma, block) pairs the points address are computed. Returns
+    (len(xs),) int64 values; the XOR bit share is ``y & 1``."""
+    p2, mu, gamma_bits, delta_bits = _mp_params(dpf.num_bits, key.num_parties)
+    xs = np.asarray(xs, dtype=np.int64)
+    deltas = xs & ((1 << delta_bits) - 1)
+    gammas = (xs >> delta_bits) & ((1 << gamma_bits) - 1)
+    blocks = deltas >> 2  # u32 word delta lies in 16-byte block delta // 4
+
+    num_blocks = -(-dpf.m * mu // BLOCK_SIZE)
+    uniq, inv = np.unique(gammas * num_blocks + blocks, return_inverse=True)
+    ug, ub = uniq // num_blocks, uniq % num_blocks
+
+    sigma = np.frombuffer(b"".join(key.sigma), dtype=np.uint8).reshape(-1, p2, BLOCK_SIZE)
+    seeds = sigma[ug]  # (m, p2, 16)
+    present = seeds.any(axis=2)  # zero-seed slots skip G and CW (go:127-136)
+    xin = seeds.copy()
+    xin[:, :, :8] ^= (ub >> 2).astype("<u8").view(np.uint8).reshape(-1, 8)[:, None, :]
+    flat_x = xin.reshape(-1, BLOCK_SIZE)
+    flat_k = np.repeat(ub & 3, p2)  # fixed key of block b: ciphers[b % 4]
+    out = np.empty_like(flat_x)
+    for k in range(4):
+        sel = flat_k == k
+        if sel.any():
+            out[sel] = dpf.ciphers[k].encrypt_blocks(flat_x[sel]) ^ flat_x[sel]
+    words = np.ascontiguousarray(out).view("<u4").reshape(len(uniq), p2, 4)
+
+    w_pt = words[inv, :, deltas & 3]  # (n, p2)
+    cw_pt = np.stack([np.asarray(key.cw[i], dtype=np.uint32)[deltas] for i in range(p2)],
+                     axis=1)
+    y = np.bitwise_xor.reduce(np.where(present[inv], w_pt ^ cw_pt, np.uint32(0)), axis=1)
+    return y.astype(np.int64)

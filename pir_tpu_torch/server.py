@@ -29,7 +29,15 @@ MIN_BATCH, compat tables of at most 5 device levels, fast keys of depth
 and the masked-XOR scan kernel reads the natural-order word table
 (``_table``). ``fast_serving_stream()`` serves fast batches with a
 one-batch lag, in the stacked mode or through the fused scan + tail
-kernel. Keyword and multi-party shares raise NotImplementedError.
+kernel.
+
+Keyword shares (2-party, the 32-bit keyword domain evaluated at each
+row's keyword) and multi-party shares (>= 3 servers, index or keyword)
+expand per query on the device (``dpf/device.py``: the point walk, the
+multi-party PRG walk) and scan with the masked-XOR scan kernel; a
+keyword batch runs one point walk for its queries and scans with the
+bit-plane scan kernel (``ops/planes_scan.py``) the natural table's
+bytes. Multi-party batches raise ValueError, as in pir_tpu.
 """
 
 from __future__ import annotations
@@ -49,13 +57,19 @@ from .dpf.device import (
     _leaf_perm,
     compat_skip_levels,
     compat_stage_plan,
+    eval_points_bits,
+    eval_points_bits_batch,
+    eval_points_mp_bits,
+    expand_mp_full_domain_bits,
     expand_query_bits,
     make_compat_payload_batch,
     make_device_fast_key,
     make_device_key,
+    make_device_point_key,
     make_fast_payload_batch,
     pack_fast_payload,
     pack_key_payload,
+    pack_point_bit_planes,
     scatter_rows_to_storage_order,
     u32_tensor,
 )
@@ -72,6 +86,7 @@ from .models.pipeline import (
     stacked_fast_geometry,
 )
 from .ops.compat_stage import MAX_TAIL
+from .ops.planes_scan import planes_scan
 from .ops.scan import pack_table_u32, pad_cols_u8, pad_rows_u8, unpack_result_u32
 from .ops.xor_scan import masked_xor_scan
 from .query import QueryShare, SecretSharedQueryResult
@@ -106,25 +121,73 @@ def validate_fast_key_geometry(key_fast, dim_height: int) -> None:
         raise ValueError("fast key geometry does not match the database")
 
 
-def check_index_share(query: QueryShare) -> None:
-    """Raise NotImplementedError unless `query` is a 2-party index share."""
-    if (query.is_keyword_based or not query.is_two_party
-            or (query.key_fast is None and query.key_two_party is None)):
-        raise NotImplementedError(
-            "the port serves 2-party index shares; keyword and multi-party point "
-            "evaluation come with ROADMAP item [11]")
+def is_index_share(query: QueryShare) -> bool:
+    """True for a 2-party index share (fast or compat key), the shares the
+    root-start and per-query index paths take; keyword and multi-party
+    shares go through the point-eval paths."""
+    return query.is_two_party and not query.is_keyword_based
+
+
+def _num_bits(query: QueryShare, dim_height: int) -> int:
+    """The DPF domain of a reference-exact or multi-party share: 32 bits
+    for keywords, else the table height's (pir_tpu/server.py:_server_dpf)."""
+    return 32 if query.is_keyword_based else num_bits_for_height(dim_height)
+
+
+def check_share(query: QueryShare, dim_height: int) -> None:
+    """Raise ValueError unless `query` carries the key its kind needs, of
+    the geometry the table gives it: a key's levels, leaf width and
+    sigma rows size the evaluation, so a crafted key must fail here
+    instead of driving allocations."""
+    if not query.is_two_party:
+        key = query.key_multi_party
+        if key is None or key.num_parties < 3:
+            raise ValueError("a multi-party share needs a KeyMP of >= 3 parties")
+        p2, mu, gamma_bits, _ = dpf_host._mp_params(_num_bits(query, dim_height),
+                                                    key.num_parties)
+        if (len(key.sigma) != 1 << gamma_bits or any(len(r) != 16 * p2 for r in key.sigma)
+                or len(key.cw) != p2 or any(len(c) < mu for c in key.cw)):
+            raise ValueError("multi-party key geometry does not match the database")
+        return
+    if query.key_fast is not None:
+        if query.is_keyword_based:
+            raise ValueError("keyword shares carry reference-exact keys, not fast keys")
+        validate_fast_key_geometry(query.key_fast, dim_height)
+        return
+    if query.key_two_party is None:
+        raise ValueError("a 2-party share needs a reference-exact or a fast key")
+    if len(query.key_two_party.cw) != _num_bits(query, dim_height):
+        kind = "keyword" if query.is_keyword_based else "compat"
+        raise ValueError(f"{kind} key geometry does not match the database")
+
+
+def _keywords(db: Database, dim_height: int) -> np.ndarray:
+    """The first dim_height rows' keywords (db.go:119-135)."""
+    if db.keywords is None or len(db.keywords) < dim_height:
+        raise ValueError("keyword shares need a keyword for every row (Database.set_keywords)")
+    return db.keywords[:dim_height]
 
 
 def expand_shared_query(db: Database, query: QueryShare) -> np.ndarray:
-    """Host expansion of a 2-party index share into (H,) bool selection
-    bits, natural row order (db.go:109-174; numpy, the golden model)."""
-    check_index_share(query)
+    """Host expansion of a share into (H,) bool selection bits, natural
+    row order (db.go:109-174; numpy, the golden model)."""
     dim_height = db.db_size // query.group_size
+    check_share(query, dim_height)
     if query.key_fast is not None:
-        validate_fast_key_geometry(query.key_fast, dim_height)
         pf = dpf_host.server_initialize(query.prf_keys, query.key_fast.depth)
         return dpf_host.eval_full_domain_fast_bits(pf, query.key_fast)
-    pf = dpf_host.server_initialize(query.prf_keys, num_bits_for_height(dim_height))
+    pf = dpf_host.server_initialize(query.prf_keys, _num_bits(query, dim_height))
+    if not query.is_two_party:
+        points = (_keywords(db, dim_height).astype(np.int64) if query.is_keyword_based
+                  else np.arange(dim_height, dtype=np.int64))
+        # multi-party outputs are XOR shares, so the direct parity is the
+        # bit share; the inverted rule of db.go:157-161 belongs to the
+        # 2-party +/- shares (pir_tpu/server.py:76-83)
+        return (dpf_host.eval_points_mp(pf, query.key_multi_party, points) & 1) == 1
+    if query.is_keyword_based:
+        vals = dpf_host.eval_points(pf, query.share_number, query.key_two_party,
+                                    _keywords(db, dim_height))
+        return (vals & 1) == 0
     return dpf_host.eval_full_domain_bits(pf, query.share_number, query.key_two_party,
                                           dim_height)
 
@@ -153,7 +216,8 @@ def private_secret_shared_query(db: Database, query: QueryShare) -> SecretShared
 
 class TorchPirServer:
     """Device-resident PIR server answering 2-party index batches of fast
-    and of reference-exact (compat) keys.
+    and of reference-exact (compat) keys, keyword batches, and single
+    queries of every kind (index or keyword, 2-party or multi-party).
 
     device: a CUDA device by default; pass ``device="cpu"`` to run the
     kernels' plain versions on the CPU. With no device given and no GPU
@@ -230,6 +294,29 @@ class TorchPirServer:
             return torch.from_numpy(words.view(np.int32)).to(self.device)
 
         return self._cached(("words", group_size), build)
+
+    def _kw_plane_table(self, group_size: int) -> torch.Tensor:
+        """The rows' keywords as (32, ceil(H/32)) int32 branch-bit planes
+        of the point walk (dpf.device.pack_point_bit_planes), cached."""
+        h = self.db.db_size // group_size
+        return self._cached(("keyword planes", group_size), lambda: u32_tensor(
+            pack_point_bit_planes(_keywords(self.db, h), 32), self.device))
+
+    def _point_bits(self, query: QueryShare) -> torch.Tensor:
+        """(H,) uint8 selection bits of a keyword or multi-party share,
+        natural row order, on the device: the multi-party PRG walk over
+        the index domain or at the rows' keywords, or the 2-party point
+        walk at the rows' keywords."""
+        h = self.db.db_size // query.group_size
+        check_share(query, h)
+        pf = dpf_host.server_initialize(query.prf_keys, _num_bits(query, h))
+        if not query.is_two_party:
+            if query.is_keyword_based:
+                return eval_points_mp_bits(pf, query.key_multi_party, _keywords(self.db, h),
+                                           self.device)
+            return expand_mp_full_domain_bits(pf, query.key_multi_party, h, self.device)
+        return eval_points_bits(make_device_point_key(pf, query.key_two_party),
+                                self._kw_plane_table(query.group_size), h)
 
     def _perm(self, num_bits: int, height: int) -> torch.Tensor:
         """The compat leaf permutation (int64) on the device, per geometry."""
@@ -320,8 +407,10 @@ class TorchPirServer:
                                                                dkey.plan.height))
 
     def expand_shared_query(self, query: QueryShare) -> torch.Tensor:
-        """Device DPF expansion of one 2-party index share -> (H,) uint8
-        selection bits in natural row order, on the server's device."""
+        """Device DPF expansion of one share -> (H,) uint8 selection bits
+        in natural row order, on the server's device."""
+        if not is_index_share(query):
+            return self._point_bits(query)
         self._validate_batch([query])
         h = self.db.db_size // query.group_size
         return self._bits(query, *self._index_payload(query, h))
@@ -343,7 +432,11 @@ class TorchPirServer:
         """One answer share. A fast share of depth >= 5 rides the batch path
         (padded to MIN_BATCH, so the masked-XOR scan kernel reads the storage
         table once); a compat share expands from one payload and scans the
-        natural table; a tiny domain's host bits scan the same table."""
+        natural table; a tiny domain's host bits, and a keyword or
+        multi-party share's point bits, scan the same table."""
+        if not is_index_share(query):
+            return self.private_secret_shared_query_with_expanded_bits(
+                query, self._point_bits(query))
         self._validate_batch([query])
         if self._fast_root_applicable([query]):
             return self.private_secret_shared_query_batch([query])[0]
@@ -421,15 +514,35 @@ class TorchPirServer:
             return False
         return self._compat_device_bits(q0.group_size) >= 6
 
+    def _keyword_query_batch(self, queries: list[QueryShare]) -> torch.Tensor:
+        """A keyword batch (pir_tpu/server.py:735-766): one point walk for
+        the batch, then the bit-plane scan kernel on the natural word
+        table's bytes. Returns the (Q, G * words) int32 answer words (not
+        yet fetched)."""
+        g = queries[0].group_size
+        h = self.db.db_size // g
+        dkeys = []
+        for query in queries:
+            if query.group_size != g or not query.is_two_party or not query.is_keyword_based:
+                raise ValueError("keyword batch requires uniform 2-party keyword queries")
+            check_share(query, h)
+            pf = dpf_host.server_initialize(query.prf_keys, 32)
+            dkeys.append(make_device_point_key(pf, query.key_two_party))
+        bits = eval_points_bits_batch(dkeys, self._kw_plane_table(g), h)  # (Q, H)
+        return planes_scan(self._table(g).view(torch.uint8), bits).view(torch.int32)
+
     def _validate_batch(self, queries: list[QueryShare]) -> None:
+        """Raise ValueError unless `queries` is a uniform 2-party index
+        batch (keyword batches validate in _keyword_query_batch)."""
         if not queries:
             raise ValueError("empty batch")
         q0 = queries[0]
+        if q0.is_keyword_based:
+            return
         g = q0.group_size
-        check_index_share(q0)
+        if q0.is_two_party:
+            check_share(q0, self.db.db_size // g)
         fast = q0.key_fast is not None
-        if fast:
-            validate_fast_key_geometry(q0.key_fast, self.db.db_size // g)
         lb = q0.key_fast.leaf_bits if fast else None
         # a compat key's level count sizes its expansion (2^levels bits),
         # so a crafted key must fail here instead of driving allocations
@@ -441,7 +554,7 @@ class TorchPirServer:
                 raise ValueError("batch cannot mix fast and compat queries")
             if fast and query.key_fast.leaf_bits != lb:
                 raise ValueError("batch cannot mix fast-key leaf widths")
-            if not fast and len(query.key_two_party.cw) != nb:
+            if not fast and (query.key_two_party is None or len(query.key_two_party.cw) != nb):
                 raise ValueError("compat key geometry does not match the database")
 
     def _dispatch_fast_root(self, queries: list[QueryShare],
@@ -498,6 +611,9 @@ class TorchPirServer:
         zero-arg callable producing the results."""
         self._validate_batch(queries)
         g, n = queries[0].group_size, len(queries)
+        if queries[0].is_keyword_based:
+            words = self._keyword_query_batch(queries)
+            return lambda: [self._result_from_words(w, g) for w in words.cpu()]
         if self._fast_root_applicable(queries):
             out_dev = self._dispatch_fast_root(queries)
         elif self._compat_applicable(queries):
@@ -510,7 +626,7 @@ class TorchPirServer:
     def private_secret_shared_query_batch(
         self, queries: list[QueryShare]
     ) -> list[SecretSharedQueryResult]:
-        """Answer a batch of same-shape index queries."""
+        """Answer a batch of same-shape 2-party index or keyword queries."""
         return self.private_secret_shared_query_batch_async(queries)()
 
     def fast_serving_stream(self) -> "FastServingStream":

@@ -1,10 +1,10 @@
 """Carry the JAX package's state into the port.
 
-The "weights" of a PIR server are its table and the query shares it is
-asked to answer, and of a single answer step its device key. All arrive
-here as plain numpy arrays, bytes and ints (the fields of a ``pir_tpu``
-database, share or device key), so nothing of the JAX package is
-imported.
+The "weights" of a PIR server are its table (and its rows' keywords)
+and the query shares it is asked to answer, and of a single answer step
+its device key. All arrive here as plain numpy arrays, bytes and ints
+(the fields of a ``pir_tpu`` database, share, key or device key), so
+nothing of the JAX package is imported.
 """
 
 from __future__ import annotations
@@ -14,17 +14,24 @@ import torch
 
 from .database import Database
 from .dpf.device import u32_tensor
-from .dpf.host import FastKey2P, Key2P, PrfKey
+from .dpf.host import FastKey2P, Key2P, KeyMP, PrfKey
 from .query import QueryShare
 
 
-def database_from_numpy(data: np.ndarray, slot_bytes: int) -> Database:
+def database_from_numpy(data: np.ndarray, slot_bytes: int, keywords=None) -> Database:
     """A port Database over (db_size, slot_bytes) uint8 rows (no copy
-    when `data` already is a C-contiguous uint8 array)."""
+    when `data` already is a C-contiguous uint8 array), with `keywords`
+    when given (a ``pir_tpu`` database's ``keywords``: grid row r of a
+    keyword query holds keyword r)."""
     data = np.ascontiguousarray(data, dtype=np.uint8)
     if data.ndim != 2 or data.shape[1] != slot_bytes:
         raise ValueError(f"rows {data.shape} do not hold {slot_bytes}-byte slots")
-    return Database(slot_bytes=slot_bytes, db_size=data.shape[0], data=data)
+    db = Database(slot_bytes=slot_bytes, db_size=data.shape[0], data=data)
+    if keywords is not None:
+        db.set_keywords(keywords)
+        if db.keywords.ndim != 1:
+            raise ValueError(f"keywords of shape {db.keywords.shape}: one a row expected")
+    return db
 
 
 def _prf_keys(prf_keys) -> list[PrfKey]:
@@ -47,15 +54,25 @@ def share_from_fields(*, prf_keys, s_init: bytes, t_init: int, cw, final_cw_bloc
 
 
 def compat_share_from_fields(*, prf_keys, s_init: bytes, t_init: int, cw, final_cw: int,
-                             share_number: int, group_size: int) -> QueryShare:
+                             share_number: int, group_size: int,
+                             is_keyword_based: bool = False) -> QueryShare:
     """A port QueryShare from the fields of a reference-exact (compat)
-    share: prf_keys as in ``share_from_fields``, the Key2P fields (16-byte
-    s_init, t bit, one 18-byte correction word per level, the signed
-    final correction word), the share number and group size."""
+    share, index or keyword: prf_keys as in ``share_from_fields``, the
+    Key2P fields (16-byte s_init, t bit, one 18-byte correction word per
+    level, the signed final correction word), the share number and group
+    size."""
     key = Key2P(bytes(s_init), int(t_init), [bytes(c) for c in cw], int(final_cw))
     return QueryShare(key_two_party=key, key_multi_party=None, prf_keys=_prf_keys(prf_keys),
-                      is_keyword_based=False, is_two_party=True,
+                      is_keyword_based=bool(is_keyword_based), is_two_party=True,
                       share_number=int(share_number), group_size=int(group_size))
+
+
+def key_mp_from_fields(num_parties: int, cw, sigma) -> KeyMP:
+    """A port multi-party key from a ``pir_tpu`` KeyMP's fields: the
+    party count, the p2 uint32 correction-word arrays and the sigma rows
+    (bytes)."""
+    return KeyMP(int(num_parties), [np.asarray(c, dtype=np.uint32).copy() for c in cw],
+                 [bytes(r) for r in sigma])
 
 
 def device_key_from_numpy(*, seeds0, t0, cw_seed_masks, cw_tl, cw_tr, rk_masks, fcw_mask, perm,

@@ -14,6 +14,7 @@ import torch
 from pir_tpu_torch import query as tq
 from pir_tpu_torch import server as server_mod
 from pir_tpu_torch.database import generate_random_db
+from pir_tpu_torch.keyword import new_private_bst, new_private_sqrt_st, pad_to_sqrt
 from pir_tpu_torch.ops.compat_stage import compat_stage, compat_stage_plain
 from pir_tpu_torch.ops.expand import (
     fast_tail_expand_stacked,
@@ -22,6 +23,8 @@ from pir_tpu_torch.ops.expand import (
 from pir_tpu_torch.ops.fast_tail import fast_tail_expand, fast_tail_expand_plain
 from pir_tpu_torch.ops.fused import fused_scan_expand, fused_scan_expand_plain
 from pir_tpu_torch.ops.packed_scan import packed_scan, packed_scan_plain
+from pir_tpu_torch.ops.matmul_scan import mxu_batched_scan
+from pir_tpu_torch.ops.planes_scan import planes_scan
 from pir_tpu_torch.ops.xor_scan import masked_xor_scan, masked_xor_scan_plain
 from pir_tpu_torch.server import TorchPirServer
 
@@ -391,3 +394,108 @@ def test_cuda_single_queries_match_cpu_server(dev, slot):
                                                 rand_bytes=rng.bytes)
         _check_servers(TorchPirServer(tiny), TorchPirServer(tiny, device="cpu"), tiny, t_idxs,
                        batch)
+
+
+@pytest.mark.parametrize("h,b,q", [
+    (4096, 1024, 64),   # the keyword path's tile shape, whole tiles
+    (1000, 12, 1),      # ragged rows (h % 16 != 0: byte loads of the bits)
+    (4099, 4, 13),      # 3-byte slots padded to 4-byte rows, odd Q
+    (8192, 68, 33),     # B % 16 != 0 (word loads of the table), MF = 4 with a ragged tile
+    (2048, 80, 17),     # MF = 2
+    (65536, 256, 130),  # several row chunks and query tiles
+])
+def test_planes_scan_kernel_matches_plain(dev, h, b, q):
+    rng = np.random.default_rng(h + b + q)
+    table = torch.from_numpy(rng.integers(0, 256, (h, b), dtype=np.uint8)).to(dev)
+    bits = torch.from_numpy(rng.integers(0, 2, (q, h), dtype=np.uint8)).to(dev)
+    before = planes_scan.launches
+    got = planes_scan(table, bits)
+    torch.cuda.synchronize()
+    assert planes_scan.launches == before + 1
+    assert torch.equal(got, mxu_batched_scan(table, bits))
+    assert torch.equal(got, masked_xor_scan_plain(table.view(torch.int32), bits).view(torch.uint8))
+
+
+def test_planes_scan_rejects_what_the_kernel_cannot_read(dev):
+    table = torch.zeros((64, 6), dtype=torch.uint8, device=dev)
+    bits = torch.zeros((2, 64), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="4-byte words"):
+        planes_scan(table, bits)
+    with pytest.raises(ValueError, match="contiguous"):
+        planes_scan(torch.zeros((64, 8), dtype=torch.uint8, device=dev), bits.t().contiguous().t())
+
+
+@pytest.mark.parametrize("slot", [16, 3])
+def test_cuda_keyword_and_multiparty_match_cpu_server(dev, slot):
+    """A keyword batch on the card launches the bit-plane scan kernel and
+    equals the CPU server's bytes; keyword singles and 3-party index and
+    keyword singles equal them too; every answer recovers its row."""
+    db = generate_random_db(1 << 12, slot)
+    rng = np.random.default_rng(30 + slot)
+    kws = rng.choice(1 << 32, size=db.db_size, replace=False).astype(np.uint64)
+    db.set_keywords(kws)
+    gpu, cpu = TorchPirServer(db), TorchPirServer(db, device="cpu")
+    rows = [0, db.db_size - 1] + [int(i) for i in rng.integers(0, db.db_size, size=7)]
+    pairs = tq.new_keyword_query_shares_batch(db.metadata(), [int(kws[r]) for r in rows], 1,
+                                              rand_bytes=rng.bytes)
+    before = planes_scan.launches
+    _check_servers(gpu, cpu, db, rows, pairs)
+    assert planes_scan.launches > before
+    singles = [tq.new_keyword_query_shares(db.metadata(), int(kws[rows[2]]), 1,
+                                           rand_bytes=rng.bytes),
+               tq.new_index_query_shares(db.metadata(), rows[3], 1, num_shares=3,
+                                         rand_bytes=rng.bytes),
+               tq.new_keyword_query_shares(db.metadata(), int(kws[rows[4]]), 1, num_shares=3,
+                                           rand_bytes=rng.bytes)]
+    for row, shares in zip(rows[2:5], singles):
+        res = [gpu.private_secret_shared_query(s) for s in shares]
+        assert [r.shares[0].data for r in res] == \
+            [cpu.private_secret_shared_query(s).shares[0].data for s in shares]
+        assert bytes(tq.recover(res)[0].data) == db.data[row].tobytes()
+
+
+def test_cuda_keyword_trees_answer_on_the_card(dev):
+    """PrivateSqrtST and PrivateBST made with no device answer their
+    queries on the card (the masked-XOR scan kernel), with the CPU
+    server's bytes, and find every key."""
+    rng = np.random.default_rng(40)
+    data = sorted(pad_to_sqrt([f"key-{i:05d}" for i in range(1000)]), reverse=True)
+    sqst = new_private_sqrt_st()
+    sqst.build_for_data(data)
+    assert sqst.server().device.type == "cuda"
+    cpu = TorchPirServer(sqst.second_layer, device="cpu")
+    md = sqst.get_second_layer_metadata()
+    before = masked_xor_scan.launches
+    for i in (0, len(data) - 1, 517):
+        row_index = sqst.find_bucket(data[i])
+        shares = tq.new_index_query_shares(md, row_index, sqst.height, rand_bytes=rng.bytes)
+        answers = [sqst.private_query(s) for s in shares]
+        assert [a.shares for a in answers] == \
+            [cpu.private_secret_shared_query(s).shares for s in shares]
+        index = row_index * sqst.width + sqst.find_in_row(tq.recover(answers), data[i])
+        assert data[index] == data[i]
+    assert masked_xor_scan.launches > before
+
+    keys = sorted([f"user-{i:04d}" for i in range(256)], reverse=True)
+    bst = new_private_bst()
+    bst.build_for_data(keys)
+    data_srv = TorchPirServer(bst.data_layer)
+
+    def query_level(lvl, index):
+        db = bst.levels[lvl]
+        shares = tq.new_index_query_shares(db.metadata(), index, 1, rand_bytes=rng.bytes)
+        answers = [bst.private_level_query(lvl, s) for s in shares]
+        assert bst.level_server(lvl).device.type == "cuda"
+        return tq.recover(answers)[0]
+
+    def query_data(index):
+        shares = tq.new_index_query_shares(bst.data_layer.metadata(), index, 1,
+                                           rand_bytes=rng.bytes)
+        return tq.recover([data_srv.private_secret_shared_query(s) for s in shares])
+
+    before = masked_xor_scan.launches
+    for i in (0, 255, 100):
+        idx, slots = bst.lookup(keys[i], query_level, query_data)
+        assert idx == i and slots[0].to_string() == keys[i]
+    # one launch a share: two shares a level and two for the data, a lookup
+    assert masked_xor_scan.launches == before + 3 * (2 * bst.depth + 2)

@@ -20,6 +20,8 @@ SLICE_MODULES = [
     "pir_tpu_torch/ops/compat_stage.py", "pir_tpu_torch/models/pipeline.py",
     "pir_tpu_torch/ops/fast_tail.py", "pir_tpu_torch/ops/fused.py",
     "pir_tpu_torch/ops/xor_scan.py", "pir_tpu_torch/ops/scan.py", "pir_tpu_torch/entry.py",
+    "pir_tpu_torch/ops/planes_scan.py", "pir_tpu_torch/ops/matmul_scan.py",
+    "pir_tpu_torch/keyword.py", "pir_tpu_torch/database.py", "pir_tpu_torch/slot.py",
 ]
 
 

@@ -112,12 +112,13 @@ def test_batches_the_port_cannot_serve_raise(servers):
         tsrv.private_secret_shared_query_batch([a, b])
     with pytest.raises(ValueError, match="empty"):
         tsrv.private_secret_shared_query_batch([])
-    # keyword shares wait for ROADMAP item [11]; a fast key of depth < 5,
-    # which raised before the per-query path, is served (host bits)
+    # a keyword share carries a reference-exact key, never a fast one; a
+    # fast key of depth < 5, which raised before the per-query path, is
+    # served (host bits)
     keyword = dataclasses.replace(a, is_keyword_based=True)
-    with pytest.raises(NotImplementedError, match=r"\[11\]"):
+    with pytest.raises(ValueError, match="reference-exact keys"):
         tsrv.private_secret_shared_query_batch([keyword])
-    with pytest.raises(NotImplementedError, match=r"\[11\]"):
+    with pytest.raises(ValueError, match="reference-exact keys"):
         tsrv.private_secret_shared_query(keyword)
     tiny = TorchPirServer(database_from_numpy(db.data[:512], SLOT), device="cpu")
     shallow = tq.new_fast_index_query_shares(tiny.db.metadata(), 3, 1)
