@@ -6,7 +6,7 @@
 From the repository root, on a machine with one NVIDIA H100 and nvcc:
 
 0. prints the card (nvidia-smi name and power limit) and the versions;
-1. builds the seven CUDA kernels from pir_tpu_torch/csrc with nvcc, one
+1. builds the eight CUDA kernels from pir_tpu_torch/csrc with nvcc, one
    nvcc per source, all at once;
 2. builds a 2^20-row x 1024-byte table (1 GiB) from --seed, in the
    storage orders of every path (stacked and classic for 1024-bit keys,
@@ -24,7 +24,9 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
    compat single's bits and at Q = 8 on the stacked table's word view,
    and the bit-plane scan at Q = 1, 13 and 64 on a 2^16-row slice of the
    natural table's bytes and at Q = 13 and 64 on a whole 2^20-row table
-   of 3-byte slots (4-byte rows);
+   of 3-byte slots (4-byte rows); and the overlap probe's three kernels
+   (integer chain, int8 mma chain, both) and its two-stream run at 1, 7
+   and 256 rounds, with equal int32 words;
 3. serves, both shares, through TorchPirServer: 3 batches of 4096
    shared-key fast queries on the stacked path, 3 batches of 1024
    reference-exact (compat) queries (the last one through the async
@@ -51,11 +53,24 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
    keyword singles (one absent), 3-party index and keyword singles,
    their device bits against the host golden, and lookups in both
    keyword search trees (PrivateSqrtST, PrivateBST) made with no device;
+   then the overlap probe (pir_tpu_torch.benchmarks_overlap.run) at 256
+   rounds and at PROBE_LONG_ITERS;
 4. serves one distinct-key fast batch of 64 queries on each fast path;
+   then live updates: with a stream of each mode open (one batch
+   submitted), 4096 seeded row updates go to both servers' 1 GiB tables
+   (TorchPirServer.apply_updates; seconds split into the database copy,
+   host permutations and packing, and the device patch), and both
+   shares of a fast batch of 4096 on both fast paths, a compat batch of
+   1024, a fast and a compat single and one more step of each stream,
+   half or more on updated rows, recover the new rows (the stacked
+   stream's first batch, dispatched before the update, the old ones);
+   then the database goes through save(mmap_capable=True) and
+   load(mmap=True), and a server on the map serves a fast batch;
 5. times each kernel, its plain version and its PyTorch yardstick at the
    main paths' shapes (the masked-XOR scan at Q = 1 and Q = 8, the
-   bit-plane scan at Q = 64 and Q = 1024 on the natural table's bytes),
-   and prints one JSON line of kernels.
+   bit-plane scan at Q = 64 and Q = 1024 on the natural table's bytes,
+   the probe at 256 rounds and at PROBE_LONG_ITERS), and prints one
+   JSON line of kernels.
 
 Every failed check raises, so the exit code is not 0. The last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
@@ -69,6 +84,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -95,6 +111,9 @@ GOLDEN_POINTS = 4096  # host golden of a keyword or multi-party single: random r
 MP_PARTIES = 3
 TREE_KEYS = 1 << 16  # keyword search trees: a 256 x 256 sqrt tree, and a
 BST_KEYS = 1 << 12   # binary search tree of 12 levels
+PROBE_CHECK_ITERS = (1, 7, 256)  # overlap probe: rounds checked in phase 2
+PROBE_LONG_ITERS = 16384  # rounds at which both probe chains take over 1 ms
+UPDATES = 4096  # live row updates of the 1 GiB tables
 # H100 SXM data-sheet peaks
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
@@ -102,6 +121,10 @@ INT8_TENSOR_OPS_PER_S = 1979e12
 # float32 lanes behind the 67 TFLOP/s float32 figure (which counts an
 # FMA as two operations), so a quarter of it
 INT32_OPS_PER_S = 67e12 / 4
+# integer instructions at the issue rate: a scheduler issues one warp
+# instruction a clock and integer work has the integer pipe and (IMAD) the
+# FMA pipe, 32 lanes a scheduler, so half the float32 figure
+INT_ISSUE_PER_S = 67e12 / 2
 # T-table AES-128 per round: 16 table lookups, 12 rotations, 16 XORs
 AES_BLOCK_OPS = 10 * 44
 
@@ -131,11 +154,15 @@ def main() -> int:
     import numpy as np
 
     from pir_tpu_torch import _build
+    from pir_tpu_torch import benchmarks_overlap as ov
     from pir_tpu_torch import server as server_mod
-    from pir_tpu_torch.database import DBMetadata
+    from pir_tpu_torch.database import Database, DBMetadata
     from pir_tpu_torch.dpf import host as dpf_host
     from pir_tpu_torch.dpf.device import (
         POINT_EVAL_CHUNK,
+        _compat_perm,
+        _fast_leaf_perm_root,
+        _fast_leaf_perm_root_stacked,
         eval_point_operands_bits,
         make_compat_payload_batch,
         make_device_point_key,
@@ -392,12 +419,32 @@ def main() -> int:
     if any(e_ps.values()):
         fail("the bit-plane scan kernel disagrees with its plain version")
 
+    # overlap probe (kernel 8): the integer chain, the mma chain, both in
+    # one kernel, and the first two on two streams, at 1, 7 and 256 rounds
+    t = time.perf_counter()
+    pv, pa, pb = ov.make_inputs(args.seed, dev)
+    e_probe = {}
+    for iters in PROBE_CHECK_ITERS:
+        want_v, want_m = ov.vpu_chain(pv, iters), ov.mxu_chain(pa, pb, iters)
+        got_c, got_s = ov.mixed_probe(pv, pa, pb, iters), ov.streams(pv, pa, pb, iters)
+        e_probe[iters] = {"A": err(ov.vpu_probe(pv, iters), want_v),
+                          "B": err(ov.mxu_probe(pa, pb, iters), want_m),
+                          "C": max(err(got_c[0], want_v), err(got_c[1], want_m)),
+                          "streams": max(err(got_s[0], want_v), err(got_s[1], want_m))}
+    del want_v, want_m, got_c, got_s
+    log(f"phase 2: overlap probe vs plain max_abs_err by rounds (tolerance 0, equal int32 "
+        f"words) {e_probe} in {time.perf_counter() - t:.2f} s")
+    if any(any(e.values()) for e in e_probe.values()):
+        fail("an overlap probe kernel disagrees with its plain version")
+
     def rows_of(results):
         return np.stack([np.frombuffer(bytes(r.shares[0].data), np.uint8) for r in results])
 
-    def check_recovered(idx, answers, label):
+    def check_recovered(idx, answers, label, rows=None):
+        """answers recover the database's rows at idx (or `rows`)."""
         rec = answers[0] ^ answers[1]
-        bad = np.flatnonzero((rec != data[np.asarray(idx)]).any(axis=1))
+        want = db.data[np.asarray(idx)] if rows is None else rows
+        bad = np.flatnonzero((rec != want).any(axis=1))
         if bad.size:
             fail(f"{label}: {bad.size} of {len(idx)} answers do not recover (first {bad[0]})")
 
@@ -430,7 +477,8 @@ def main() -> int:
     counted = {"stacked_tail": fast_tail_expand_stacked, "packed_scan": packed_scan,
                "compat_stage": compat_stage, "fast_tail": fast_tail_expand,
                "fused_scan_expand": fused_scan_expand, "masked_xor_scan": masked_xor_scan,
-               "planes_scan": planes_scan}
+               "planes_scan": planes_scan, "overlap_vpu": ov.vpu_probe,
+               "overlap_mxu": ov.mxu_probe, "overlap_mixed": ov.mixed_probe}
     path_launches = {}  # path -> {kernel: launches in that path's run}
 
     def reset_counts():
@@ -966,6 +1014,19 @@ def main() -> int:
         f"{tree_s}; every key found")
     del sqst, bst, bst_data_srv
 
+    # the overlap probe through its entry point, at the TPU probe's 256
+    # rounds and at PROBE_LONG_ITERS (each run checks its kernels against
+    # the plain versions, then times A, B, C and the two streams)
+    reset_counts()
+    t = time.perf_counter()
+    probe = {it: ov.run(it, ov.REPS, dev, args.seed) for it in (ov.ITERS, PROBE_LONG_ITERS)}
+    probe_s = time.perf_counter() - t
+    read_counts("overlap probe", ("overlap_vpu", "overlap_mxu", "overlap_mixed"))
+    for it, rec in probe.items():
+        log(f"phase 3: overlap probe, {it} rounds: {json.dumps(rec)}; t_B / t_A = "
+            f"{rec['mxu_ms'] / rec['vpu_ms']:.3f}")
+    log(f"phase 3: overlap probe runs in {probe_s:.2f} s")
+
     # ---- phase 4: distinct-key batches -----------------------------------
     idx, dpairs = batch_shares(DISTINCT_BATCH, distinct=True)
     for path, server, needs in (("stacked fast distinct", srv, ("stacked_tail", "packed_scan")),
@@ -975,6 +1036,135 @@ def main() -> int:
         log(f"phase 4: {path}-key batch of {DISTINCT_BATCH}: {times[0]:.4f} s + "
             f"{times[1]:.4f} s; all recovered")
         read_counts(path, needs)
+
+    # ---- phase 4b: live updates and persistence ----------------------------
+    # srv holds the stacked, compat and natural word tables (and keyword
+    # planes), srv_pt the classic tables of both key widths; a stream of
+    # each mode is open with one batch of both shares submitted
+    upd_rng = np.random.default_rng(args.seed + 3)
+    upd_rows = upd_rng.choice(HEIGHT, size=UPDATES, replace=False)
+    upd_rows[:2] = 0, HEIGHT - 1
+    updates = {int(r): upd_rng.bytes(SLOT_BYTES) for r in upd_rows}
+
+    def mixed_idx(n):
+        """n indices, the first half of them updated rows."""
+        idx = [int(i) for i in rng.integers(0, HEIGHT, n)]
+        idx[: n // 2] = [int(r) for r in upd_rng.choice(upd_rows, n // 2)]
+        return idx
+
+    def fast_pairs(idx, lb=None):
+        return new_index_query_shares_batch(md, idx, 1, fast=True, leaf_bits=lb,
+                                            rand_bytes=keygen_rng.bytes)
+
+    open_streams = {}
+    for mode, server, lb in (("fused", srv_pt, STREAM_LEAF_BITS), ("stacked", srv, None)):
+        idx0 = mixed_idx(BATCH)
+        pairs0 = fast_pairs(idx0, lb)
+        streams_ = [server.fast_serving_stream() for _ in (0, 1)]
+        for part, stream in enumerate(streams_):
+            if stream.submit([p[part] for p in pairs0]) is not None:
+                fail(f"the {mode} stream's first submit returned a future")
+        open_streams[mode] = (streams_, idx0, lb)
+    old_data = db.data
+    upd_s = {}
+    for name, server in (("stacked server", srv), ("per-query tail server", srv_pt)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        server.apply_updates(updates)
+        torch.cuda.synchronize()
+        upd_s[name] = time.perf_counter() - t
+    for r, b in updates.items():
+        if db.data[r].tobytes() != b:
+            fail(f"row {r} was not updated")
+    log(f"phase 4b: {UPDATES} row updates applied (s, synchronised): {upd_s}")
+
+    # the same updates again (equal bytes), stage by stage as apply_updates
+    # runs them, and what recomputing the permutations it keeps would cost
+    split_u = {}
+    t = time.perf_counter()
+    db.update_slots(updates, copy_on_write=True)
+    split_u["database rows (copy-on-write)"] = time.perf_counter() - t
+    t = time.perf_counter()
+    patches = srv._row_patches(updates)
+    split_u["host: permutations and packing"] = time.perf_counter() - t
+    t = time.perf_counter()
+    srv._swap_patched(patches)
+    torch.cuda.synchronize()
+    split_u["device: upload, clone and scatter"] = time.perf_counter() - t
+    t = time.perf_counter()
+    _fast_leaf_perm_root_stacked(depth, HEIGHT, n_blk, tail)
+    _fast_leaf_perm_root(depth, HEIGHT, n_blk)
+    _fast_leaf_perm_root(depth_s, HEIGHT, 1)
+    _compat_perm(nbd, HEIGHT, cw_w, tails)
+    perms_s = time.perf_counter() - t
+    log(f"phase 4b: split of the stacked server's updates (s): " +
+        ", ".join(f"{name} {sec:.4f}" for name, sec in split_u.items()) +
+        f"; {len(patches)} tables, {sum(len(p[1]) for p in patches)} rows patched; the 4 "
+        f"storage permutations, kept on the host, would take {perms_s:.4f} s to recompute")
+    del patches
+
+    # every path after the updates, both shares, half or more of the queries
+    # on updated rows; the open streams take one more batch and flush
+    reset_counts()
+    upd_serve = {}
+    idx = mixed_idx(BATCH)
+    pairs = fast_pairs(idx)
+    for path, server in (("stacked fast", srv), ("per-query tail fast", srv_pt)):
+        upd_serve[path] = serve_and_check(idx, pairs, f"{path} batch after updates",
+                                          server=server)
+    cidx = mixed_idx(COMPAT_BATCH)
+    cpairs = new_index_query_shares_batch(md, cidx, 1, rand_bytes=keygen_rng.bytes)
+    upd_serve["compat"] = serve_and_check(cidx, cpairs, "compat batch after updates")
+    for fast in (True, False):
+        r = int(upd_rows[2 + fast])
+        pair = new_index_query_shares(md, r, 1, fast=fast, rand_bytes=keygen_rng.bytes)
+        check_recovered([r], [rows_of([srv.private_secret_shared_query(s)]) for s in pair],
+                        f"{'fast' if fast else 'compat'} single after updates")
+    for mode, (streams_, idx0, lb) in open_streams.items():
+        idx1 = mixed_idx(BATCH)
+        pairs1 = fast_pairs(idx1, lb)
+        first = [stream.submit([p[part] for p in pairs1])() for part, stream in enumerate(streams_)]
+        last = [stream.flush()() for stream in streams_]
+        # the stacked stream dispatched its first batch before the updates
+        check_recovered(idx0, [rows_of(x) for x in first], f"{mode} stream, first batch",
+                        rows=(old_data if mode == "stacked" else db.data)[np.asarray(idx0)])
+        check_recovered(idx1, [rows_of(x) for x in last], f"{mode} stream, second batch")
+    read_counts("after updates", ("stacked_tail", "fast_tail", "compat_stage", "packed_scan",
+                                  "masked_xor_scan", "fused_scan_expand"))
+    log(f"phase 4b: after the updates, per share (s): {upd_serve}; fast batches of {BATCH} "
+        f"on both fast paths, a compat batch of {COMPAT_BATCH}, a fast and a compat single "
+        f"and one step of each stream all recover the new rows (the stacked stream's first "
+        f"batch, dispatched before, the old ones)")
+    del old_data, open_streams
+
+    # persistence: the 1 GiB database through save(mmap_capable=True) and
+    # load(mmap=True); a server on the map uploads its stacked table and
+    # serves a fast batch
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "db")
+        t = time.perf_counter()
+        db.save(path, mmap_capable=True)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back = Database.load(path, mmap=True)
+        load_s = time.perf_counter() - t
+        if not isinstance(back.data, np.memmap) or back.data.flags.writeable:
+            fail("load(mmap=True) did not map the rows read-only")
+        srv_m = TorchPirServer(back)
+        t = time.perf_counter()
+        srv_m._root_table_u8(1, depth, n_blk)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t
+        idx = mixed_idx(BATCH)
+        ckpt_s = serve_and_check(idx, fast_pairs(idx), "batch from the loaded checkpoint",
+                                 server=srv_m)
+        if not np.array_equal(back.keywords, db.keywords):
+            fail("the checkpoint's keywords differ")
+        del srv_m, back
+    persist = {"save_s": save_s, "load_s": load_s, "upload_s": upload_s, "batch_s": ckpt_s}
+    log(f"phase 4b: persistence (s): save {save_s:.4f} (mmap_capable), load {load_s:.4f} "
+        f"(mmap), stacked table upload from the map {upload_s:.4f}, a fast batch of {BATCH} "
+        f"{ckpt_s[0]:.4f} + {ckpt_s[1]:.4f}; all recovered")
 
     # ---- phase 5: kernel times ----------------------------------------------
     def cuda_ms(fn, reps, warm=True):
@@ -1204,6 +1394,52 @@ def main() -> int:
             fail(f"the bit-plane scan disagrees at Q = {q}")
     del lib_planes
 
+    # overlap probe: the kernel times of the phase-3 runs (run() raised on
+    # any kernel that disagreed), each chain's plain version and, for B,
+    # the same chain of torch._int_mm products; bounds for the whole card
+    def int_mm_chain(iters):
+        acc = torch.zeros((ov.M, ov.N), dtype=torch.int32, device=dev)
+        for _ in range(iters):
+            acc = torch._int_mm(pa + (acc[:, :1] & 1).to(torch.int8), pb)
+        return acc
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    probe_time = {}
+    for iters in (ov.ITERS, PROBE_LONG_ITERS):
+        plain_ms = {}
+        plain_ms["vpu"], want_v = cuda_ms(lambda: ov.vpu_chain(pv, iters), 1, warm=False)
+        plain_ms["mxu"], want_m = cuda_ms(lambda: ov.mxu_chain(pa, pb, iters), 1, warm=False)
+        plain_ms["mixed"], want_c = cuda_ms(lambda: ov.mixed(pv, pa, pb, iters), 1, warm=False)
+        lib_ms, lib_out = cuda_ms(lambda: int_mm_chain(iters), 1)
+        e = {"mixed": max(err(want_c[0], want_v), err(want_c[1], want_m)),
+             "library": err(lib_out, want_m)}
+        ops_ms = {"vpu": pv.numel() * ov.ROUND_INSTRS * iters / INT_ISSUE_PER_S * 1e3,
+                  "mxu": 2 * ov.M * ov.N * ov.K * iters / INT8_TENSOR_OPS_PER_S * 1e3}
+        bytes_ms = {"vpu": 2 * nbytes(pv) / HBM_BYTES_PER_S * 1e3,
+                    "mxu": nbytes(pa, pb, want_m) / HBM_BYTES_PER_S * 1e3}
+        bound = {"vpu": {"bytes": bytes_ms["vpu"], "operations": ops_ms["vpu"]},
+                 "mxu": {"bytes": bytes_ms["mxu"], "operations": ops_ms["mxu"]},
+                 # the larger chain's time: the least if the units overlap fully
+                 "mixed": {"bytes": sum(bytes_ms.values()), "operations": max(ops_ms.values())}}
+        rec = probe[iters]
+        probe_time[iters] = {"ms": {k: rec[f"{k}_ms"] for k in ("vpu", "mxu", "mixed")},
+                             "streams_ms": rec["streams_ms"], "overlap": rec["overlap"],
+                             "streams_overlap": rec["streams_overlap"],
+                             "max_active_clusters": rec["max_active_clusters"],
+                             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+                             "plain_max_abs_err": e}
+        del want_v, want_m, want_c, lib_out
+        log(f"phase 5: overlap probe, {iters} rounds: kernels {probe_time[iters]['ms']} ms, "
+            f"two streams {rec['streams_ms']:.4f} ms, overlap {rec['overlap']:.4f}, streams "
+            f"overlap {rec['streams_overlap']:.4f}, t_B / t_A {rec['mxu_ms'] / rec['vpu_ms']:.3f}; "
+            f"plain {plain_ms} ms, torch._int_mm chain {lib_ms:.4f} ms, bounds {bound} "
+            f"(whole card; the grid fills {ov.PROBE_BLOCKS} of {sms} SMs), resident clusters "
+            f"of 8 {rec['max_active_clusters']} (two streams need "
+            f"{2 * ov.PROBE_BLOCKS // ov.CLUSTER}), plain and library against plain "
+            f"max_abs_err {e}")
+        if any(e.values()):
+            fail(f"the overlap probe's plain versions or library chain disagree at {iters} rounds")
+
     launches = {name: sum(run.get(name, 0) for run in path_launches.values())
                 for name in counted}
 
@@ -1243,6 +1479,16 @@ def main() -> int:
               "pir_tpu/ops/pallas_scan.py:53", *ps_time[KW_BATCH][:4],
               max([v[4] for v in ps_time.values()] + list(e_ps.values()))),
     ]}
+    # the probe at the TPU probe's 256 rounds (PROBE_LONG_ITERS: log, --out);
+    # only chain B has a PyTorch yardstick; max_abs_err from phase 2 (1, 7
+    # and 256 rounds; run() raised on any difference at PROBE_LONG_ITERS)
+    pt = probe_time[ov.ITERS]
+    for chain, label, line in (("vpu", "A", 110), ("mxu", "B", 113), ("mixed", "C", 116)):
+        kernels["kernels"].append(entry(
+            f"overlap_{chain}", "pir_tpu_torch/csrc/overlap_probe.cu",
+            f"benchmarks_overlap.py:{line}", pt["ms"][chain], pt["plain_ms"][chain],
+            pt["bound_ms"][chain], pt["library_ms"] if chain == "mxu" else None,
+            max(e_[label] for e_ in e_probe.values())))
     if args.out:
         summary = dict(kernels, card=smi, per_share_batch_s=per_batch,
                        split_s=split, path_launches=path_launches,
@@ -1261,6 +1507,9 @@ def main() -> int:
                        keyword_per_share_batch_s=kw_times, keyword_split_s=split_kw,
                        planes_scan={str(q): {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
                                              "library_ms": v[3]} for q, v in ps_time.items()},
+                       overlap_probe={str(k): v for k, v in probe_time.items()},
+                       updates_s=upd_s, updates_split_s=split_u, permutations_s=perms_s,
+                       after_updates_s=upd_serve, persistence_s=persist,
                        elapsed_s=time.perf_counter() - T0)
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)

@@ -10,9 +10,11 @@ one kernel. Single queries and small batches expand per query and scan
 with the masked-XOR scan kernel. Keyword queries (2-party, and with
 multi-party shares for >= 3 servers) and multi-party index queries
 evaluate on the device too; keyword batches scan with the bit-plane
-scan kernel. The kernels are hand-written CUDA (``csrc/``). Nothing of
-JAX or of pir_tpu is imported; each module names its pir_tpu
-counterpart.
+scan kernel. ``TorchPirServer.apply_updates`` changes rows live and
+``Database.save`` / ``load`` checkpoint a table; ``benchmarks_overlap``
+ports the TPU overlap probe. The kernels are hand-written CUDA
+(``csrc/``). Nothing of JAX or of pir_tpu is imported; each module names
+its pir_tpu counterpart.
 """
 
 from .database import Database, DBMetadata, generate_random_db

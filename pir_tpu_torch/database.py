@@ -1,7 +1,7 @@
 """Database: slots as a dense ``(db_size, slot_bytes) uint8`` numpy array
 and, for keyword queries, one uint64 keyword per row (counterpart of
 ``pir_tpu/database.py``). The server engine uploads it once to the
-device."""
+device; ``update_slots`` changes rows, ``save`` / ``load`` checkpoint it."""
 
 from __future__ import annotations
 
@@ -47,6 +47,76 @@ class Database(DBMetadata):
 
     def set_keywords(self, keywords) -> None:
         self.keywords = np.asarray(keywords, dtype=np.uint64)
+
+    def update_slots(self, updates: dict[int, bytes], *,
+                     copy_on_write: bool = False) -> None:
+        """Slot updates ``{index: new_bytes}``, each zero-padded to
+        slot_bytes (pir_tpu/database.py:92-131). A server holding tables on
+        the device must be told too: ``TorchPirServer.apply_updates``.
+
+        copy_on_write=True patches a fresh copy and swaps ``self.data`` in
+        one attribute store, so a reader of the old array never sees a torn
+        row; the default mutates in place and refuses read-only (mmap-loaded)
+        rows."""
+        target = np.array(self.data) if copy_on_write else self.data
+        if not target.flags.writeable:
+            raise ValueError(
+                "database rows are read-only (mmap load); "
+                "load(mmap=False) or update_slots(copy_on_write=True)"
+            )
+        for idx, payload in updates.items():
+            if not 0 <= idx < self.db_size:
+                raise IndexError(f"slot index {idx} out of range")
+            b = bytes(payload.data if isinstance(payload, Slot) else payload)
+            if len(b) > self.slot_bytes:
+                raise ValueError(
+                    f"update for slot {idx} is {len(b)} bytes; "
+                    f"slots hold {self.slot_bytes}"
+                )
+            row = np.zeros(self.slot_bytes, dtype=np.uint8)
+            row[: len(b)] = np.frombuffer(b, dtype=np.uint8)
+            target[idx] = row
+        if copy_on_write:
+            self.data = target
+
+    def save(self, path: str, *, mmap_capable: bool = False) -> None:
+        """Checkpoint to `path` (.npz), in pir_tpu's format. With
+        mmap_capable=True the rows go to a raw sibling ``.data.npy`` that
+        ``load(..., mmap=True)`` maps instead of reading."""
+        if mmap_capable:
+            np.save(self._data_path(path), np.ascontiguousarray(self.data))
+            data = np.zeros((0, 0), dtype=np.uint8)
+        else:
+            data = self.data
+        np.savez_compressed(
+            path,
+            data=data,
+            keywords=self.keywords if self.keywords is not None else np.zeros(0),
+            meta=np.array([self.slot_bytes, self.db_size], dtype=np.int64),
+            out_of_line=np.array([mmap_capable]),
+        )
+
+    @staticmethod
+    def _data_path(path: str) -> str:
+        base = path[:-4] if path.endswith(".npz") else path
+        return base + ".data.npy"
+
+    @staticmethod
+    def load(path: str, *, mmap: bool = False) -> "Database":
+        """Restore a checkpoint. mmap=True maps an mmap_capable checkpoint's
+        rows read-only; it is ignored for in-line checkpoints."""
+        z = np.load(path if path.endswith(".npz") else path + ".npz")
+        slot_bytes, db_size = (int(x) for x in z["meta"])
+        db = Database(slot_bytes=slot_bytes, db_size=db_size)
+        if "out_of_line" in z.files and bool(z["out_of_line"][0]):
+            db.data = np.load(Database._data_path(path),
+                              mmap_mode="r" if mmap else None)
+        else:
+            db.data = z["data"]
+        kw = z["keywords"]
+        if kw.size:
+            db.keywords = kw.astype(np.uint64)
+        return db
 
 
 def new_database() -> Database:

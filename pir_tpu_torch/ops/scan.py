@@ -105,6 +105,15 @@ def pack_table_u32(data: np.ndarray, height: int, group_size: int) -> np.ndarray
     return arr.view("<u4").reshape(height, group_size * words)
 
 
+def pack_rows_u32(data: np.ndarray, rows: np.ndarray, group_size: int,
+                  slot_bytes: int) -> np.ndarray:
+    """pack_table_u32's layout of just the given grid rows: the values
+    ``TorchPirServer.apply_updates`` scatters over a cached word table."""
+    h = data.shape[0] // group_size
+    picked = data[: h * group_size].reshape(h, group_size, slot_bytes)[rows]
+    return pack_table_u32(picked.reshape(-1, slot_bytes), len(rows), group_size)
+
+
 def unpack_result_u32(res: np.ndarray, group_size: int, slot_bytes: int) -> np.ndarray:
     """(G*words,) uint32 -> (G, slot_bytes) uint8."""
     words = max(1, -(-slot_bytes // 4))

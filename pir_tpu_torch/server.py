@@ -38,6 +38,9 @@ multi-party PRG walk) and scan with the masked-XOR scan kernel; a
 keyword batch runs one point walk for its queries and scans with the
 bit-plane scan kernel (``ops/planes_scan.py``) the natural table's
 bytes. Multi-party batches raise ValueError, as in pir_tpu.
+
+``apply_updates`` changes slots live: every cached table is patched by a
+row scatter into a clone, swapped in under the cache lock.
 """
 
 from __future__ import annotations
@@ -87,7 +90,7 @@ from .models.pipeline import (
 )
 from .ops.compat_stage import MAX_TAIL
 from .ops.planes_scan import planes_scan
-from .ops.scan import pack_table_u32, pad_cols_u8, pad_rows_u8, unpack_result_u32
+from .ops.scan import pack_rows_u32, pack_table_u32, pad_cols_u8, pad_rows_u8, unpack_result_u32
 from .ops.xor_scan import masked_xor_scan
 from .query import QueryShare, SecretSharedQueryResult
 from .slot import Slot
@@ -260,6 +263,9 @@ class TorchPirServer:
         self.tail_levels = tail_levels
         self.min_device_nodes = min_device_nodes
         self._tables: dict[tuple, torch.Tensor] = {}
+        # each storage table's natural row -> flat row map, kept on the host
+        # for apply_updates (recomputing one is a numpy pass over every row)
+        self._perms: dict[tuple, np.ndarray] = {}
         self._lock = threading.Lock()
 
     def _cached(self, key, build) -> torch.Tensor:
@@ -279,7 +285,8 @@ class TorchPirServer:
         def build():
             h = self.db.db_size // group_size
             rows = self.db.data[: h * group_size].reshape(h, group_size * self.db.slot_bytes)
-            sc = scatter_rows_to_storage_order(rows, perm(), flat)
+            p = self._perms[key] = perm()
+            sc = scatter_rows_to_storage_order(rows, p, flat)
             return torch.from_numpy(pad_cols_u8(pad_rows_u8(sc, row_block))).to(self.device)
 
         return self._cached(key, build)
@@ -358,6 +365,58 @@ class TorchPirServer:
         return self._storage_table(("compat", group_size, device_bits, w, tails), group_size,
                                    lambda: _compat_perm(device_bits, h, w, tails), flat,
                                    min(2048, flat))
+
+    def apply_updates(self, updates: dict[int, bytes]) -> None:
+        """Apply slot updates ``{index: new_bytes}`` to the database and to
+        every cached table (counterpart of pir_tpu/server.py:apply_updates).
+
+        Each table derives row-wise from ``db.data``: the natural word table
+        through ``ops.scan.pack_rows_u32``, the stacked, classic and compat
+        storage tables through their permutations, rows padded with zero
+        bytes to whole words. So each gets one device row scatter, O(changed
+        rows) uploaded. A patched table is a clone swapped in under the
+        lock: a query holding the old table finishes on the old rows and
+        never sees a torn row, and an open FastServingStream sees the new
+        table at its next dispatch. The database swaps its rows copy-on-write
+        for the same reason. Keyword planes and permutations derive from no
+        row and stay as they are. (pir_tpu also patches its bit-plane tables
+        of the root and compat-root routes, which the port does not build.)
+        """
+        with self._lock:
+            self.db.update_slots(updates, copy_on_write=True)
+            self._swap_patched(self._row_patches(updates))
+
+    def _row_patches(self, updates) -> list[tuple[tuple, np.ndarray, np.ndarray]]:
+        """(table key, table rows, new row contents) of every cached table
+        the updated slots touch, on the host."""
+        idxs = np.unique(np.fromiter((int(i) for i in updates), dtype=np.int64,
+                                     count=len(updates)))
+        sb = self.db.slot_bytes
+        patches = []
+        for key in self._tables:
+            words = key[0] == "words"
+            if not (words or key in self._perms):
+                continue  # permutations and keyword planes
+            g = key[1] if isinstance(key[0], str) else key[0]
+            h = self.db.db_size // g
+            r = np.unique(idxs // g)
+            r = r[r < h]
+            if not len(r):
+                continue
+            if words:
+                patches.append((key, r, pack_rows_u32(self.db.data, r, g, sb).view(np.int32)))
+            else:
+                raw = self.db.data[: h * g].reshape(h, g * sb)[r]
+                patches.append((key, self._perms[key][r], pad_cols_u8(raw)))
+        return patches
+
+    def _swap_patched(self, patches) -> None:
+        """Upload each patch and swap in a patched clone of its table."""
+        for key, rows, vals in patches:
+            table = self._tables[key].clone()
+            table[torch.from_numpy(rows).to(self.device)] = torch.from_numpy(
+                np.ascontiguousarray(vals)).to(self.device)
+            self._tables[key] = table
 
     def _slice_batch_results(self, out: np.ndarray, group_size: int,
                              n: int) -> list[SecretSharedQueryResult]:

@@ -34,6 +34,7 @@ from pir_tpu_torch import server as tsrv_mod
 from pir_tpu_torch.server import TorchPirServer
 from pir_tpu_torch.state import compat_share_from_fields, database_from_numpy
 from pir_tpu_torch.utils import bits as tbits
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SLOT = 3
 VEC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vectors", "dpf_golden.json")

@@ -28,6 +28,7 @@ from pir_tpu_torch.dpf.device import u32_tensor
 from pir_tpu_torch.models.pipeline import compat_head
 from pir_tpu_torch.ops.compat_stage import compat_stage_plain
 from pir_tpu_torch.utils.bits import num_bits_for_height
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CSRC = Path(__file__).resolve().parent.parent / "pir_tpu_torch" / "csrc"
 

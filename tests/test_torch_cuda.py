@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from pir_tpu_torch import benchmarks_overlap as ov
 from pir_tpu_torch import query as tq
 from pir_tpu_torch import server as server_mod
 from pir_tpu_torch.database import generate_random_db
@@ -499,3 +500,107 @@ def test_cuda_keyword_trees_answer_on_the_card(dev):
         assert idx == i and slots[0].to_string() == keys[i]
     # one launch a share: two shares a level and two for the data, a lookup
     assert masked_xor_scan.launches == before + 3 * (2 * bst.depth + 2)
+
+
+@pytest.mark.parametrize("iters", [1, 7, 256])
+def test_overlap_probe_kernels_match_plain(dev, iters):
+    """The probe's three kernels and the two-stream run: equal words."""
+    v, a, b = ov.make_inputs(iters, dev)
+    want_v, want_m = ov.vpu_chain(v, iters), ov.mxu_chain(a, b, iters)
+    before = (ov.vpu_probe.launches, ov.mxu_probe.launches, ov.mixed_probe.launches)
+    got = {"vpu": (ov.vpu_probe(v, iters),), "mxu": (ov.mxu_probe(a, b, iters),),
+           "mixed": ov.mixed_probe(v, a, b, iters), "streams": ov.streams(v, a, b, iters)}
+    torch.cuda.synchronize()
+    assert (ov.vpu_probe.launches, ov.mxu_probe.launches, ov.mixed_probe.launches) == \
+        (before[0] + 2, before[1] + 2, before[2] + 1)
+    for name, outs in got.items():
+        want = {"vpu": (want_v,), "mxu": (want_m,)}.get(name, (want_v, want_m))
+        assert all(torch.equal(g, w) for g, w in zip(outs, want)), name
+
+
+def test_overlap_probe_zero_rounds_and_edge_words(dev):
+    """iters = 0 returns v and zero accumulators; a = 63 and -64 everywhere
+    wrap nowhere, words 0x80000000 and 0xFFFFFFFF shift and wrap."""
+    v = torch.full(ov.VSHAPE, -1, dtype=torch.int32, device=dev)
+    v[::2] = -(1 << 31)
+    a = torch.full((ov.M, ov.K), 63, dtype=torch.int8, device=dev)
+    a[1::2] = -64
+    b = torch.full((ov.K, ov.N), -64, dtype=torch.int8, device=dev)
+    b[::3] = 63
+    for iters in (0, 3):
+        vo, mo = ov.mixed_probe(v, a, b, iters)
+        assert torch.equal(vo, ov.vpu_chain(v, iters))
+        assert torch.equal(mo, ov.mxu_chain(a, b, iters))
+
+
+@pytest.mark.parametrize("iters", [1, 7])
+def test_overlap_probe_int8_wrap_of_a_plus_one(dev, iters):
+    """Bytes of a at 127 and -1 wrap to -128 and 0 when their row's bit
+    is set (the kernels' a + 1 buffer): equal words to mxu_chain."""
+    v, a, b = ov.make_inputs(iters, dev)
+    a[::3, ::5] = 127
+    a[1::3, ::7] = -1
+    want = ov.mxu_chain(a, b, iters)
+    assert torch.equal(ov.mxu_probe(a, b, iters), want)
+    assert torch.equal(ov.mixed_probe(v, a, b, iters)[1], want)
+
+
+def test_overlap_probe_max_active_clusters(dev):
+    """Each kernel's resident clusters of 8: at least one, at most the
+    card's SMs / 8 (one block an SM)."""
+    got = ov.max_active_clusters(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert set(got) == {"vpu", "mxu", "mixed"}
+    assert all(1 <= n <= sms // 8 for n in got.values()), got
+
+
+def test_overlap_probe_rejects_what_the_kernels_cannot_read(dev):
+    v, a, b = ov.make_inputs(0, dev)
+    with pytest.raises(ValueError, match="different devices"):
+        ov.mixed_probe(v, a.cpu(), b)
+    with pytest.raises(ValueError, match="different devices"):
+        ov.mxu_probe(a, b.cpu())
+    with pytest.raises(ValueError, match="must be a"):
+        ov.vpu_probe(v[:32])
+    with pytest.raises(ValueError, match="must be a"):
+        ov.mxu_probe(a.to(torch.uint8), b)
+    with pytest.raises(ValueError, match="must be a"):
+        ov.mxu_probe(a, b.t())
+    with pytest.raises(ValueError, match="contiguous"):
+        ov.vpu_probe(v.t().contiguous().t())
+    with pytest.raises(ValueError, match="iters"):
+        ov.vpu_probe(v, -1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ov.streams(v.cpu(), a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("slot", [8, 3])
+def test_cuda_apply_updates_equals_rebuild(dev, slot):
+    """Every table kind on the card, patched by apply_updates, equals a
+    fresh server's rebuild, and the updated rows are recovered."""
+    db = generate_random_db(1 << 13, slot)
+    rng = np.random.default_rng(6)
+    md = db.metadata()
+
+    def populated(fast_stacked):
+        srv = TorchPirServer(db, fast_stacked=fast_stacked)
+        idxs = [int(i) for i in rng.integers(0, db.db_size, size=16)]
+        for fast in (True, False):
+            pairs = tq.new_index_query_shares_batch(md, idxs, 1, fast=fast, rand_bytes=rng.bytes)
+            srv.private_secret_shared_query_batch([p[0] for p in pairs])
+        srv.private_secret_shared_query(tq.new_index_query_shares(md, 5, 1,
+                                                                  rand_bytes=rng.bytes)[0])
+        return srv
+
+    servers = [populated(True), populated(False)]
+    updates = {0: bytes(range(slot)), db.db_size - 1: b"", 4097: b"\x7f"}
+    for srv in servers:
+        srv.apply_updates(updates)
+    for srv, fresh in zip(servers, [populated(True), populated(False)]):
+        assert set(srv._tables) == set(fresh._tables)
+        for key, table in fresh._tables.items():
+            assert table.device.type == "cuda" and torch.equal(srv._tables[key], table), key
+        for fast in (True, False):
+            pairs = tq.new_index_query_shares_batch(md, sorted(updates), 1, fast=fast,
+                                                    rand_bytes=rng.bytes)
+            _check_servers(srv, TorchPirServer(db, device="cpu"), db, sorted(updates), pairs)

@@ -24,6 +24,7 @@ from pir_tpu_torch.dpf import host as thost
 from pir_tpu_torch.dpf.aes_host import SBOX, EcbCipher, key_schedule_batch
 from pir_tpu_torch.models.pipeline import stacked_fast_geometry
 from pir_tpu_torch.state import share_from_fields
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(a: np.ndarray) -> torch.Tensor:

@@ -13,6 +13,7 @@ import torch
 from pir_tpu.dpf.device import _leaf_ctr_masks
 from pir_tpu.ops.pallas_expand import fast_tail_expand_stacked_pallas
 from pir_tpu_torch.ops.expand import fast_tail_expand_stacked
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FULL = np.uint32(0xFFFFFFFF)
 

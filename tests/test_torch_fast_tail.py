@@ -31,6 +31,7 @@ from pir_tpu_torch.ops.fast_tail import fast_tail_expand
 from pir_tpu_torch.ops.fused import fused_scan_expand
 from pir_tpu_torch.server import TorchPirServer
 from pir_tpu_torch.state import database_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HEIGHT = 1 << 13
 FULL = np.uint32(0xFFFFFFFF)

@@ -25,6 +25,7 @@ from pir_tpu_torch.dpf.device import make_fast_payload_batch
 from pir_tpu_torch.dpf.device import u32_tensor
 from pir_tpu_torch.models.pipeline import pertail_head
 from pir_tpu_torch.ops.fast_tail import fast_tail_expand_plain, leaf_blocks_of
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CSRC = Path(__file__).resolve().parent.parent / "pir_tpu_torch" / "csrc"
 

@@ -22,6 +22,7 @@ SLICE_MODULES = [
     "pir_tpu_torch/ops/xor_scan.py", "pir_tpu_torch/ops/scan.py", "pir_tpu_torch/entry.py",
     "pir_tpu_torch/ops/planes_scan.py", "pir_tpu_torch/ops/matmul_scan.py",
     "pir_tpu_torch/keyword.py", "pir_tpu_torch/database.py", "pir_tpu_torch/slot.py",
+    "pir_tpu_torch/benchmarks_overlap.py",
 ]
 
 

@@ -39,6 +39,7 @@ from pir_tpu_torch.keyword import (
 )
 from pir_tpu_torch.server import TorchPirServer
 from pir_tpu_torch.state import compat_share_from_fields, database_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROWS = 1 << 9  # one table height: the JAX package compiles its 32-level walk once
 

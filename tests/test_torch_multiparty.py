@@ -33,6 +33,7 @@ from pir_tpu_torch.state import (
     key_mp_from_fields,
 )
 from pir_tpu_torch.utils.bits import num_bits_for_height
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def port_key(k):

@@ -21,6 +21,7 @@ from pir_tpu.ops.pallas_scan import mxu_batched_scan_pallas
 from pir_tpu_torch.ops import matmul_scan as tms
 from pir_tpu_torch.ops.planes_scan import planes_scan
 from pir_tpu_torch.ops.scan import batched_xor_scan, pad_rows_u8
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BLOCK_ROWS, BLOCK_COLS = 256, 128  # the Pallas kernel's tiles here
 

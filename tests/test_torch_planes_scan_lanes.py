@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from pir_tpu_torch.ops.matmul_scan import mxu_batched_scan
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SOURCE = Path(__file__).resolve().parents[1] / "pir_tpu_torch" / "csrc" / "planes_scan.cu"
 

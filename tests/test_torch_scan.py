@@ -23,6 +23,7 @@ from pir_tpu_torch.ops.scan import (
     unpack_result_u32,
     xor_reduce,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _case(seed, h, b, q):

@@ -18,6 +18,7 @@ from pir_tpu_torch import query as tq
 from pir_tpu_torch.dpf.host import PrfKey
 from pir_tpu_torch.server import TorchPirServer
 from pir_tpu_torch.state import database_from_numpy, share_from_fields
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HEIGHT = 1 << 13
 SLOT = 8

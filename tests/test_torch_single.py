@@ -37,6 +37,7 @@ from pir_tpu_torch.state import (
     share_from_fields,
 )
 from pir_tpu_torch.utils.bits import num_bits_for_height
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FIELDS = ("seeds0", "t0", "cw_seed_masks", "cw_tl", "cw_tr", "rk_masks", "perm", "host_bits")
 # (db rows, slot bytes, group size): 2^13 grid rows of 16 bytes, as one

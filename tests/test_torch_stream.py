@@ -19,6 +19,7 @@ from pir_tpu.database import generate_random_db
 from pir_tpu.server import TpuPirServer
 from pir_tpu_torch.server import TorchPirServer
 from pir_tpu_torch.state import database_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HEIGHT = 1 << 13
 SLOT = 8

@@ -22,6 +22,7 @@ from pir_tpu_torch.dpf.device import make_fast_payload_batch
 from pir_tpu_torch.dpf.device import u32_tensor
 from pir_tpu_torch.models.pipeline import stacked_fast_geometry, stacked_head
 from pir_tpu_torch.ops.expand import fast_tail_expand_stacked_plain
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CSRC = Path(__file__).resolve().parent.parent / "pir_tpu_torch" / "csrc"
 

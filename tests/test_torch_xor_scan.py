@@ -18,6 +18,7 @@ from pir_tpu_torch.models.pipeline import small_batch_scan
 from pir_tpu_torch.ops import scan as tscan
 from pir_tpu_torch.ops.packed_scan import packed_scan_plain
 from pir_tpu_torch.ops.xor_scan import masked_xor_scan, masked_xor_scan_plain
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _table(rng, h, c):
