@@ -7,7 +7,8 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
 
 0. prints the card (nvidia-smi name and power limit) and the versions;
 1. builds the eight CUDA kernels from pir_tpu_torch/csrc with nvcc, one
-   nvcc per source, all at once;
+   nvcc per source, all at once, and logs ptxas's registers, spills and
+   warnings per kernel (--out: "ptxas");
 2. builds a 2^20-row x 1024-byte table (1 GiB) from --seed, in the
    storage orders of every path (stacked and classic for 1024-bit keys,
    classic for the stream's 128-bit keys, compat), and holds each kernel
@@ -69,8 +70,9 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
 5. times each kernel, its plain version and its PyTorch yardstick at the
    main paths' shapes (the masked-XOR scan at Q = 1 and Q = 8, the
    bit-plane scan at Q = 64 and Q = 1024 on the natural table's bytes,
-   the probe at 256 rounds and at PROBE_LONG_ITERS), and prints one
-   JSON line of kernels.
+   the probe at 256 rounds and at PROBE_LONG_ITERS), the fused kernel's
+   step against each of its halves alone (co-issue: near the larger half
+   or near their sum), and prints one JSON line of kernels.
 
 Every failed check raises, so the exit code is not 0. The last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
@@ -82,6 +84,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -220,10 +223,16 @@ def main() -> int:
     # ---- phase 1: build -----------------------------------------------
     t = time.perf_counter()
     logs = _build.build()
+    ptxas = {}  # kernel (mangled name) -> ptxas lines on registers, spills, wgmma serialized
     for name, text in logs.items():
+        func = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+            if m:
+                func = m.group(1)
+            if "registers" in line or "spill" in line or "serialized" in line:
+                ptxas.setdefault(f"{name}:{func}", []).append(line.split(":", 1)[-1].strip())
+                log(f"  ptxas {name} {func}: {line.strip()}")
     log(f"phase 1: built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t:.2f} s")
 
     # ---- phase 2: table and kernel checks ------------------------------
@@ -1336,6 +1345,14 @@ def main() -> int:
                    table_s, f_words, *no_tail, levels=s_tail), 3)[0],
                "tail half": cuda_ms(lambda: fused_scan_expand(
                    table_s, f_words[:, :0].contiguous(), *f_ops, levels=s_tail), 3)[0]}
+    # co-issue: the step near the larger half means the AES tail issues beside
+    # the tensor-core scan; near their sum, the halves take turns
+    small, large = sorted(half_ms.values())
+    co_issue = {"step_ms": fz_ms, "max_halves_ms": large, "sum_halves_ms": small + large,
+                "hidden_of_smaller_half": (small + large - fz_ms) / small}
+    log(f"phase 5: co-issue: fused step {fz_ms:.4f} ms against its halves alone, max "
+        f"{large:.4f} ms, sum {small + large:.4f} ms: "
+        f"{co_issue['hidden_of_smaller_half']:.3f} of the smaller half hidden")
     fz_blocks = tail_blocks(BATCH, f_ops[0].shape[-1], s_tail, 1)
     fz_parts = {"scan operations": 8 * 2 * BATCH * table_s.numel() / INT8_TENSOR_OPS_PER_S * 1e3,
                 "tail operations": fz_blocks * AES_BLOCK_OPS / INT32_OPS_PER_S * 1e3}
@@ -1500,7 +1517,7 @@ def main() -> int:
                                     "library_ms": cscan[3]},
                        pertail_per_share_batch_s=per_pt_batch, pertail_split_s=split_pt,
                        stream_s=stream_s, fused_parts_ms=fz_parts, scan_then_tail_ms=seq_ms,
-                       fused_halves_ms=half_ms,
+                       fused_halves_ms=half_ms, fused_co_issue=co_issue, ptxas=ptxas,
                        single_s_per_query=single_s, single_split_s=single_split,
                        masked_xor_scan_q8={"ms": xs8[0], "plain_ms": xs8[1],
                                            "bound_ms": xs8[2]},

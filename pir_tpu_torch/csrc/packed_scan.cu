@@ -1,53 +1,81 @@
-// Packed-bits batched XOR scan for the 2-server PIR answer.
+// Packed-bits batched XOR scan for the 2-server PIR answer (kernel 2).
 //
 // Replaces the TPU kernel pir_tpu/ops/pallas_scan.py:mxu_batched_scan_packed_pallas
 // (_packed_planes_scan_kernel): out[q] = XOR of the table rows r whose
-// selection bit is set, bit j of words[w][q] selecting row 32w + j.
+// selection bit is set, bit j of words[w][q] selecting row 32w + j. The
+// TPU kernel runs it as 8 int8 bit-plane products on the matrix unit,
+// each taken mod 2; so does this one, on the tensor cores.
 //
-// What bounds it on an H100: the table is read once per block column
-// and query tile, so bytes are cheap (1 GiB table + words, ~0.5 ms at
-// 3.35 TB/s); the work is Q*H*B/4 32-bit "acc ^= row & mask" steps, one
-// LOP3 each, on the integer pipes. The TPU ran the same function as
-// int8 bit-plane matrix products; on this card that route is bounded by
-// the int8 tensor-core rate, which is the target of a later kernel.
+// What bounds it on an H100: operations. 8 planes x 2 Q H B int8
+// operations at 1979 TOPS (1 GiB table: 35.56 ms at Q = 4096, 8.89 ms at
+// Q = 1024), against bytes read once (table, words, answers: ~0.5 ms at
+// 3.35 TB/s).
 //
-// Design: a block owns a tile of 32 queries x 128 4-byte columns and
-// loops over the whole table in row tiles staged in shared memory (the
-// loop takes the place of the TPU's sequential row grid: blocks run in no
-// order, so the rows of one output are not split across blocks). The
-// tile's body is packed_scan.cuh's, which fused_scan_expand.cu shares.
+// Design: the tile of packed_planes.cuh (which fused_scan_expand.cu
+// shares): wgmma m64n256k32 s8 with A spread from the packed words in
+// registers and B the table's 8 bit planes of 32 byte columns, written
+// into swizzled shared memory from raw stages that cp.async brings ahead
+// of use. A block of 2 warpgroups owns 128 queries x 32 byte columns over
+// one chunk of rows; rows are split into chunks over grid.z until the grid
+// has ~32 blocks an SM, so that small batches (Q = 1024: 256 tiles) put
+// every SM to work, and the partial parities are XORed into the zeroed
+// answers with atomicXor. Query tiles run fastest in the grid, so the
+// blocks resident at one time read the same rows and columns of the
+// table, which the L2 serves after the first. One block an SM (the
+// m64n256 product keeps 128 accumulators a thread; ~91 KB of shared
+// memory).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "packed_scan.cuh"
+#include "packed_planes.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-using Tile = pir_scan::ScanTile<kWarps>;
+constexpr int kTargetBlocks = 32 * 132;  // ~32 blocks an SM over the grid
+constexpr int kMaxGridYZ = 65535;
 
-__global__ void __launch_bounds__(Tile::kThreads)
-packed_scan_kernel(const uint32_t* __restrict__ table,  // (H, BW) words
-                   const uint32_t* __restrict__ words,  // (H / 32, Q)
-                   uint32_t* __restrict__ out,          // (Q, BW)
-                   int h, int bw, int q) {
-  __shared__ Tile::Shared sh;
-  pir_scan::scan_tile<kWarps, false>(table, words, out, h, bw, q, blockIdx.x * Tile::kColsPerBlock,
-                                     blockIdx.y * Tile::kQueriesPerBlock, 0, h / 32, sh);
+__global__ void __launch_bounds__(pir_planes::kThreads, 1)
+packed_scan_kernel(const uint32_t* __restrict__ table,  // (h, bw) words
+                   const uint32_t* __restrict__ words,  // (h / 32, q)
+                   uint32_t* __restrict__ out,          // (q, bw), zeroed
+                   int h, int bw, int q, long long chunk_rows) {
+  extern __shared__ uint8_t smem[];
+  const long long r_begin = blockIdx.z * chunk_rows;
+  const long long r_end = min(static_cast<long long>(h), r_begin + chunk_rows);
+  pir_planes::scan_chunk(table, words, out, h, bw, q, blockIdx.y * pir_planes::kColWords,
+                                blockIdx.x * pir_planes::kQueriesPerBlock, r_begin, r_end, smem);
 }
 
 }  // namespace
 
-// table: (h, 4 * bw) uint8 rows as (h, bw) little-endian words; words:
-// (h / 32, q) selection words; out: (q, bw) words. h % 32 == 0.
-// Returns cudaGetLastError() after the launch.
+// table: (h, 4 * bw) uint8 rows as (h, bw) little-endian words, 4-byte
+// aligned; words: (h / 32, q) selection words; out: (q, bw) words, zeroed
+// by the caller. h % 32 == 0; q, h, bw >= 1. Grid: (query tiles, column
+// tiles, row chunks). Returns the first CUDA error of the launch.
 extern "C" int pir_packed_scan(const void* table, const void* words, void* out,
                                int h, int bw, int q, void* stream) {
-  const dim3 grid((bw + Tile::kColsPerBlock - 1) / Tile::kColsPerBlock,
-                  (q + Tile::kQueriesPerBlock - 1) / Tile::kQueriesPerBlock);
-  packed_scan_kernel<<<grid, Tile::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (q < 1 || h < 1 || bw < 1 || h % 32) return static_cast<int>(cudaErrorInvalidValue);
+  const long long q_tiles = (q + pir_planes::kQueriesPerBlock - 1) / pir_planes::kQueriesPerBlock;
+  const long long col_tiles = (bw + pir_planes::kColWords - 1) / pir_planes::kColWords;
+  if (col_tiles > kMaxGridYZ) return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (h + pir_planes::kStageRows - 1) / pir_planes::kStageRows;
+  long long want = kTargetBlocks / (q_tiles * col_tiles);
+  if (want < 1) want = 1;
+  if (want > tiles) want = tiles;
+  long long per_chunk = (tiles + want - 1) / want;
+  if ((tiles + per_chunk - 1) / per_chunk > kMaxGridYZ) per_chunk = (tiles + kMaxGridYZ - 1) / kMaxGridYZ;
+  const long long max_per_chunk = pir_planes::kMaxChunkRows / pir_planes::kStageRows;
+  if (per_chunk > max_per_chunk) per_chunk = max_per_chunk;
+  const long long chunks = (tiles + per_chunk - 1) / per_chunk;
+  const dim3 grid(static_cast<unsigned>(q_tiles), static_cast<unsigned>(col_tiles),
+                  static_cast<unsigned>(chunks));
+  cudaError_t err = cudaFuncSetAttribute(
+      packed_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pir_planes::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  packed_scan_kernel<<<grid, pir_planes::kThreads, pir_planes::kSmemBytes,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(table), static_cast<const uint32_t*>(words),
-      static_cast<uint32_t*>(out), h, bw, q);
+      static_cast<uint32_t*>(out), h, bw, q, per_chunk * pir_planes::kStageRows);
   return static_cast<int>(cudaGetLastError());
 }

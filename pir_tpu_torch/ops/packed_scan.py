@@ -4,8 +4,10 @@
 ``packed_scan(table_u8, words_t)``: table (H, B) uint8 and selection words
 (H // 32, Q) int32, word w bit j of column q selecting row 32w + j ->
 (Q, B) uint8, each row the XOR of the table rows its query selects.
-On a CUDA tensor the wrapper launches ``csrc/packed_scan.cu``; on a CPU
-tensor it runs ``packed_scan_plain``.
+On a CUDA tensor the wrapper launches ``csrc/packed_scan.cu`` (int8
+tensor-core products of the selection bits, spread from the packed words,
+with the table's bit planes, each taken mod 2; rows split over blocks and
+XORed into zeroed answers); on a CPU tensor it runs ``packed_scan_plain``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from .. import _build
 from .scan import batched_xor_scan
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_MAX_GRID_Y = 65535 * 32  # queries: 32 per block row of the launch grid
+_MAX_GRID_Y = 65535 * 32  # row bytes: 32 per block of the launch grid's y
+_MAX_INT = (1 << 31) - 1
 
 
 def unpack_words_t(words_t: torch.Tensor) -> torch.Tensor:
@@ -71,10 +74,10 @@ def packed_scan(table_u8: torch.Tensor, words_t: torch.Tensor) -> torch.Tensor:
     check_kernel_operands(table_u8, words_t)
     h, b = table_u8.shape
     q = words_t.shape[1]
-    if q > _MAX_GRID_Y:
-        raise ValueError(f"batch {q} exceeds one launch ({_MAX_GRID_Y})")
-    out = torch.empty((q, b), dtype=torch.uint8, device=table_u8.device)
-    if q == 0:
+    if b > _MAX_GRID_Y or q > _MAX_INT:
+        raise ValueError(f"rows of {b} bytes or {q} queries exceed one launch")
+    out = torch.zeros((q, b), dtype=torch.uint8, device=table_u8.device)
+    if not (q and h and b):
         return out
     fn = _build.load("packed_scan").pir_packed_scan
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int

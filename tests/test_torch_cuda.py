@@ -104,6 +104,11 @@ def test_fast_tail_kernel_matches_plain(dev, distinct, levels, n_blk, nw0, q):
 @pytest.mark.parametrize("h,b,q,qe,nw0,levels", [
     (1 << 15, 64, 37, 5, 8, 5), (4096, 8, 3, 9, 1, 0), (1 << 16, 520, 70, 2, 2, 2),
     (4096, 16, 0, 3, 1, 2), (1 << 15, 16, 40, 0, 8, 5),  # one half empty
+    # the scan tile's edges (tests/test_torch_packed_scan_lanes.py models
+    # each): Q = 1 on rows not a multiple of a chunk, Q = 1000, 2^17 + 32
+    # rows in 9 chunks, Q > 4096, B = 520
+    (20512, 1024, 1, 3, 1, 2), (4128, 8, 1000, 2, 1, 2), ((1 << 17) + 32, 8, 3, 2, 1, 2),
+    (1024, 8, 4200, 2, 1, 2), (4128, 520, 37, 3, 1, 2),
 ])
 def test_fused_kernel_matches_plain(dev, h, b, q, qe, nw0, levels):
     rng = np.random.default_rng(h + q + qe)
@@ -118,7 +123,13 @@ def test_fused_kernel_matches_plain(dev, h, b, q, qe, nw0, levels):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("h,b,q", [(8192, 1024, 64), (4096, 8, 37), (2048, 520, 3)])
+@pytest.mark.parametrize("h,b,q", [
+    (8192, 1024, 64), (4096, 8, 37), (2048, 520, 3),
+    # the tile's edges (tests/test_torch_packed_scan_lanes.py models each):
+    # Q = 1, Q = 1000 on rows not a multiple of a tile, Q > 4096, 2^16 + 32
+    # rows in 513 chunks
+    (4096, 1024, 1), (2080, 64, 1000), (1024, 8, 4200), ((1 << 16) + 32, 8, 37),
+])
 def test_packed_scan_kernel_matches_plain(dev, h, b, q):
     rng = np.random.default_rng(h + q)
     table = torch.from_numpy(rng.integers(0, 256, size=(h, b), dtype=np.uint8)).to(dev)
@@ -128,6 +139,27 @@ def test_packed_scan_kernel_matches_plain(dev, h, b, q):
     torch.cuda.synchronize()
     assert packed_scan.launches == before + 1
     assert torch.equal(got, packed_scan_plain(table, words))
+
+
+def test_scan_kernels_read_a_table_not_16_byte_aligned(dev):
+    """A table 4 bytes past a 16-byte boundary takes the tile's 4-byte
+    loads in both scan kernels (packed_scan and the fused scan items)."""
+    h, b, q = 4096, 64, 40
+    rng = np.random.default_rng(3)
+    buf = torch.empty(h * b + 16, dtype=torch.uint8, device=dev)
+    off = (16 - buf.data_ptr() % 16) % 16 + 4
+    table = buf[off:off + h * b].view(h, b)
+    table.copy_(torch.from_numpy(rng.integers(0, 256, size=(h, b), dtype=np.uint8)))
+    assert table.data_ptr() % 16 == 4 and table.is_contiguous()
+    words = torch.from_numpy(_words(rng, h // 32, q).view(np.int32)).to(dev)
+    want = packed_scan_plain(table, words)
+    before = packed_scan.launches, fused_scan_expand.launches
+    got = packed_scan(table, words)
+    ops = _pertail_operands(dev, 5, 2, 1, 2, 1, False)
+    fused = fused_scan_expand(table, words, *ops, levels=2)
+    torch.cuda.synchronize()
+    assert (packed_scan.launches, fused_scan_expand.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want) and torch.equal(fused[0], want)
 
 
 def _compat_operands(dev, seed, q, nc, w, tail):
