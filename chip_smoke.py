@@ -7,8 +7,11 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
 
 0. prints the card (nvidia-smi name and power limit) and the versions;
 1. builds the eight CUDA kernels from pir_tpu_torch/csrc with nvcc, one
-   nvcc per source, all at once, and logs ptxas's registers, spills and
-   warnings per kernel (--out: "ptxas");
+   nvcc per source, all at once, and logs ptxas's registers, spills,
+   static shared memory and warnings per kernel (--out: "ptxas",
+   "ptxas_summary"); meanwhile builds a probe of one AES-128 block on
+   the per-bank table, counts its SASS by pipe, and fails if the AES
+   bound (AES_BLOCK_PIPES) counts more on a pipe (--out: "aes_sass");
 2. builds a 2^20-row x 1024-byte table (1 GiB) from --seed, in the
    storage orders of every path (stacked and classic for 1024-bit keys,
    classic for the stream's 128-bit keys, compat), and holds each kernel
@@ -72,7 +75,12 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
    bit-plane scan at Q = 64 and Q = 1024 on the natural table's bytes,
    the probe at 256 rounds and at PROBE_LONG_ITERS), the fused kernel's
    step against each of its halves alone (co-issue: near the larger half
-   or near their sum), and prints one JSON line of kernels.
+   or near their sum); where Nsight Compute (ncu) is installed, reads its
+   shared-memory bank conflicts, LSU instructions and ALU pipe share on
+   one stacked tail launch and one last-stage compat launch at the main
+   paths' shapes, in a child process, if `ncu --query-metrics` runs
+   clean (else logs why not); and
+   prints one JSON line of kernels.
 
 Every failed check raises, so the exit code is not 0. The last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
@@ -85,6 +93,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -128,8 +137,58 @@ INT32_OPS_PER_S = 67e12 / 4
 # instruction a clock and integer work has the integer pipe and (IMAD) the
 # FMA pipe, 32 lanes a scheduler, so half the float32 figure
 INT_ISSUE_PER_S = 67e12 / 2
-# T-table AES-128 per round: 16 table lookups, 12 rotations, 16 XORs
-AES_BLOCK_OPS = 10 * 44
+# shared memory: 32 banks of 4 bytes a clock an SM, so one conflict-free
+# 32-lane load a clock, half the integer rate
+SMEM_WORDS_PER_S = 67e12 / 8
+# One T-table AES-128 block (csrc/aes_lanes.cuh), by the pipe each
+# instruction needs. Integer (ALU) pipe: in each of rounds 1-9, 16 byte
+# extractions (PRMT), 12 rotations (SHF) and 8 three-input XORs (LOP3);
+# in round 10, 16 extractions, 12 byte assemblies (PRMT) and 4 XORs (the
+# first key's XORs fold into the three-input XOR that made the input).
+# FMA pipe: one IMAD a lookup (its shared address). Shared memory: 160
+# lookups, one pass each on the per-bank table (the 11 warp-uniform
+# round-key loads are left out). Phase 1 counts the same from the SASS
+# of one block (aes_sass_counts) and fails if the SASS needs fewer.
+AES_BLOCK_PIPES = {"alu": 9 * (16 + 12 + 8) + (16 + 12 + 4), "fma": 160, "lds": 160}
+AES_PIPE_RATES = {"alu": INT32_OPS_PER_S, "fma": INT32_OPS_PER_S, "lds": SMEM_WORDS_PER_S}
+# ptxas -v fields logged per kernel in phase 1
+PTXAS_FIELDS = (("registers", r"Used (\d+) registers"),
+                ("static_smem_bytes", r"(\d+) bytes smem"),
+                ("stack_bytes", r"(\d+) bytes stack frame"),
+                ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                ("spill_load_bytes", r"(\d+) bytes spill loads"))
+# Nsight Compute metrics read on one launch of kernels 1 and 3
+NCU_METRICS = ("l1tex__data_bank_conflicts_pipe_lsu_mem_shared_op_ld.sum",
+               "smsp__inst_executed_pipe_lsu.sum",
+               "sm__pipe_alu_cycles_active.avg.pct_of_peak_sustained_active",
+               "gpu__time_duration.sum")
+NCU_TIMEOUT_S = 240
+
+# Phase 1's probe of the AES: BLOCKS chained encryptions a thread on the
+# per-bank table, as kernels 1 and 3 run them (round keys in shared memory)
+AES_PROBE_CU = r"""
+#include "aes_lanes.cuh"
+extern "C" __global__ void aes_probe(const uint4* rk_in, uint4* io) {
+  __shared__ pir_tail::AesLaneTable tb;
+  __shared__ uint4 rk[11];
+  for (int i = threadIdx.x; i < 2048; i += blockDim.x) pir_tail::fill_lane_table(tb, i);
+  if (threadIdx.x < 11) rk[threadIdx.x] = rk_in[threadIdx.x];
+  __syncthreads();
+  const pir_tail::AesLanes T = pir_tail::lanes_of(tb, threadIdx.x & 31);
+  const uint4 v = io[threadIdx.x];
+  uint32_t s[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int n = 0; n < BLOCKS; ++n) {
+    uint32_t o[4];
+    pir_tail::aes128(T, reinterpret_cast<const uint32_t*>(rk), s, o);
+    for (int c = 0; c < 4; ++c) s[c] = o[c];
+  }
+  io[threadIdx.x] = make_uint4(s[0], s[1], s[2], s[3]);
+}
+"""
+# SASS opcodes by the pipe that runs them (integer ALU, FMA, shared memory)
+AES_SASS_PIPES = {"alu": ("LOP3", "SHF", "PRMT", "IADD3", "LEA", "ISETP", "SEL", "MOV"),
+                  "fma": ("IMAD",), "lds": ("LDS",)}
 
 T0 = time.perf_counter()
 
@@ -142,10 +201,50 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+def aes_sass_counts(nvcc: str, csrc: str) -> dict:
+    """One AES-128 block's SASS instructions, by opcode and by pipe: the
+    probe built with two chained blocks less the probe with one."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "aes_probe.cu")
+        with open(src, "w") as f:
+            f.write(AES_PROBE_CU)
+        procs = [subprocess.Popen([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                                   "-cubin", f"-DBLOCKS={n}", "-I", csrc,
+                                   "-o", os.path.join(d, f"aes{n}.cubin"), src],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for n in (1, 2)]
+        counts = []
+        for n, proc in zip((1, 2), procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                fail(f"the AES probe did not build:\n{out}")
+            sass = subprocess.run([cuobjdump, "-sass", os.path.join(d, f"aes{n}.cubin")],
+                                  capture_output=True, text=True, check=True).stdout
+            ops = {}
+            for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", sass):
+                ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+            counts.append(ops)
+    one = {op: counts[1].get(op, 0) - counts[0].get(op, 0) for op in {*counts[0], *counts[1]}}
+    one = {op: n for op, n in sorted(one.items()) if n}
+    return {"opcodes": one,
+            "pipes": {p: sum(one.get(op, 0) for op in ops) for p, ops in AES_SASS_PIPES.items()}}
+
+
+def aes_ms(blocks: int) -> float:
+    """The least time of `blocks` AES-128 blocks on the card: the time of
+    their busiest pipe (AES_BLOCK_PIPES), in ms."""
+    return max(blocks * n / AES_PIPE_RATES[p] for p, n in AES_BLOCK_PIPES.items()) * 1e3
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the kernels summary JSON here")
+    ap.add_argument("--ncu-launches", metavar="S,W,TAIL,NBLK,Q,NC,WC,CTAIL",
+                    help="(child of the ncu reading) launch the stacked tail once at "
+                         "S steps x W lane words, and one emitting compat stage at Q "
+                         "queries x NC chunks x WC lane words, on random operands; exit")
     args = ap.parse_args()
 
     import torch
@@ -211,6 +310,9 @@ def main() -> int:
     from pir_tpu_torch.utils.bits import num_bits_for_height
 
     dev = torch.device("cuda", 0)
+    if args.ncu_launches:
+        return ncu_launches(args.ncu_launches, dev, np, torch, compat_stage,
+                            fast_tail_expand_stacked)
 
     # ---- phase 0: the card --------------------------------------------
     smi = subprocess.run(
@@ -222,7 +324,14 @@ def main() -> int:
 
     # ---- phase 1: build -----------------------------------------------
     t = time.perf_counter()
-    logs = _build.build()
+    with ThreadPoolExecutor(1) as pool:
+        sass = pool.submit(aes_sass_counts, _build.nvcc_path(), str(_build.CSRC))
+        logs = _build.build()
+        aes_sass = sass.result()
+    log(f"phase 1: SASS of one AES-128 block (aes_lanes.cuh): by pipe {aes_sass['pipes']}, "
+        f"the bound counts {AES_BLOCK_PIPES}; opcodes {aes_sass['opcodes']}")
+    if any(aes_sass["pipes"][p] < n for p, n in AES_BLOCK_PIPES.items()):
+        fail("the AES bound counts more instructions on a pipe than the SASS of a block has")
     ptxas = {}  # kernel (mangled name) -> ptxas lines on registers, spills, wgmma serialized
     for name, text in logs.items():
         func = "?"
@@ -233,6 +342,14 @@ def main() -> int:
             if "registers" in line or "spill" in line or "serialized" in line:
                 ptxas.setdefault(f"{name}:{func}", []).append(line.split(":", 1)[-1].strip())
                 log(f"  ptxas {name} {func}: {line.strip()}")
+    ptxas_summary = {}
+    for key, lines in ptxas.items():
+        text = " ".join(lines)
+        ptxas_summary[key] = {field: int(m.group(1)) for field, pat in PTXAS_FIELDS
+                              if (m := re.search(pat, text))}
+        kernel = re.search(r"([a-z_]+_kernel)(I\w*?EE)?", key)
+        log(f"phase 1: {key.split(':')[0]} {kernel.group(0) if kernel else key}: "
+            f"{ptxas_summary[key]}")
     log(f"phase 1: built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t:.2f} s")
 
     # ---- phase 2: table and kernel checks ------------------------------
@@ -1195,13 +1312,13 @@ def main() -> int:
         lambda: fast_tail_expand_stacked_plain(*ops, tail=tail, n_blk=n_blk), 1, warm=False)
     e_tail = err(tail_out, tail_plain)
     del tail_plain
-    s_n = ops[0].shape[0]
+    s_n, tail_w = ops[0].shape[0], ops[0].shape[-1]
     head_levels = depth - tail
     blocks = s_n * k * (3 * (1 << head_levels) * ((1 << tail) - 1) + (1 << depth) * n_blk)
     tail_bytes = sum(x.numel() * x.element_size() for x in ops) + \
         tail_out.numel() * tail_out.element_size()
     tail_bound = {"bytes": tail_bytes / HBM_BYTES_PER_S * 1e3,
-                  "operations": blocks * AES_BLOCK_OPS / INT32_OPS_PER_S * 1e3}
+                  "operations": aes_ms(blocks)}
     log(f"phase 5: stacked tail ({s_n} steps, {blocks} AES blocks): kernel {tail_ms:.4f} ms, "
         f"plain {tail_plain_ms:.4f} ms, bounds {tail_bound}, max_abs_err {e_tail}")
 
@@ -1252,9 +1369,10 @@ def main() -> int:
         work[key][1] += sum(x.numel() * 4 for x in ins)
         work[key][1] += sum(x.numel() * 4 for x in (out if isinstance(out, tuple) else (out,)))
 
-    off = 0
+    off, stage_blocks = 0, []
     for si, tl in enumerate(tails):
         last = si == len(tails) - 1
+        blocks_before = work["batch"][0]
 
         def run(sl_list, st_list):
             return [compat_stage(*stage_args(sl, s_, t_, off, tl), tail=tl, emit_bits=last)
@@ -1273,6 +1391,7 @@ def main() -> int:
         for sl, (s_, t_), o in zip(slices, state, outs):
             count("batch", sl[0].shape[0], stage_args(sl, s_, t_, off, tl), o)
         count("slice", c_qc, c_args, got)
+        stage_blocks.append(work["batch"][0] - blocks_before)
         if not last:
             state, check_state = outs, got
         off += tl
@@ -1281,7 +1400,7 @@ def main() -> int:
     def bound_of(key):
         blocks, nbytes = work[key]
         return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                "operations": blocks * AES_BLOCK_OPS / INT32_OPS_PER_S * 1e3}
+                "operations": aes_ms(blocks)}
 
     compat_ms, compat_slice_ms = sum(stage_ms), sum(stage_slice_ms)
     compat_plain_ms = sum(stage_plain_ms)
@@ -1290,6 +1409,9 @@ def main() -> int:
     log(f"phase 5: compat stage per {COMPAT_BATCH}-query share batch ({work['batch'][0]} AES "
         f"blocks, {compat_launches_per_batch} launches): kernel {compat_ms:.4f} ms "
         f"(stages {[round(x, 4) for x in stage_ms]}), bounds {compat_bound}")
+    stage_bound_ms = [aes_ms(b) for b in stage_blocks]
+    log(f"phase 5: compat stages' AES bounds per share batch {stage_bound_ms} ms, kernel / "
+        f"bound {[round(m / b, 4) for m, b in zip(stage_ms, stage_bound_ms)]}")
     log(f"phase 5: compat stage per {c_qc}-query slice ({work['slice'][0]} AES blocks, "
         f"{len(tails)} launches): kernel {compat_slice_ms:.4f} ms "
         f"(stages {[round(x, 4) for x in stage_slice_ms]}), plain {compat_plain_ms:.4f} ms "
@@ -1316,7 +1438,7 @@ def main() -> int:
     del pt_plain
     pt_blocks = tail_blocks(BATCH, pt_ops[0].shape[-1], pt_tail, n_blk)
     pt_bound = {"bytes": nbytes(*pt_ops, pt_out) / HBM_BYTES_PER_S * 1e3,
-                "operations": pt_blocks * AES_BLOCK_OPS / INT32_OPS_PER_S * 1e3}
+                "operations": aes_ms(pt_blocks)}
     log(f"phase 5: per-query tail ({BATCH} queries, {pt_tail} levels, {pt_blocks} AES blocks): "
         f"kernel {pt_ms:.4f} ms, plain {pt_plain_ms:.4f} ms, bounds {pt_bound}, "
         f"max_abs_err {e_pt}")
@@ -1355,7 +1477,7 @@ def main() -> int:
         f"{co_issue['hidden_of_smaller_half']:.3f} of the smaller half hidden")
     fz_blocks = tail_blocks(BATCH, f_ops[0].shape[-1], s_tail, 1)
     fz_parts = {"scan operations": 8 * 2 * BATCH * table_s.numel() / INT8_TENSOR_OPS_PER_S * 1e3,
-                "tail operations": fz_blocks * AES_BLOCK_OPS / INT32_OPS_PER_S * 1e3}
+                "tail operations": aes_ms(fz_blocks)}
     fz_bound = {"bytes": nbytes(table_s, f_words, *f_ops, *fz_out) / HBM_BYTES_PER_S * 1e3,
                 "operations": max(fz_parts.values())}
     log(f"phase 5: fused scan + tail ({BATCH} + {BATCH} queries, tail {s_tail} levels, "
@@ -1457,6 +1579,13 @@ def main() -> int:
         if any(e.values()):
             fail(f"the overlap probe's plain versions or library chain disagree at {iters} rounds")
 
+    # Nsight Compute on one stacked tail launch and one last-stage compat
+    # launch at the main paths' shapes (a child process, random operands)
+    nc_last = cops[0].shape[2] << sum(tails[:-1])
+    ncu = ncu_reading(f"{s_n},{tail_w},{tail},{n_blk},"
+                      f"{c_qc},{nc_last},{cw_w},{tails[-1]}")
+    log(f"phase 5: ncu: {json.dumps(ncu)}")
+
     launches = {name: sum(run.get(name, 0) for run in path_launches.values())
                 for name in counted}
 
@@ -1511,6 +1640,7 @@ def main() -> int:
                        split_s=split, path_launches=path_launches,
                        compat_per_share_batch_s=per_compat_batch, compat_split_s=split_c,
                        compat_stage_ms=stage_ms, compat_stage_batch_bound_ms=compat_bound,
+                       compat_stage_bound_ms=stage_bound_ms,
                        compat_stage_slice_ms=stage_slice_ms,
                        compat_stage_plain_ms=stage_plain_ms,
                        compat_scan={"ms": cscan[0], "plain_ms": cscan[1], "bound_ms": cscan[2],
@@ -1518,6 +1648,7 @@ def main() -> int:
                        pertail_per_share_batch_s=per_pt_batch, pertail_split_s=split_pt,
                        stream_s=stream_s, fused_parts_ms=fz_parts, scan_then_tail_ms=seq_ms,
                        fused_halves_ms=half_ms, fused_co_issue=co_issue, ptxas=ptxas,
+                       ptxas_summary=ptxas_summary, aes_sass=aes_sass, ncu=ncu,
                        single_s_per_query=single_s, single_split_s=single_split,
                        masked_xor_scan_q8={"ms": xs8[0], "plain_ms": xs8[1],
                                            "bound_ms": xs8[2]},
@@ -1536,6 +1667,70 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def ncu_launches(spec, dev, np, torch, compat_stage, fast_tail_expand_stacked) -> int:
+    """The child that ncu_reading profiles: one stacked tail launch and one
+    emitting compat stage launch on random operands (0 / ~0 masks where
+    the kernels read bit 0), then exit."""
+    s_n, w, tail, n_blk, q, nc, wc, ctail = (int(x) for x in spec.split(","))
+    rng = np.random.default_rng(0)
+
+    def words(*shape):
+        return torch.from_numpy(rng.integers(0, 1 << 32, size=shape, dtype=np.uint64)
+                                .astype(np.uint32).view(np.int32)).to(dev)
+
+    def masks(*shape):
+        return -torch.from_numpy(rng.integers(0, 2, size=shape, dtype=np.int32)).to(dev)
+
+    fast_tail_expand_stacked(words(s_n, 8, 1, 16, w), words(s_n, 1, 1, w),
+                             masks(s_n, tail, 8, 16, w), masks(s_n, tail, 1, w),
+                             masks(s_n, tail, 1, w), masks(11, 8, 3, 16, 1),
+                             words(s_n, 8, n_blk, 16, w), masks(11, 8, 16, 1),
+                             tail=tail, n_blk=n_blk)
+    compat_stage(words(q, 8, nc, 16, wc), words(q, nc, 1, wc), masks(q, ctail, 8, 16, 1),
+                 masks(q, ctail), masks(q, ctail), masks(q, 11, 8, 3, 16, 1), masks(q),
+                 tail=ctail, emit_bits=True)
+    torch.cuda.synchronize()
+    return 0
+
+
+def ncu_reading(spec: str) -> dict:
+    """NCU_METRICS on the two launches of `chip_smoke.py --ncu-launches
+    spec` under Nsight Compute: {kernel: {metric: value}}, or why not."""
+    exe = shutil.which("ncu") or next(
+        (p for p in ("/usr/local/cuda/bin/ncu",) if os.path.exists(p)), None)
+    if exe is None:
+        return {"ran": False, "why": "ncu not installed"}
+
+    def errors(proc):
+        return [ln for ln in (proc.stdout + proc.stderr).splitlines() if "ERR" in ln]
+
+    # a card whose counters ncu cannot read fails this query in ~2 s; skip the child then
+    query = subprocess.run([exe, "--query-metrics"], capture_output=True, text=True,
+                           timeout=NCU_TIMEOUT_S)
+    if query.returncode != 0 or errors(query):
+        return {"ran": False, "why": f"ncu --query-metrics exit {query.returncode}: "
+                + " | ".join(errors(query)[-3:])}
+    cmd = [exe, "--metrics", ",".join(NCU_METRICS), "-k",
+           "regex:stacked_tail_kernel|compat_stage_kernel", "-c", "2",
+           sys.executable, os.path.abspath(__file__), "--ncu-launches", spec]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=NCU_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        return {"ran": False, "why": f"ncu timed out after {NCU_TIMEOUT_S} s"}
+    found, kernel = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"(stacked_tail_kernel|compat_stage_kernel)", line)
+        if m and not line.startswith(" " * 4):
+            kernel = m.group(1)
+        parts = line.split()
+        if kernel and parts and parts[0] in NCU_METRICS:
+            found.setdefault(kernel, {})[parts[0]] = parts[-1]
+    if proc.returncode != 0 or not found:
+        return {"ran": False, "why": f"ncu exit {proc.returncode}: "
+                + " | ".join(errors(proc)[-3:])}
+    return {"ran": True, "metrics": found}
 
 
 if __name__ == "__main__":

@@ -20,16 +20,17 @@
 // operations at 16.75 Tops/s.
 //
 // Design: one thread per node. It un-bitslices its 128-bit seed from the
-// input planes, expands its whole 2^tail-leaf subtree in local memory
-// (the minimum 2^tail - 1 expansions, no ancestor recomputed; the loops
-// are not unrolled, so each kernel holds one copy of the PRG and nvcc
-// builds it in seconds), and re-
-// bitslices with __ballot_sync: a warp's 32 threads are the 32 bit
-// positions of one lane word, so a ballot per (bit, byte) plane is one
-// output word. AES is byte-oriented with a T-table and S-box in shared
-// memory; each block rebuilds its query's three tree keys, correction
-// words and t bits from the mask operands into shared memory once.
-// Seed outputs are staged in shared memory and written as 32-byte runs.
+// input planes (4 loads a lane and a warp transpose), expands its whole
+// 2^tail-leaf subtree in local memory (the minimum 2^tail - 1
+// expansions, no ancestor recomputed; the loops are not unrolled, so
+// each kernel holds one copy of the PRG and nvcc builds it in seconds),
+// and re-bitslices with __ballot_sync: a warp's 32 threads are the 32
+// bit positions of one lane word, so a ballot per (bit, byte) plane is
+// one output word. AES is byte-oriented with the per-bank T-table of
+// aes_lanes.cuh (lane j reads bank j: one shared-memory pass a lookup);
+// each block rebuilds its query's three tree keys, correction words and
+// t bits from the mask operands into shared memory once. Seed outputs
+// are staged in shared memory and written as 32-byte runs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -40,7 +41,6 @@ namespace {
 
 using pir_compat::CompatArgs;
 using pir_compat::QueryConsts;
-using pir_tail::AesTables;
 
 constexpr int kLanesPerBlock = 8;  // lane words per block, one warp each
 constexpr int kThreads = 32 * kLanesPerBlock;
@@ -48,7 +48,7 @@ constexpr int kThreads = 32 * kLanesPerBlock;
 template <bool EMIT>
 __global__ void __launch_bounds__(kThreads)
 compat_stage_kernel(CompatArgs a, uint32_t* __restrict__ out_s, uint32_t* __restrict__ out_t) {
-  __shared__ AesTables tables;
+  __shared__ pir_tail::AesLaneTable table;
   __shared__ QueryConsts consts;
   __shared__ uint32_t stage[kLanesPerBlock][128];
 
@@ -62,16 +62,29 @@ compat_stage_kernel(CompatArgs a, uint32_t* __restrict__ out_s, uint32_t* __rest
   const int w = min(w0 + warp, a.w - 1);
   const bool store = w0 + warp < a.w;
 
-  for (int i = tid; i < 256; i += kThreads) pir_tail::fill_tables(tables, i);
+  for (int i = tid; i < 2048; i += kThreads) pir_tail::fill_lane_table(table, i);
   for (int i = tid; i < pir_compat::kQueryItems; i += kThreads)
     pir_compat::fill_query(consts, a, q, i);
   __syncthreads();
 
-  uint32_t s[pir_compat::kMaxLeaves][4], t[pir_compat::kMaxLeaves];
-  pir_compat::expand_subtree(a, tables, consts, q, chunk, w, lane, s, t);
-
   const size_t sw = (size_t)a.w;
+  uint32_t s[pir_compat::kMaxLeaves][4], t[pir_compat::kMaxLeaves];
+  pir_tail::warp_unbitslice(a.seeds + ((size_t)q * 8 * a.nc + chunk) * 16 * sw + w,
+                            (size_t)a.nc * 16 * sw, sw, lane, s[0]);
+  t[0] = (a.t[((size_t)q * a.nc + chunk) * sw + w] >> lane) & 1u;
+  pir_compat::expand_subtree(pir_tail::lanes_of(table, lane), consts, a.tail, s, t);
+
   const size_t nco = (size_t)a.nc << a.tail;
+  // seed outputs: the block stores its 8 lane words' 128 staged words as
+  // 4 words a thread: lane word li, rows r0 + 32 m (bit r0 / 16 + 2 m,
+  // byte r0 % 16)
+  static_assert(128 * kLanesPerBlock == 4 * kThreads, "4 staged words a thread");
+  const int li = tid % kLanesPerBlock;
+  const int r0 = tid / kLanesPerBlock;
+  const bool store_li = w0 + li < a.w;
+  const size_t plane = 16 * sw;  // words from one (bit, chunk) plane to the next
+  uint32_t* out_li = out_s + ((size_t)q * 8 + (r0 >> 4)) * nco * plane + (size_t)(r0 & 15) * sw +
+                     (store_li ? w0 + li : 0);
 #pragma unroll 1
   for (int c = 0; c < (1 << a.tail); ++c) {
     const size_t oc = ((size_t)chunk << a.tail) + c;
@@ -82,24 +95,11 @@ compat_stage_kernel(CompatArgs a, uint32_t* __restrict__ out_s, uint32_t* __rest
     } else {
       const uint32_t tword = __ballot_sync(0xFFFFFFFFu, t[c]);
       if (lane == 0 && store) out_t[((size_t)q * nco + oc) * sw + w] = tword;
-      // re-bitslice: word (bit k, byte i) gets bit j from thread j
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const uint32_t word =
-              __ballot_sync(0xFFFFFFFFu, (s[c][i >> 2] >> (8 * (i & 3) + k)) & 1u);
-          if (lane == ((k * 16 + i) & 31)) stage[warp][k * 16 + i] = word;
-        }
-      }
+      pir_tail::ballot_planes(s[c], stage[warp]);
       __syncthreads();
-      for (int idx = tid; idx < 128 * kLanesPerBlock; idx += kThreads) {
-        const int row = idx / kLanesPerBlock;  // bit * 16 + byte
-        const int li = idx % kLanesPerBlock;
-        if (w0 + li < a.w) {
-          out_s[(((size_t)q * 8 + (row >> 4)) * nco + oc) * 16 * sw + (size_t)(row & 15) * sw +
-                w0 + li] = stage[li][row];
-        }
+      if (store_li) {
+#pragma unroll
+        for (int m = 0; m < 4; ++m) out_li[(oc + 2 * m * nco) * plane] = stage[li][r0 + 32 * m];
       }
       __syncthreads();
     }

@@ -2,8 +2,9 @@
 // per-query constants a block rebuilds into shared memory, the walk of
 // one node's whole subtree below it, and the Go-varint selection bit.
 // Kept apart from the kernel so that a host compiler can exercise the
-// same functions (compat_stage_host.cpp). AES, the PRG and the DPF child
-// step come from stacked_tail.cuh.
+// same functions (compat_stage_host.cpp). AES (the per-bank table of
+// aes_lanes.cuh), the PRG, the DPF child step and the warp transpose
+// that brings a node's seed to its lane come from stacked_tail.cuh.
 
 #pragma once
 
@@ -12,8 +13,6 @@
 #include "stacked_tail.cuh"
 
 namespace pir_compat {
-
-using pir_tail::AesTables;
 
 constexpr int kMaxTail = 3;  // levels per stage
 constexpr int kMaxLeaves = 1 << kMaxTail;
@@ -36,10 +35,10 @@ struct CompatArgs {
   int tail;
 };
 
-// One query's constants: its three tree keys (44 words each), each
-// level's seed correction word as a block and its tL / tR bits, and the
-// final-CW parity bit.
-struct QueryConsts {
+// One query's constants: its three tree keys (44 words each, 16-byte
+// aligned for the AES's round-key loads), each level's seed correction
+// word as a block and its tL / tR bits, and the final-CW parity bit.
+struct alignas(16) QueryConsts {
   uint32_t keys[kTreeKeys][44];
   uint32_t cw[kMaxTail][4];
   uint32_t tcw[kMaxTail][2];
@@ -78,24 +77,20 @@ __device__ __forceinline__ void fill_query(QueryConsts& k, const CompatArgs& a, 
   k.fcw = a.fcw ? a.fcw[q] & 1u : 0u;
 }
 
-// The 2^tail descendants, a.tail levels down, of node (query q, chunk,
-// lane word w, bit position lane): seeds in s and t bits in t, leaf c at
-// index c (the first level's branch is its most significant bit, as the
-// stage's output chunk order wants). The subtree is expanded level by
+// The 2^tail descendants, tail levels down, of a node whose seed and t
+// bit the caller puts in s[0] and t[0]: seeds in s and t bits in t, leaf
+// c at index c (the first level's branch is its most significant bit, as
+// the stage's output chunk order wants). The subtree is expanded level by
 // level in place, 2^tail - 1 node expansions of three AES blocks each.
 // Neither loop is unrolled, so a kernel holds one copy of the PRG (three
 // AES bodies) whatever the tail; s and t then live in local memory,
 // whose ~60 bytes a node moves are nothing beside its ~1300 AES operations.
-__device__ __forceinline__ void expand_subtree(const CompatArgs& a, const AesTables& tb,
-                                               const QueryConsts& k, int q, int chunk, int w,
-                                               int lane, uint32_t s[kMaxLeaves][4],
+template <class Tables>
+__device__ __forceinline__ void expand_subtree(const Tables& tb, const QueryConsts& k, int tail,
+                                               uint32_t s[kMaxLeaves][4],
                                                uint32_t t[kMaxLeaves]) {
-  const size_t sw = (size_t)a.w;
-  pir_tail::gather_block(a.seeds + ((size_t)q * 8 * a.nc + chunk) * 16 * sw + w,
-                         (size_t)a.nc * 16 * sw, sw, lane, s[0]);
-  t[0] = (a.t[((size_t)q * a.nc + chunk) * sw + w] >> lane) & 1u;
 #pragma unroll 1
-  for (int l = 0; l < a.tail; ++l) {
+  for (int l = 0; l < tail; ++l) {
     // node n's children go to 2n and 2n + 1, so walking n downwards
     // never overwrites a node not yet expanded
 #pragma unroll 1

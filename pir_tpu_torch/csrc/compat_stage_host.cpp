@@ -1,8 +1,9 @@
 // Host build of the compat-stage kernel's per-thread code, for checking
-// it without a GPU: the query constants, subtree walk and selection bit
-// of compat_stage.cuh run here once per (query, chunk, lane word, bit
-// position), and each output bit is packed where the kernel's
-// __ballot_sync would put it. tests/test_torch_compat_host.py compiles
+// it without a GPU: the query constants, per-bank AES table, subtree walk
+// and selection bit of compat_stage.cuh run here once per (query, chunk,
+// lane word, bit position), each node's seed comes through the lockstep
+// model of the kernel's warp transpose, and each output bit is packed
+// where the kernel's __ballot_sync would put it. tests/test_torch_compat_host.py compiles
 // this file with a host C++ compiler and holds it against the plain
 // torch version.
 //
@@ -18,8 +19,8 @@ using namespace pir_compat;
 namespace {
 
 void run(const CompatArgs& a, int q_n, int emit_bits, uint32_t* out_s, uint32_t* out_t) {
-  static AesTables tables;
-  for (int i = 0; i < 256; ++i) pir_tail::fill_tables(tables, i);
+  static pir_tail::AesLaneTable table;
+  for (int i = 0; i < 2048; ++i) pir_tail::fill_lane_table(table, i);
   const size_t w = (size_t)a.w;
   const size_t nco = (size_t)a.nc << a.tail;
   for (int q = 0; q < q_n; ++q) {
@@ -27,9 +28,14 @@ void run(const CompatArgs& a, int q_n, int emit_bits, uint32_t* out_s, uint32_t*
     for (int i = 0; i < kQueryItems; ++i) fill_query(consts, a, q, i);
     for (int chunk = 0; chunk < a.nc; ++chunk) {
       for (int lw = 0; lw < a.w; ++lw) {
+        uint32_t seeds[32][4];
+        pir_tail::unbitslice_lockstep(a.seeds + ((size_t)q * 8 * a.nc + chunk) * 16 * w + lw,
+                                      (size_t)a.nc * 16 * w, w, seeds);
         for (int lane = 0; lane < 32; ++lane) {
           uint32_t s[kMaxLeaves][4], t[kMaxLeaves];
-          expand_subtree(a, tables, consts, q, chunk, lw, lane, s, t);
+          std::memcpy(s[0], seeds[lane], sizeof s[0]);
+          t[0] = (a.t[((size_t)q * a.nc + chunk) * w + lw] >> lane) & 1u;
+          expand_subtree(pir_tail::lanes_of(table, lane), consts, a.tail, s, t);
           for (int c = 0; c < (1 << a.tail); ++c) {
             const size_t oc = ((size_t)chunk << a.tail) + c;
             if (emit_bits) {

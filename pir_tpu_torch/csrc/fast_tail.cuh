@@ -3,9 +3,9 @@
 // rebuilds into shared memory, a thread's root node, and the depth-first
 // walk of its subtree, each node expanded once. Kept apart from the
 // kernels so that a host compiler can exercise the same functions
-// (fast_tail_host.cpp); the block-level code (warp transpose, staging,
-// stores) follows under __CUDACC__. AES, the PRG and the DPF child step
-// come from stacked_tail.cuh.
+// (fast_tail_host.cpp); the block-level code (staging, stores) follows
+// under __CUDACC__. AES, the PRG, the DPF child step and the warp
+// transpose come from stacked_tail.cuh.
 //
 // Geometry. The TPU kernel doubles each query's NW0 lane words `levels`
 // times by concatenating [left | right], so a level's branch is the most
@@ -195,20 +195,6 @@ struct TailShared {
   uint32_t stage_t[kLanesPerBlock];
 };
 
-// 32 x 32 bit transpose across a warp: afterwards lane l holds the word
-// whose bit j is bit l of lane j's x (Hacker's Delight transpose32, the
-// block swaps done by shuffles).
-__device__ __forceinline__ uint32_t warp_transpose(uint32_t x, int lane) {
-  const uint32_t lo[5] = {0x0000FFFFu, 0x00FF00FFu, 0x0F0F0F0Fu, 0x33333333u, 0x55555555u};
-#pragma unroll
-  for (int r = 0; r < 5; ++r) {
-    const int s = 16 >> r;
-    const uint32_t y = __shfl_xor_sync(0xFFFFFFFFu, x, s);
-    x = (lane & s) ? ((x & ~lo[r]) | ((y >> s) & lo[r])) : ((x & lo[r]) | ((y & lo[r]) << s));
-  }
-  return x;
-}
-
 // One block's work: query q, thread-grid lane words grp * kLanesPerBlock
 // + warp, every leaf of their subtrees and every CTR block, written to
 // out. A warp's 32 threads are the 32 bit positions of one lane word, so
@@ -246,7 +232,8 @@ __device__ __forceinline__ void tail_block(const FastTailArgs& a, int q, int grp
       // lane l of transposed word c4 is output word (bit l % 8, byte 4 c4 + l / 8)
 #pragma unroll
       for (int c4 = 0; c4 < 4; ++c4)
-        sh.stage[warp][(lane & 7) * 16 + 4 * c4 + (lane >> 3)] = warp_transpose(o[c4], lane);
+        sh.stage[warp][(lane & 7) * 16 + 4 * c4 + (lane >> 3)] =
+            pir_tail::warp_transpose(o[c4], lane);
       __syncthreads();
       for (int idx = tid; idx < 128 * kLanesPerBlock; idx += kThreads) {
         const int row = idx / kLanesPerBlock;  // bit * 16 + byte

@@ -1,8 +1,12 @@
-// Per-thread pieces of the stacked tail kernel (stacked_tail.cu): byte-
-// oriented AES-128 with a T-table, the fixed-key MMO PRG, the DPF child
-// step (also used by compat_stage.cuh), and the walk of one thread's path
-// down the DPF tail. Kept apart from the kernel so that a host compiler
-// can exercise the same functions.
+// Per-thread pieces of the stacked tail kernel (stacked_tail.cu): the
+// fixed-key MMO PRG and the DPF child step over either AES table (the
+// per-bank table of aes_lanes.cuh, or the one-copy table below that the
+// per-query tail and fused kernels use), the warp transpose that moves
+// bit planes into lanes, and the depth-first walk of a head node's tail
+// subtree. The compat stage (compat_stage.cuh) and the per-query tail
+// (fast_tail.cuh) share them. Kept apart from the kernels so that a host
+// compiler can exercise the same functions; a warp's shuffles run there
+// as a lockstep model of its 32 lanes.
 //
 // Block convention: a 16-byte AES block is 4 little-endian 32-bit words,
 // word c = bytes 4c..4c+3 = state column c (byte i is row i % 4, column
@@ -10,50 +14,23 @@
 
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
+
+#include "aes_lanes.cuh"
 
 namespace pir_tail {
 
-__device__ const uint8_t kSbox[256] = {
-    0x63, 0x7c, 0x77, 0x7b, 0xf2, 0x6b, 0x6f, 0xc5, 0x30, 0x01, 0x67, 0x2b,
-    0xfe, 0xd7, 0xab, 0x76, 0xca, 0x82, 0xc9, 0x7d, 0xfa, 0x59, 0x47, 0xf0,
-    0xad, 0xd4, 0xa2, 0xaf, 0x9c, 0xa4, 0x72, 0xc0, 0xb7, 0xfd, 0x93, 0x26,
-    0x36, 0x3f, 0xf7, 0xcc, 0x34, 0xa5, 0xe5, 0xf1, 0x71, 0xd8, 0x31, 0x15,
-    0x04, 0xc7, 0x23, 0xc3, 0x18, 0x96, 0x05, 0x9a, 0x07, 0x12, 0x80, 0xe2,
-    0xeb, 0x27, 0xb2, 0x75, 0x09, 0x83, 0x2c, 0x1a, 0x1b, 0x6e, 0x5a, 0xa0,
-    0x52, 0x3b, 0xd6, 0xb3, 0x29, 0xe3, 0x2f, 0x84, 0x53, 0xd1, 0x00, 0xed,
-    0x20, 0xfc, 0xb1, 0x5b, 0x6a, 0xcb, 0xbe, 0x39, 0x4a, 0x4c, 0x58, 0xcf,
-    0xd0, 0xef, 0xaa, 0xfb, 0x43, 0x4d, 0x33, 0x85, 0x45, 0xf9, 0x02, 0x7f,
-    0x50, 0x3c, 0x9f, 0xa8, 0x51, 0xa3, 0x40, 0x8f, 0x92, 0x9d, 0x38, 0xf5,
-    0xbc, 0xb6, 0xda, 0x21, 0x10, 0xff, 0xf3, 0xd2, 0xcd, 0x0c, 0x13, 0xec,
-    0x5f, 0x97, 0x44, 0x17, 0xc4, 0xa7, 0x7e, 0x3d, 0x64, 0x5d, 0x19, 0x73,
-    0x60, 0x81, 0x4f, 0xdc, 0x22, 0x2a, 0x90, 0x88, 0x46, 0xee, 0xb8, 0x14,
-    0xde, 0x5e, 0x0b, 0xdb, 0xe0, 0x32, 0x3a, 0x0a, 0x49, 0x06, 0x24, 0x5c,
-    0xc2, 0xd3, 0xac, 0x62, 0x91, 0x95, 0xe4, 0x79, 0xe7, 0xc8, 0x37, 0x6d,
-    0x8d, 0xd5, 0x4e, 0xa9, 0x6c, 0x56, 0xf4, 0xea, 0x65, 0x7a, 0xae, 0x08,
-    0xba, 0x78, 0x25, 0x2e, 0x1c, 0xa6, 0xb4, 0xc6, 0xe8, 0xdd, 0x74, 0x1f,
-    0x4b, 0xbd, 0x8b, 0x8a, 0x70, 0x3e, 0xb5, 0x66, 0x48, 0x03, 0xf6, 0x0e,
-    0x61, 0x35, 0x57, 0xb9, 0x86, 0xc1, 0x1d, 0x9e, 0xe1, 0xf8, 0x98, 0x11,
-    0x69, 0xd9, 0x8e, 0x94, 0x9b, 0x1e, 0x87, 0xe9, 0xce, 0x55, 0x28, 0xdf,
-    0x8c, 0xa1, 0x89, 0x0d, 0xbf, 0xe6, 0x42, 0x68, 0x41, 0x99, 0x2d, 0x0f,
-    0xb0, 0x54, 0xbb, 0x16};
-
-// T0[x] = (2S[x], S[x], S[x], 3S[x]) as little-endian bytes: the
-// MixColumns column of a state byte at row 0; rows 1..3 are rotations.
+// One copy of T0 and the S-box (kernels 4 and 5): a warp's lookups
+// land in random banks.
 struct AesTables {
   uint32_t t0[256];
   uint32_t sbox[256];
 };
 
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int n) {
-  return __funnelshift_l(x, x, n);
-}
-
 __device__ __forceinline__ void fill_tables(AesTables& tb, int i) {
-  const uint32_t v = kSbox[i];
-  const uint32_t v2 = ((v << 1) ^ ((v & 0x80u) ? 0x1Bu : 0u)) & 0xFFu;
-  tb.sbox[i] = v;
-  tb.t0[i] = v2 | (v << 8) | (v << 16) | ((v2 ^ v) << 24);
+  tb.sbox[i] = kSbox[i];
+  tb.t0[i] = t0_entry(kSbox[i]);
 }
 
 // One AES-128 encryption: rk = 44 round-key words.
@@ -86,8 +63,9 @@ __device__ __forceinline__ void aes128(const AesTables& tb, const uint32_t* rk,
 }
 
 // Matyas-Meyer-Oseas: AES_k(x) ^ x.
-__device__ __forceinline__ void mmo(const AesTables& tb, const uint32_t* rk,
-                                    const uint32_t x[4], uint32_t out[4]) {
+template <class Tables>
+__device__ __forceinline__ void mmo(const Tables& tb, const uint32_t* rk, const uint32_t x[4],
+                                    uint32_t out[4]) {
   aes128(tb, rk, x, out);
 #pragma unroll
   for (int i = 0; i < 4; ++i) out[i] ^= x[i];
@@ -112,7 +90,8 @@ __device__ __forceinline__ void gather_block(const uint32_t* __restrict__ p,
 // right sR = block 1 bytes 1..15 ++ block 2 byte 0 and tR = block 2
 // byte 1 bit 0. Block 1 serves both, so one child costs two AES blocks
 // and both cost three. keys = the three tree keys, 44 words each.
-__device__ __forceinline__ void prg_children(const AesTables& tb, const uint32_t* keys,
+template <class Tables>
+__device__ __forceinline__ void prg_children(const Tables& tb, const uint32_t* keys,
                                              const uint32_t st[4], bool want_left,
                                              bool want_right, uint32_t sl[4], uint32_t* tl,
                                              uint32_t sr[4], uint32_t* tr) {
@@ -144,6 +123,92 @@ __device__ __forceinline__ void correct_child(uint32_t s[4], uint32_t* t, const 
   *t ^= t_parent & tcw;
 }
 
+// Bit planes to lanes. A warp's 32 threads are the 32 bit positions of
+// one lane word, and 128 plane words (bit k, byte i) hold their blocks.
+// For block word c, lane l loads plane word (bit l % 8, byte 4c + l / 8),
+// whose bits belong in bit 8 (l / 8) + l % 8 of word c of every lane's
+// block; a 32 x 32 warp transpose then leaves lane j with its word c.
+// Word (bit k, byte i) sits at p[k * bit_stride + i * byte_stride].
+__device__ __forceinline__ size_t plane_offset(int lane, int c, size_t bit_stride,
+                                               size_t byte_stride) {
+  return (size_t)(lane & 7) * bit_stride + (size_t)(4 * c + (lane >> 3)) * byte_stride;
+}
+
+// One of the five exchanges of the 32 x 32 bit transpose across a warp
+// (Hacker's Delight transpose32, the block swaps done by shuffles): x is
+// this lane's word, y the word of lane ^ (16 >> r). After all five, lane
+// l holds the word whose bit j is bit l of lane j's x.
+__device__ __forceinline__ uint32_t transpose_step(uint32_t x, uint32_t y, int lane, int r) {
+  const uint32_t lo[5] = {0x0000FFFFu, 0x00FF00FFu, 0x0F0F0F0Fu, 0x33333333u, 0x55555555u};
+  const int s = 16 >> r;
+  return (lane & s) ? ((x & ~lo[r]) | ((y >> s) & lo[r])) : ((x & lo[r]) | ((y & lo[r]) << s));
+}
+
+#ifdef __CUDACC__
+
+__device__ __forceinline__ uint32_t warp_transpose(uint32_t x, int lane) {
+#pragma unroll
+  for (int r = 0; r < 5; ++r)
+    x = transpose_step(x, __shfl_xor_sync(0xFFFFFFFFu, x, 16 >> r), lane, r);
+  return x;
+}
+
+// __ballot_sync(full, x & mask), the test written in PTX so that it
+// compiles to one predicate-setting LOP3 beside the VOTE (from C++ the
+// test comes out as shift, and, compare).
+__device__ __forceinline__ uint32_t ballot_mask(uint32_t x, uint32_t mask) {
+  uint32_t r;
+  asm("{\n\t.reg .pred p;\n\t.reg .b32 m;\n\t"
+      "and.b32 m, %1, %2;\n\tsetp.ne.b32 p, m, 0;\n\t"
+      "vote.sync.ballot.b32 %0, p, 0xffffffff;\n\t}"
+      : "=r"(r) : "r"(x), "r"(mask));
+  return r;
+}
+
+// The 128 ballots that re-bitslice a warp's blocks o (lane j's block in
+// lane j) into plane words: words[bit k * 16 + byte i] gets bit j from
+// lane j. Every lane stores the same words (one shared-memory pass each).
+__device__ __forceinline__ void ballot_planes(const uint32_t o[4], uint32_t* words) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      words[k * 16 + i] = ballot_mask(o[i >> 2], 1u << (8 * (i & 3) + k));
+  }
+}
+
+// This lane's block from the warp's 128 plane words: 4 loads a lane
+// and 4 transposes (20 shuffles), where gather_block makes 128 loads.
+__device__ __forceinline__ void warp_unbitslice(const uint32_t* __restrict__ p, size_t bit_stride,
+                                                size_t byte_stride, int lane, uint32_t blk[4]) {
+  uint32_t x[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) x[c] = p[plane_offset(lane, c, bit_stride, byte_stride)];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) blk[c] = warp_transpose(x[c], lane);
+}
+
+#else
+
+// Host model of warp_unbitslice: the same loads and exchanges for all 32
+// lanes in lockstep; blk[l] is lane l's block.
+inline void unbitslice_lockstep(const uint32_t* p, size_t bit_stride, size_t byte_stride,
+                                uint32_t blk[32][4]) {
+  for (int c = 0; c < 4; ++c) {
+    uint32_t x[32], y[32];
+    for (int l = 0; l < 32; ++l) x[l] = p[plane_offset(l, c, bit_stride, byte_stride)];
+    for (int r = 0; r < 5; ++r) {
+      for (int l = 0; l < 32; ++l) y[l] = x[l ^ (16 >> r)];
+      for (int l = 0; l < 32; ++l) x[l] = transpose_step(x[l], y[l], l, r);
+    }
+    for (int l = 0; l < 32; ++l) blk[l][c] = x[l];
+  }
+}
+
+#endif  // __CUDACC__
+
+constexpr int kMaxTail = 16;  // stacked tail levels a launch walks
+
 // Operands of one launch, laid out as the TPU kernel's (uint32 words):
 // seeds (S,8,1,16,W), t (S,1,1,W), cw_s (S,tail,8,16,W),
 // cw_tl / cw_tr (S,tail,1,W), fcw (S,8,n_blk,16,W),
@@ -160,47 +225,57 @@ struct TailArgs {
   int n_blk;
 };
 
-// Walk the `tail` levels from the head seed of (step s, lane word w,
-// bit position lane) down to tail leaf c (its bits MSB first: chunk =
-// parent * 2 + branch). keys = the three tree keys, 44 words each.
-// Returns the leaf seed in st and its t bit in *tbit.
-__device__ __forceinline__ void walk_tail(const TailArgs& a, const AesTables& tb,
-                                          const uint32_t* keys, int s, int w, int lane,
-                                          int c, uint32_t st[4], uint32_t* tbit) {
-  const size_t sw = (size_t)a.w;
-  gather_block(a.seeds + (size_t)s * 128 * sw + w, 16 * sw, sw, lane, st);
-  uint32_t tb_ = (a.t[(size_t)s * sw + w] >> lane) & 1u;
-  for (int l = 0; l < a.tail; ++l) {
-    const int branch = (c >> (a.tail - 1 - l)) & 1;
-    uint32_t child[4], tchild = 0;
-    prg_children(tb, keys, st, branch == 0, branch == 1, child, &tchild, child, &tchild);
-    const size_t lvl = (size_t)s * a.tail + l;
-    uint32_t cw[4];
-    gather_block(a.cw_s + lvl * 128 * sw + w, 16 * sw, sw, lane, cw);
-    const uint32_t* tcw = branch ? a.cw_tr : a.cw_tl;
-    correct_child(child, &tchild, cw, tb_, (tcw[lvl * sw + w] >> lane) & 1u);
+// Every leaf of the `tail`-level subtree below a head node with seed st
+// and t bit t, depth first: leaf(c, seed, t) for c = 0 .. 2^tail - 1,
+// its branches MSB first (the output's chunk order). Each node is
+// expanded once, 2^tail - 1 expansions of three AES blocks (the right
+// child waits on a stack of one node per level). cw(l, blk, &tl, &tr)
+// gives this lane's seed correction word and tL / tR bits of level l;
+// it is called before each expansion, by every lane of a warp at once.
+// keys = the three tree keys, 44 words each. The loops are not unrolled,
+// so a kernel holds one copy of the PRG; the stack lives in local memory.
+template <class Tables, class Cw, class Leaf>
+__device__ __forceinline__ void for_each_tail_leaf(const Tables& tb, const uint32_t* keys,
+                                                   int tail, uint32_t st[4], uint32_t t,
+                                                   Cw&& cw, Leaf&& leaf) {
+  uint32_t sib[kMaxTail][4], tsib[kMaxTail];
+  const int n = 1 << tail;
+  int d = 0;
+#pragma unroll 1
+  for (int c = 0; c < n; ++c) {
+#pragma unroll 1
+    for (; d < tail; ++d) {
+      uint32_t cwb[4], tcl, tcr, sl[4], tl, sr[4], tr;
+      cw(d, cwb, &tcl, &tcr);
+      prg_children(tb, keys, st, true, true, sl, &tl, sr, &tr);
+      correct_child(sl, &tl, cwb, t, tcl);
+      correct_child(sr, &tr, cwb, t, tcr);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) st[i] = child[i];
-    tb_ = tchild;
+      for (int i = 0; i < 4; ++i) {
+        st[i] = sl[i];
+        sib[d][i] = sr[i];
+      }
+      t = tl;
+      tsib[d] = tr;
+    }
+    leaf(c, st, t);
+    if (c + 1 < n) {  // c's trailing ones end at the level whose branch turns right
+      const int lvl = tail - __ffs(~c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[i] = sib[lvl][i];
+      t = tsib[lvl];
+      d = lvl + 1;
+    }
   }
-  *tbit = tb_;
 }
 
-// Leaf CTR block b of a leaf seed: MMO of seed ^ LE64(b) under the leaf
-// key, corrected by t & fcw.
-__device__ __forceinline__ void leaf_block(const TailArgs& a, const AesTables& tb,
-                                           const uint32_t* leaf_key, int s, int w, int lane,
-                                           const uint32_t st[4], uint32_t tbit, int b,
-                                           uint32_t o[4]) {
-  const size_t sw = (size_t)a.w;
+// Leaf CTR block b of a leaf seed, before the t & fcw correction: MMO of
+// seed ^ LE64(b) under the leaf key.
+template <class Tables>
+__device__ __forceinline__ void leaf_mmo(const Tables& tb, const uint32_t* leaf_key,
+                                         const uint32_t st[4], int b, uint32_t o[4]) {
   const uint32_t x[4] = {st[0] ^ (uint32_t)b, st[1], st[2], st[3]};
   mmo(tb, leaf_key, x, o);
-  uint32_t f[4];
-  gather_block(a.fcw + ((size_t)s * 8 * a.n_blk * 16 + (size_t)b * 16) * sw + w,
-               (size_t)a.n_blk * 16 * sw, sw, lane, f);
-  const uint32_t tmask = 0u - tbit;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) o[i] ^= f[i] & tmask;
 }
 
 // Round-key byte `rb` (round * 16 + byte) of key `key` (0..2 tree, 3

@@ -191,6 +191,72 @@ def test_compat_stage_kernel_matches_plain(dev, q, nc, w, tail, emit_bits):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _bitslice(blocks):
+    """(..., W, 32, 16) uint8 lane blocks -> (..., 8, 16, W) uint32 planes:
+    bit j of word (bit k, byte i) of lane word w is bit k of byte i of
+    lane j's block."""
+    bits = (blocks[..., None] >> np.arange(8, dtype=np.uint8)) & 1  # (..., W, 32, 16, 8)
+    words = (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)[:, None, None]).sum(-3)
+    return np.moveaxis(words.astype(np.uint32), [-3, -2, -1], [-1, -2, -3])
+
+
+def _lane_blocks(rng, pattern, n, w):
+    """(n, W, 32, 16) uint8 seeds. "equal": the 32 lanes of a lane word
+    share a random block, so a warp's lanes read one table word at once;
+    "bytes": lane j of lane word v, block m, byte i is 16 m + i + 17 j + v
+    (mod 256), so over n = 16 blocks every lane sees every byte value."""
+    if pattern == "equal":
+        return np.repeat(rng.integers(0, 256, size=(n, w, 1, 16), dtype=np.uint8), 32, axis=2)
+    m, v, j, i = np.ix_(range(n), range(w), range(32), range(16))
+    return ((16 * m + i + 17 * j + v) % 256).astype(np.uint8)
+
+
+@pytest.mark.parametrize("pattern,distinct,n_blk,tail,w", [
+    ("equal", False, 8, 3, 128), ("bytes", False, 2, 3, 20), ("bytes", True, 2, 0, 20),
+    ("equal", True, 1, 0, 64), ("bytes", True, 1, 2, 8),
+])
+def test_tail_kernel_structured_seeds(dev, pattern, distinct, n_blk, tail, w):
+    """The per-bank AES table at its edges: a warp's lanes on one table
+    word, every byte value in every lane (round key 0 zero, so the first
+    round looks the seed bytes up), distinct keys, w = 20, tail = 0."""
+    s_n = 16
+    rng = np.random.default_rng(70 + tail + w)
+    ops = _tail_operands(dev, 80 + tail + w, s_n, w, tail, n_blk, distinct)
+    ops[0] = torch.from_numpy(_bitslice(_lane_blocks(rng, pattern, s_n, w))[:, :, None]
+                              .copy().view(np.int32)).to(dev)
+    ops[5][..., 0, :, :, :, :] = 0  # round 0 of the tree keys
+    ops[7][..., 0, :, :, :] = 0     # and of the leaf key
+    before = fast_tail_expand_stacked.launches
+    got = fast_tail_expand_stacked(*ops, tail=tail, n_blk=n_blk)
+    torch.cuda.synchronize()
+    assert fast_tail_expand_stacked.launches == before + 1
+    assert torch.equal(got, fast_tail_expand_stacked_plain(*ops, tail=tail, n_blk=n_blk))
+
+
+@pytest.mark.parametrize("pattern,w,tail", [
+    ("equal", 8, 3), ("bytes", 8, 2), ("bytes", 1, 3), ("equal", 1, 1),
+])
+@pytest.mark.parametrize("emit_bits", [False, True])
+def test_compat_stage_kernel_structured_seeds(dev, pattern, w, tail, emit_bits):
+    """As test_tail_kernel_structured_seeds, for the compat stage: the 16
+    chunks of a query carry the patterned seeds; w = 1 is a one-word slice."""
+    q, nc = 2, 16
+    rng = np.random.default_rng(90 + w + tail)
+    ops = _compat_operands(dev, 91 + w + tail, q, nc, w, tail)
+    planes = _bitslice(_lane_blocks(rng, pattern, q * nc, w)).reshape(q, nc, 8, 16, w)
+    ops[0] = torch.from_numpy(planes.transpose(0, 2, 1, 3, 4).copy().view(np.int32)).to(dev)
+    ops[5][:, 0] = 0  # round 0 of the three tree keys
+    before = compat_stage.launches
+    got = compat_stage(*ops, tail=tail, emit_bits=emit_bits)
+    torch.cuda.synchronize()
+    assert compat_stage.launches == before + 1
+    want = compat_stage_plain(*ops, tail=tail, emit_bits=emit_bits)
+    if emit_bits:
+        assert torch.equal(got, want)
+    else:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("q", [1, 3, 8])
 @pytest.mark.parametrize("c", [1, 3, 256, 257])
 def test_masked_xor_scan_kernel_matches_plain(dev, q, c):

@@ -1,10 +1,13 @@
 """The stacked tail kernel's per-thread code, built for the host.
 
-csrc/stacked_tail_host.cpp compiles the AES, tree walk, leaf blocks and
-round-key rebuild of csrc/stacked_tail.cuh with a host C++ compiler;
-its output must equal the plain torch version's (itself held against
-the TPU kernel in test_torch_expand.py) on real operands from the
-port's head walk, at the serving geometry and a deeper-tail one.
+csrc/stacked_tail_host.cpp compiles the per-bank table AES, the
+depth-first tree walk, leaf blocks and round-key rebuild of
+csrc/stacked_tail.cuh with a host C++ compiler, the head seeds and
+correction words coming through the lockstep model of the kernel's warp
+transpose; its output must equal the plain torch version's (itself held
+against the TPU kernel in test_torch_expand.py) on real operands from
+the port's head walk, at the serving geometry and a deeper-tail one, and
+on random operands at tails of 0 and 4 and a width not a multiple of 8.
 """
 
 import ctypes
@@ -37,8 +40,16 @@ def host_tail(tmp_path_factory):
                     str(CSRC / "stacked_tail_host.cpp")], check=True, timeout=300)
     fn = ctypes.CDLL(str(lib)).pir_stacked_tail_host
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-    fn.restype = None
+    fn.restype = ctypes.c_int
     return fn
+
+
+def _host(fn, ops, tail, n_blk):
+    s_n, w = ops[0].shape[0], ops[0].shape[-1]
+    got = torch.empty((s_n, 8, (1 << tail) * n_blk, 16, w), dtype=torch.int32)
+    assert fn(*(x.data_ptr() for x in ops), got.data_ptr(), s_n, w, tail, n_blk,
+              1 if ops[5].dim() == 5 else w) == 0
+    return got
 
 
 @pytest.mark.parametrize("height,leaf_bits,distinct", [
@@ -59,8 +70,28 @@ def test_host_build_matches_plain_tail(host_tail, height, leaf_bits, distinct):
     assert tail > 0 and len(idxs) == k
     ops = [x.contiguous() for x in stacked_head(u32_tensor(pay, "cpu"), layout)]
     want = fast_tail_expand_stacked_plain(*ops, tail=tail, n_blk=layout.leaf_blocks)
-    got = torch.empty_like(want)
-    s_n, w = ops[0].shape[0], ops[0].shape[-1]
-    host_tail(*(x.data_ptr() for x in ops), got.data_ptr(), s_n, w, tail,
-              layout.leaf_blocks, 1 if ops[5].dim() == 5 else w)
-    assert torch.equal(got, want)
+    assert torch.equal(_host(host_tail, ops, tail, layout.leaf_blocks), want)
+
+
+@pytest.mark.parametrize("distinct,n_blk,tail,w", [
+    (True, 2, 0, 8), (False, 1, 4, 8), (True, 1, 2, 20),
+])
+def test_host_build_matches_plain_tail_random(host_tail, distinct, n_blk, tail, w):
+    """Random seed, t, correction and fcw words; round keys as 0 / ~0
+    masks, the form the payload unpack gives them."""
+    rng = np.random.default_rng(100 + tail)
+    s_n = 2
+
+    def words(*shape):
+        return rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
+
+    def masks(*shape):
+        return rng.integers(0, 2, size=shape).astype(np.uint32) * np.uint32(0xFFFFFFFF)
+
+    rk, rkl = ((masks(s_n, 11, 8, 3, 16, w), masks(s_n, 11, 8, 16, w)) if distinct
+               else (masks(11, 8, 3, 16, 1), masks(11, 8, 16, 1)))
+    ops = [torch.from_numpy(x.view(np.int32)) for x in (
+        words(s_n, 8, 1, 16, w), words(s_n, 1, 1, w), words(s_n, tail, 8, 16, w),
+        words(s_n, tail, 1, w), words(s_n, tail, 1, w), rk, words(s_n, 8, n_blk, 16, w), rkl)]
+    want = fast_tail_expand_stacked_plain(*ops, tail=tail, n_blk=n_blk)
+    assert torch.equal(_host(host_tail, ops, tail, n_blk), want)
