@@ -8,8 +8,10 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
 0. prints the card (nvidia-smi name and power limit) and the versions;
 1. builds the eight CUDA kernels from pir_tpu_torch/csrc with nvcc, one
    nvcc per source, all at once, and logs ptxas's registers, spills,
-   static shared memory and warnings per kernel (--out: "ptxas",
-   "ptxas_summary"); meanwhile builds a probe of one AES-128 block on
+   stack, static shared memory and warnings per kernel (--out: "ptxas",
+   "ptxas_summary") and the fused kernel's dynamic shared memory, the
+   larger of its scan tile's and its tail's (--out: "fused_smem");
+   meanwhile builds a probe of one AES-128 block on
    the per-bank table, counts its SASS by pipe, and fails if the AES
    bound (AES_BLOCK_PIPES) counts more on a pipe (--out: "aes_sass");
 2. builds a 2^20-row x 1024-byte table (1 GiB) from --seed, in the
@@ -26,11 +28,11 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
    table (depth 13) at 256 queries, both outputs, and the masked-XOR scan
    at Q = 1 on the natural-order word table (a fifth 1 GiB table) with a
    compat single's bits and at Q = 8 on the stacked table's word view,
-   and the bit-plane scan at Q = 1, 13 and 64 on a 2^16-row slice of the
-   natural table's bytes and at Q = 13 and 64 on a whole 2^20-row table
-   of 3-byte slots (4-byte rows); and the overlap probe's three kernels
-   (integer chain, int8 mma chain, both) and its two-stream run at 1, 7
-   and 256 rounds, with equal int32 words;
+   and the bit-plane scan at Q = 1, 13, 64 and 65 on a 2^16-row slice of
+   the natural table's bytes and at Q = 13, 64 and 130 on a whole
+   2^20-row table of 3-byte slots (4-byte rows); and the overlap probe's
+   three kernels (integer chain, int8 mma chain, both) and its two-stream
+   run at 1, 7 and 256 rounds, with equal int32 words;
 3. serves, both shares, through TorchPirServer: 3 batches of 4096
    shared-key fast queries on the stacked path, 3 batches of 1024
    reference-exact (compat) queries (the last one through the async
@@ -90,6 +92,7 @@ before printing any result; it imports nothing of JAX or of pir_tpu.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -351,6 +354,14 @@ def main() -> int:
         log(f"phase 1: {key.split(':')[0]} {kernel.group(0) if kernel else key}: "
             f"{ptxas_summary[key]}")
     log(f"phase 1: built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t:.2f} s")
+    # the fused kernel's dynamic shared memory: the larger of its roles'
+    smem3 = (ctypes.c_int * 3)()
+    _build.load("fused_scan_expand").pir_fused_smem_bytes(smem3)
+    fused_smem = {"kSmemBytes": smem3[0], "scan_tile_bytes": smem3[1],
+                  "tail_shared_bytes": smem3[2]}
+    log(f"phase 1: fused kernel dynamic shared memory {fused_smem}")
+    if fused_smem["kSmemBytes"] != max(smem3[1], smem3[2]):
+        fail("the fused kernel's shared memory is not the larger of its roles'")
 
     # ---- phase 2: table and kernel checks ------------------------------
     rng = np.random.default_rng(args.seed)
@@ -524,18 +535,18 @@ def main() -> int:
     if e_xs1 or e_xs8:
         fail("the masked-XOR scan kernel disagrees with its plain version")
 
-    # bit-plane scan (keyword batches): Q = 1, 13 and 64 on a 2^16-row
-    # slice of the natural table's bytes; Q = 13 and 64 on a whole table
-    # of 3-byte slots, whose rows pad to 4 bytes (the plain version's
-    # products are small there)
+    # bit-plane scan (keyword batches): Q = 1, 13 and 64 (the small-batch
+    # tile) and 65 (the 128-query tile) on a 2^16-row slice of the natural
+    # table's bytes; Q = 13, 64 and 130 on a whole table of 3-byte slots,
+    # whose rows pad to 4 bytes (the plain version's products are small there)
     t = time.perf_counter()
     table_b = table_w.view(torch.uint8)
     table_3 = TorchPirServer(database_from_numpy(np.ascontiguousarray(data[:, :3]), 3))._table(1)
     table_3 = table_3.view(torch.uint8)
     e_ps = {}
     for label, tbl, qs in ((f"{PLANES_CHECK_ROWS} rows x {SLOT_BYTES} B",
-                            table_b[:PLANES_CHECK_ROWS], (1, 13, 64)),
-                           (f"{HEIGHT} rows x 3 B slots", table_3, (13, 64))):
+                            table_b[:PLANES_CHECK_ROWS], (1, 13, 64, 65)),
+                           (f"{HEIGHT} rows x 3 B slots", table_3, (13, 64, 130))):
         for q in qs:
             bits = torch.from_numpy(rng.integers(0, 2, (q, tbl.shape[0]), dtype=np.uint8)).to(dev)
             e_ps[f"{label}, Q = {q}"] = err(planes_scan(tbl, bits), mxu_batched_scan(tbl, bits))
@@ -1649,6 +1660,7 @@ def main() -> int:
                        stream_s=stream_s, fused_parts_ms=fz_parts, scan_then_tail_ms=seq_ms,
                        fused_halves_ms=half_ms, fused_co_issue=co_issue, ptxas=ptxas,
                        ptxas_summary=ptxas_summary, aes_sass=aes_sass, ncu=ncu,
+                       fused_smem=fused_smem,
                        single_s_per_query=single_s, single_split_s=single_split,
                        masked_xor_scan_q8={"ms": xs8[0], "plain_ms": xs8[1],
                                            "bound_ms": xs8[2]},

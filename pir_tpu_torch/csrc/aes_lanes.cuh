@@ -1,21 +1,21 @@
 // Byte-oriented AES-128 with a bank-conflict-free T-table, for kernels
-// whose warps look up table entries at data-dependent addresses (the
-// stacked tail, stacked_tail.cu, and the compat stage, compat_stage.cu).
+// whose warps look up table entries at data-dependent addresses: the
+// stacked tail (stacked_tail.cu), the compat stage (compat_stage.cu), the
+// per-query tail (fast_tail.cu) and the fused kernel's tail items
+// (fused_scan_expand.cu).
 //
-// A one-copy 256-word table in shared memory puts a warp's 32 lookups in
-// random banks: a load then takes as many shared-memory passes as the
-// most-loaded bank holds, ~3.5 for 32 random picks of 32 banks. Here the
-// table holds T0 once per bank: word 32 x + j is T0[x], so lane j always
-// reads bank j and every lookup is one pass (32 KB a block). The last
-// round's S-box byte is byte 1 of T0[x], assembled with __byte_perm, so
-// there is no second table; round keys are read as 16-byte warp-uniform
-// loads, 11 a block.
+// A one-copy 256-word table in shared memory would put a warp's 32
+// lookups in random banks: a load then takes as many shared-memory passes
+// as the most-loaded bank holds, ~3.5 for 32 random picks of 32 banks.
+// Here the table holds T0 once per bank: word 32 x + j is T0[x], so lane
+// j always reads bank j and every lookup is one pass (32 KB a block). The
+// last round's S-box byte is byte 1 of T0[x], assembled with __byte_perm,
+// so there is no second table; round keys are read as 16-byte
+// warp-uniform loads, 11 a block.
 //
-// Also the S-box and the T0 entry that this file and the one-copy tables
-// of stacked_tail.cuh (kernels 4 and 5) are built from. Block convention
-// as in stacked_tail.cuh: a block is 4 little-endian 32-bit words, word c
-// = state column c; round keys are 44 words in the same packing,
-// 16-byte aligned.
+// Block convention as in stacked_tail.cuh: a block is 4 little-endian
+// 32-bit words, word c = state column c; round keys are 44 words in the
+// same packing, 16-byte aligned.
 
 #pragma once
 

@@ -1,8 +1,8 @@
 // Host build of the kernels' AES and bit-plane transpose, for checking
 // them without a GPU: aes_lanes.cuh's per-bank table read as one lane
-// sees it, stacked_tail.cuh's one-copy table, and the lockstep model of
-// warp_unbitslice. tests/test_torch_aes_host.py compiles this file with
-// a host C++ compiler and holds it against FIPS-197 and numpy.
+// sees it, and the lockstep model of warp_unbitslice.
+// tests/test_torch_aes_host.py compiles this file with a host C++
+// compiler and holds it against FIPS-197 and numpy.
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -o libaes_lanes_host.so aes_lanes_host.cpp
 
@@ -14,21 +14,17 @@
 using namespace pir_tail;
 
 // n blocks in (n, 4) words, each under its own 44 round-key words of
-// rk (n, 44), into out (n, 4): with the per-bank table as lane `lane`
-// reads it (0..31), or with the one-copy table when lane is -1.
+// rk (n, 44), into out (n, 4), with the per-bank table as lane `lane`
+// (0..31) reads it.
 extern "C" void pir_aes_host(const uint32_t* rk, const uint32_t* in, uint32_t* out, int n,
                              int lane) {
   static AesLaneTable lanes;
-  static AesTables tables;
   for (int i = 0; i < 2048; ++i) fill_lane_table(lanes, i);
-  for (int i = 0; i < 256; ++i) fill_tables(tables, i);
+  const AesLanes T = lanes_of(lanes, lane);
   for (int b = 0; b < n; ++b) {
     alignas(16) uint32_t key[44];
     std::memcpy(key, rk + (size_t)b * 44, sizeof key);
-    if (lane < 0)
-      aes128(tables, key, in + (size_t)b * 4, out + (size_t)b * 4);
-    else
-      aes128(lanes_of(lanes, lane), key, in + (size_t)b * 4, out + (size_t)b * 4);
+    aes128(T, key, in + (size_t)b * 4, out + (size_t)b * 4);
   }
 }
 

@@ -85,9 +85,8 @@ __device__ __forceinline__ void fill_query(QueryConsts& k, const CompatArgs& a, 
 // Neither loop is unrolled, so a kernel holds one copy of the PRG (three
 // AES bodies) whatever the tail; s and t then live in local memory,
 // whose ~60 bytes a node moves are nothing beside its ~1300 AES operations.
-template <class Tables>
-__device__ __forceinline__ void expand_subtree(const Tables& tb, const QueryConsts& k, int tail,
-                                               uint32_t s[kMaxLeaves][4],
+__device__ __forceinline__ void expand_subtree(const pir_tail::AesLanes& tb, const QueryConsts& k,
+                                               int tail, uint32_t s[kMaxLeaves][4],
                                                uint32_t t[kMaxLeaves]) {
 #pragma unroll 1
   for (int l = 0; l < tail; ++l) {

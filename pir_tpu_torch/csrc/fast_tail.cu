@@ -11,22 +11,26 @@
 // What bounds it on an H100: AES. A node costs three AES-128 blocks and
 // a leaf n_blk more, and there is no AES unit, so at the serving shape
 // (depth 10, 5 tail levels, 8 leaf blocks) a query's 992 node
-// expansions and 1024 x 8 leaf blocks, 11,168 blocks of ~440 int32
-// operations, take ~0.29 us at 16.75 Tops/s against ~0.04 us for its
-// 128 KiB of output words at 3.35 TB/s.
+// expansions and 1024 x 8 leaf blocks, 11,168 blocks of 356 integer-pipe
+// instructions each (chip_smoke.py AES_BLOCK_PIPES), take ~0.24 us of the
+// card against ~0.04 us for its 128 KiB of output words at 3.35 TB/s.
 //
 // Design: the TPU kernel ran bitsliced AES on (bit, byte, lane) planes,
 // doubling the lanes per level with Mosaic rolls for sR's byte shift.
 // Here one thread owns one node a few levels below the head (see
-// fast_tail.cuh for the geometry) and walks its subtree depth first,
-// every node expanded once, with byte-oriented AES (T-table and S-box in
-// shared memory; the query's keys, correction words and t bits rebuilt
-// from the mask operands into shared memory once per block). The loops
-// are not unrolled, so the kernel holds one copy of the PRG. A warp's 32
-// threads are the 32 bit positions of one lane word: a 32 x 32 warp
+// fast_tail.cuh for the geometry): it walks down to it expanding only the
+// wanted child, then walks its subtree depth first, every node expanded
+// once, with byte-oriented AES on the per-bank T-table of aes_lanes.cuh
+// (lane j reads bank j: one shared-memory pass a lookup; the query's
+// keys, correction words, t bits and fcw words rebuilt from the mask
+// operands into shared memory once per block). The loops are not
+// unrolled, so the kernel holds one copy of the PRG. A warp's 32 threads
+// are the 32 bit positions of one lane word: its head seeds come through
+// 4 plane loads a lane and a warp transpose, and a 32 x 32 warp
 // transpose (five shuffles a word) re-bitslices a leaf block into its
-// 128 output words, and a block of 8 warps, 8 consecutive lane words of
-// one query, stores 32-byte runs.
+// 128 output words, corrected there by t & fcw. A block of 8 warps, 8
+// consecutive lane words of one query, stages each CTR block in one of
+// two buffers, takes one barrier, and stores 32-byte runs.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -10,8 +10,8 @@
 // What bounds it on an H100: its two halves on two kinds of unit. The
 // scan's bound is its int8 tensor-core route (8 bit planes x 2 Q H B
 // operations at 1979 TOPS: 35.6 ms at Q = 4096 on the 1 GiB table), the
-// tail's its AES (~440 int32 operations a block at 16.75 Tops/s: ~3.4 ms
-// for 4096 queries at depth 13); if they overlap fully, the larger. The
+// tail's its AES (356 integer-pipe instructions a block at 16.75 Tops/s:
+// ~2.8 ms for 4096 queries at depth 13); if they overlap fully, the larger. The
 // scan half runs on the tensor cores (wgmma), the tail half on the
 // integer pipes.
 //
@@ -29,7 +29,8 @@
 // chunk-major, and query tiles fastest within a chunk, so the blocks
 // resident at one time read one 16 MiB slice of the table (within the
 // 50 MB L2). Both roles take the block's dynamic shared memory: the scan
-// tile's ring and planes (~91 KB), or the tail's tables and staging.
+// tile's ring and planes (~91 KB), or the tail's per-bank AES table, query
+// constants and staging (~47 KB).
 //
 // Residency: one block of either kind an SM. The scan tile keeps 128
 // accumulators a thread (ptxas: ~250 registers, which both roles get);
@@ -77,10 +78,10 @@ fused_kernel(ScanArgs s, pir_fast::FastTailArgs a, uint32_t* __restrict__ tail_o
     const int tile = (int)(before % tiles);
     const long long r_begin = chunk * kChunkWordRows * 32;
     const long long r_end = min((long long)s.h, r_begin + kChunkWordRows * 32);
-    pir_planes::scan_chunk(s.table, s.words, s.out, s.h, s.bw, s.q,
-                           (tile / s.q_tiles) * pir_planes::kColWords,
-                           (tile % s.q_tiles) * pir_planes::kQueriesPerBlock, r_begin, r_end,
-                           smem);
+    pir_planes::scan_chunk<1>(s.table, s.words, s.out, s.h, s.bw, s.q,
+                              (tile / s.q_tiles) * pir_planes::kColWords,
+                              (tile % s.q_tiles) * pir_planes::kQueriesPerBlock, r_begin, r_end,
+                              smem);
   } else {
     const long long item = i - before;
     pir_fast::tail_block(a, (int)(item / a.groups), (int)(item % a.groups),
@@ -89,6 +90,14 @@ fused_kernel(ScanArgs s, pir_fast::FastTailArgs a, uint32_t* __restrict__ tail_o
 }
 
 }  // namespace
+
+// The dynamic shared memory a block takes (kSmemBytes), the scan tile's
+// and the tail's, for the build log.
+extern "C" void pir_fused_smem_bytes(int* out3) {
+  out3[0] = kSmemBytes;
+  out3[1] = pir_planes::kSmemBytes;
+  out3[2] = static_cast<int>(sizeof(pir_fast::TailShared));
+}
 
 // Scan operands as pir_packed_scan's: table (h, 4 * bw) uint8 rows,
 // words (h / 32, q), out (q, bw) words, which must be zero on entry.

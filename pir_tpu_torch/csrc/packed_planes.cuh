@@ -1,7 +1,8 @@
 // The packed-words bit-plane tile: the batched XOR scan of packed_scan.cu
-// (kernel 2) and of fused_scan_expand.cu's scan items (kernel 5) as int8
-// products on the tensor cores. out[q] ^= XOR of the table rows r whose
-// selection bit is set, bit j of words[w][q] selecting row 32w + j.
+// (kernel 2), of fused_scan_expand.cu's scan items (kernel 5) and of
+// planes_scan.cu (kernel 6, after its pack pre-pass) as int8 products on
+// the tensor cores. out[q] ^= XOR of the table rows r whose selection bit
+// is set, bit j of words[w][q] selecting row 32w + j.
 //
 // As on the TPU (pir_tpu/ops/pallas_scan.py:_packed_planes_scan_kernel)
 // the XOR is taken bit plane by bit plane: plane p of out[q][c] is the
@@ -42,9 +43,14 @@
 // block's 128 queries: 256 x 32 bytes a k32 step against two wgmma,
 // 32 B a clock. The raw stage (cp.async in, one 16-byte read
 // out) and the words add ~10 B a clock: ~105 of 128 B a clock in all.
-// Fewer queries a block (one warpgroup) would raise the plane writes to
-// 64 B a clock, over budget; more would need more registers than the
-// 128 accumulators a thread the m64n256 product keeps.
+// Fewer queries a block would raise the plane writes to 64 B a clock,
+// over budget (~148 B a clock in all, ~1.16x the products' time); more
+// would need more registers than the 128 accumulators a thread the
+// m64n256 product keeps. A batch of <= 64 queries still takes that shape
+// (kSets = 2, TileShape): both warpgroups take the same 64 queries, each
+// with the planes of its own 32 byte columns, so a block covers 64 byte
+// columns and does no products for absent queries, where the 128-query
+// tile would do twice the products of such a batch.
 //
 // The block's rows are one chunk of the table, split over blocks by the
 // caller; at the end each accumulator's plane bit is packed into the
@@ -79,6 +85,40 @@ constexpr int kAcc = kN / 2;                  // accumulators a thread
 // planes (2 stages), then the ring of raw stages and words; + 1024 to
 // align the planes to the swizzle's 1024-byte repeat
 constexpr int kSmemBytes = 2 * kPlaneBytes + kStages * (kRawWords + kWordsStage) * 4 + 1024;
+
+// A block's shape by its sets of planes: kSets = 1 is the tile above (128
+// queries, 64 a warpgroup, x 32 byte columns); kSets = 2 the small-batch
+// tile (64 queries, both warpgroups, x 64 byte columns, warpgroup g on
+// the planes of columns 32 g ..).
+template <int kSets>
+struct TileShape {
+  static_assert(kSets == 1 || kSets == 2, "one or two sets of planes");
+  static constexpr int kQueries = kQueriesPerBlock / kSets;
+  static constexpr int kColWords = kSets * pir_planes::kColWords;
+  static constexpr int kRawWords = kColWords * kRawStride;
+  static constexpr int kWordsStage = kStageWordRows * kQueries;
+  static constexpr int kStagePlaneBytes = kSets * kPlaneBytes;
+  static constexpr int kSmemBytes =
+      2 * kStagePlaneBytes + kStages * (kRawWords + kWordsStage) * 4 + 1024;
+};
+static_assert(TileShape<1>::kSmemBytes == kSmemBytes, "kSets = 1 is the tile");
+
+// Rows of table a block scans, for a grid of `tiles` (query tiles x
+// column tiles) blocks a chunk: the h rows split into chunks of whole
+// stages until the grid has about target_blocks blocks, at most 65535
+// chunks and at most kMaxChunkRows rows a chunk.
+inline long long chunk_rows_for(long long tiles, int h, long long target_blocks) {
+  constexpr long long kMaxChunks = 65535;
+  const long long stages = (h + kStageRows - 1) / kStageRows;
+  long long want = target_blocks / tiles;
+  if (want < 1) want = 1;
+  if (want > stages) want = stages;
+  long long per_chunk = (stages + want - 1) / want;
+  if ((stages + per_chunk - 1) / per_chunk > kMaxChunks)
+    per_chunk = (stages + kMaxChunks - 1) / kMaxChunks;
+  if (per_chunk > kMaxChunkRows / kStageRows) per_chunk = kMaxChunkRows / kStageRows;
+  return per_chunk * kStageRows;
+}
 
 // o[j] holds byte j of w0, w1, w2, w3 (in that byte order): a 4 x 4 byte
 // transpose of four rows' words into four columns' words.
@@ -170,36 +210,38 @@ __device__ __forceinline__ int plane_offset(int n, int k) {
 // The raw table words (a [column word][row] tile) and the selection words
 // ([word row][query]) of stage s, rows from r0, into ring slot s % kStages;
 // zeros past h, bw, w_end (the chunk's end) and q. Always commits a group.
+template <int kSets>
 __device__ __forceinline__ void issue_stage(const uint32_t* __restrict__ table,
                                             const uint32_t* __restrict__ words, int h, int bw,
                                             int q, int col_w0, int q0, long long r0, int w_end,
                                             bool live, uint32_t* raw, uint32_t* wsh, int slot) {
-  constexpr int kRowStep = kThreads / kColWords;  // rows between a thread's copies
+  using S = TileShape<kSets>;
+  constexpr int kRowStep = kThreads / S::kColWords;  // rows between a thread's copies
   const int tid = threadIdx.x;
   if (live) {
     // a 64-bit base for the stage (the same in every thread), 32-bit
     // offsets from it (128 rows of bw < 2^24 words)
     const uint32_t* tb = table + r0 * bw + col_w0;
     const long long rows = h - r0;
-    const int cw = tid % kColWords, r = tid / kColWords;
+    const int cw = tid % S::kColWords, r = tid / S::kColWords;
     const bool col_ok = col_w0 + cw < bw;
-    const uint32_t dst = smem_u32(raw + slot * kRawWords + cw * kRawStride + r);
+    const uint32_t dst = smem_u32(raw + slot * S::kRawWords + cw * kRawStride + r);
 #pragma unroll
     for (int m = 0; m < kStageRows / kRowStep; ++m) {
       const bool ok = col_ok && r + m * kRowStep < rows;
       cp_async4(dst + 4 * m * kRowStep, ok ? tb + (r + m * kRowStep) * bw + cw : table, ok);
     }
-    constexpr int kWordRowStep = kThreads / kQueriesPerBlock;
+    constexpr int kWordRowStep = kThreads / S::kQueries;
     const uint32_t* wb = words + (r0 / 32) * q + q0;
-    const int wr = tid / kQueriesPerBlock, qq = tid % kQueriesPerBlock;
+    const int wr = tid / S::kQueries, qq = tid % S::kQueries;
     const bool q_ok = q0 + qq < q;
     const long long w_rows = w_end - r0 / 32;
-    const uint32_t wdst = smem_u32(wsh + slot * kWordsStage + wr * kQueriesPerBlock + qq);
+    const uint32_t wdst = smem_u32(wsh + slot * S::kWordsStage + wr * S::kQueries + qq);
 #pragma unroll
     for (int m = 0; m < kStageWordRows / kWordRowStep; ++m) {
       const int w = wr + m * kWordRowStep;
       const bool ok = q_ok && w < w_rows;
-      cp_async4(wdst + 4 * m * kWordRowStep * kQueriesPerBlock,
+      cp_async4(wdst + 4 * m * kWordRowStep * S::kQueries,
                 ok ? wb + static_cast<long long>(w) * q + qq : words, ok);
     }
   }
@@ -208,30 +250,37 @@ __device__ __forceinline__ void issue_stage(const uint32_t* __restrict__ table,
 
 // A stage's planes into pl (from raw slot `slot`), and this lane's
 // selection words of the stage (queries qr and qr + 8 of the block, for
-// each k32 step) into w.
+// each k32 step) into w. Warp w expands column words w, w + 8 (kSets = 2),
+// each into its set of planes.
+template <int kSets>
 __device__ __forceinline__ void expand_stage(int slot, uint8_t* pl, const uint32_t* raw,
                                              const uint32_t* wsh, uint32_t (&w)[4][2]) {
+  using S = TileShape<kSets>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int cw = warp;  // one column word a warp
-  // rows 4 lane .. 4 lane + 3 of column word cw
-  const uint4 v = *reinterpret_cast<const uint4*>(raw + slot * kRawWords + cw * kRawStride +
-                                                  4 * lane);
-  uint32_t x[4];
-  transpose4x4(v.x, v.y, v.z, v.w, x);
 #pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const uint32_t mask = 0x01010101u << p;
+  for (int set = 0; set < kSets; ++set) {
+    const int cw = warp + kColWords * set;
+    // rows 4 lane .. 4 lane + 3 of column word cw
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + slot * S::kRawWords + cw * kRawStride +
+                                                    4 * lane);
+    uint32_t x[4];
+    transpose4x4(v.x, v.y, v.z, v.w, x);
 #pragma unroll
-    for (int b = 0; b < 4; ++b)
-      *reinterpret_cast<uint32_t*>(pl + plane_offset(kCols * p + 4 * cw + b, 4 * lane)) =
-          x[b] & mask;
+    for (int p = 0; p < 8; ++p) {
+      const uint32_t mask = 0x01010101u << p;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        *reinterpret_cast<uint32_t*>(pl + set * kPlaneBytes +
+                                     plane_offset(kCols * p + 4 * warp + b, 4 * lane)) =
+            x[b] & mask;
+    }
   }
-  const uint32_t* ws = wsh + slot * kWordsStage;
-  const int qr = 16 * (warp % 4) + 64 * (warp / 4) + lane / 4;
+  const uint32_t* ws = wsh + slot * S::kWordsStage;
+  const int qr = 16 * (warp % 4) + (kSets == 1 ? 64 * (warp / 4) : 0) + lane / 4;
 #pragma unroll
   for (int ks = 0; ks < kStageWordRows; ++ks) {
-    w[ks][0] = ws[ks * kQueriesPerBlock + qr];
-    w[ks][1] = ws[ks * kQueriesPerBlock + qr + 8];
+    w[ks][0] = ws[ks * S::kQueries + qr];
+    w[ks][1] = ws[ks * S::kQueries + qr + 8];
   }
 }
 
@@ -260,10 +309,11 @@ __device__ __forceinline__ void issue_products(int (&acc)[kAcc], const uint32_t 
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-// The tile (byte columns from 4 col_w0, queries from q0) over rows
-// [r_begin, r_end), r_begin a multiple of kStageRows, r_end <= h,
-// h % 32 == 0: table (h, bw) words, words (h / 32, q), out (q, bw) words,
-// XORed in with atomicXor. smem: kSmemBytes of dynamic shared memory.
+// The tile of TileShape<kSets> (byte columns from 4 col_w0, queries from
+// q0) over rows [r_begin, r_end), r_begin a multiple of kStageRows,
+// r_end <= h: table (h, bw) words, words (ceil(h / 32), q), out (q, bw)
+// words, XORed in with atomicXor. smem: TileShape<kSets>::kSmemBytes of
+// dynamic shared memory.
 //
 // Stage s's products run while the block expands stage s + 1 into the
 // other plane buffer; then each warpgroup waits for its products
@@ -273,6 +323,7 @@ __device__ __forceinline__ void issue_products(int (&acc)[kAcc], const uint32_t 
 // each group's wait follows it in the loop body; the selection words pass
 // through the wait as operands so that the compiler cannot hoist the
 // spread above it.
+template <int kSets>
 __device__ __forceinline__ void scan_chunk(const uint32_t* __restrict__ table,
                                            const uint32_t* __restrict__ words,
                                            uint32_t* __restrict__ out, int h, int bw, int q,
@@ -280,18 +331,24 @@ __device__ __forceinline__ void scan_chunk(const uint32_t* __restrict__ table,
                                            uint8_t* smem) {
   const int n_stages = static_cast<int>((r_end - r_begin + kStageRows - 1) / kStageRows);
   if (n_stages <= 0) return;
-  const int w_end = static_cast<int>(r_end / 32);
+  using S = TileShape<kSets>;
+  const int w_end = static_cast<int>((r_end + 31) / 32);
   // planes 1024-byte aligned; offsets from smem keep every access in the
   // shared window (st.shared, not generic stores)
   const uint32_t base = smem_u32(smem);
   uint8_t* planes = smem + (((base + 1023) & ~1023u) - base);
-  uint32_t* raw = reinterpret_cast<uint32_t*>(planes + 2 * kPlaneBytes);
-  uint32_t* wsh = raw + kStages * kRawWords;
+  uint32_t* raw = reinterpret_cast<uint32_t*>(planes + 2 * S::kStagePlaneBytes);
+  uint32_t* wsh = raw + kStages * S::kRawWords;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
+  // this warpgroup's set of planes, its queries and its column words
+  const int set_bytes = kSets == 2 ? (warp / 4) * kPlaneBytes : 0;
+  const int q_wg = q0 + (kSets == 1 ? 64 * (warp / 4) : 0);
+  const int col_wg = col_w0 + (kSets == 2 ? kColWords * (warp / 4) : 0);
   auto issue = [&](int s) {  // stage s's copies, into the slot stage s - kStages used
-    issue_stage(table, words, h, bw, q, col_w0, q0, r_begin + static_cast<long long>(s) * kStageRows,
-                w_end, s < n_stages, raw, wsh, s % kStages);
+    issue_stage<kSets>(table, words, h, bw, q, col_w0, q0,
+                       r_begin + static_cast<long long>(s) * kStageRows, w_end, s < n_stages, raw,
+                       wsh, s % kStages);
   };
 
 #pragma unroll
@@ -299,7 +356,7 @@ __device__ __forceinline__ void scan_chunk(const uint32_t* __restrict__ table,
   uint32_t w[4][2], a[4][4];
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
   __syncthreads();
-  expand_stage(0, planes, raw, wsh, w);
+  expand_stage<kSets>(0, planes, raw, wsh, w);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // planes -> wgmma
   issue(kStages - 1);
   spread_a(w, a);
@@ -307,14 +364,16 @@ __device__ __forceinline__ void scan_chunk(const uint32_t* __restrict__ table,
 
   int acc[kAcc];
   for (int s = 0; s < n_stages; ++s) {
-    issue_products(acc, a, smem_u32(planes + (s & 1) * kPlaneBytes), s == 0);
+    issue_products(acc, a, smem_u32(planes + (s & 1) * S::kStagePlaneBytes + set_bytes),
+                   s == 0);
     const bool more = s + 1 < n_stages;
     if (more) {
       // stage s + 1 landed; stage s - 1's products, which read its plane
       // buffer, finished before the barrier that ended the last iteration
       asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
       __syncthreads();
-      expand_stage((s + 1) % kStages, planes + ((s + 1) & 1) * kPlaneBytes, raw, wsh, w);
+      expand_stage<kSets>((s + 1) % kStages, planes + ((s + 1) & 1) * S::kStagePlaneBytes, raw,
+                          wsh, w);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // planes -> wgmma
       issue(s + kStages);
     }
@@ -344,8 +403,8 @@ __device__ __forceinline__ void scan_chunk(const uint32_t* __restrict__ table,
       }
       const uint32_t v = lo | (hi << 8);
       const uint32_t other = __shfl_xor_sync(0xffffffffu, v, 1);
-      const int qi = q0 + 64 * (warp / 4) + 16 * (warp % 4) + g + 8 * half;
-      const int col_w = col_w0 + (8 * cb + 2 * t) / 4;
+      const int qi = q_wg + 16 * (warp % 4) + g + 8 * half;
+      const int col_w = col_wg + (8 * cb + 2 * t) / 4;
       const uint32_t word = v | (other << 16);
       if ((t & 1) == 0 && qi < q && col_w < bw && word)
         atomicXor(out + static_cast<long long>(qi) * bw + col_w, word);

@@ -43,8 +43,8 @@ packed_scan_kernel(const uint32_t* __restrict__ table,  // (h, bw) words
   extern __shared__ uint8_t smem[];
   const long long r_begin = blockIdx.z * chunk_rows;
   const long long r_end = min(static_cast<long long>(h), r_begin + chunk_rows);
-  pir_planes::scan_chunk(table, words, out, h, bw, q, blockIdx.y * pir_planes::kColWords,
-                                blockIdx.x * pir_planes::kQueriesPerBlock, r_begin, r_end, smem);
+  pir_planes::scan_chunk<1>(table, words, out, h, bw, q, blockIdx.y * pir_planes::kColWords,
+                            blockIdx.x * pir_planes::kQueriesPerBlock, r_begin, r_end, smem);
 }
 
 }  // namespace
@@ -59,15 +59,8 @@ extern "C" int pir_packed_scan(const void* table, const void* words, void* out,
   const long long q_tiles = (q + pir_planes::kQueriesPerBlock - 1) / pir_planes::kQueriesPerBlock;
   const long long col_tiles = (bw + pir_planes::kColWords - 1) / pir_planes::kColWords;
   if (col_tiles > kMaxGridYZ) return static_cast<int>(cudaErrorInvalidValue);
-  const long long tiles = (h + pir_planes::kStageRows - 1) / pir_planes::kStageRows;
-  long long want = kTargetBlocks / (q_tiles * col_tiles);
-  if (want < 1) want = 1;
-  if (want > tiles) want = tiles;
-  long long per_chunk = (tiles + want - 1) / want;
-  if ((tiles + per_chunk - 1) / per_chunk > kMaxGridYZ) per_chunk = (tiles + kMaxGridYZ - 1) / kMaxGridYZ;
-  const long long max_per_chunk = pir_planes::kMaxChunkRows / pir_planes::kStageRows;
-  if (per_chunk > max_per_chunk) per_chunk = max_per_chunk;
-  const long long chunks = (tiles + per_chunk - 1) / per_chunk;
+  const long long chunk_rows = pir_planes::chunk_rows_for(q_tiles * col_tiles, h, kTargetBlocks);
+  const long long chunks = (h + chunk_rows - 1) / chunk_rows;
   const dim3 grid(static_cast<unsigned>(q_tiles), static_cast<unsigned>(col_tiles),
                   static_cast<unsigned>(chunks));
   cudaError_t err = cudaFuncSetAttribute(
@@ -76,6 +69,6 @@ extern "C" int pir_packed_scan(const void* table, const void* words, void* out,
   packed_scan_kernel<<<grid, pir_planes::kThreads, pir_planes::kSmemBytes,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(table), static_cast<const uint32_t*>(words),
-      static_cast<uint32_t*>(out), h, bw, q, per_chunk * pir_planes::kStageRows);
+      static_cast<uint32_t*>(out), h, bw, q, chunk_rows);
   return static_cast<int>(cudaGetLastError());
 }

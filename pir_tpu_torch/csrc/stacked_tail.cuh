@@ -1,12 +1,11 @@
 // Per-thread pieces of the stacked tail kernel (stacked_tail.cu): the
-// fixed-key MMO PRG and the DPF child step over either AES table (the
-// per-bank table of aes_lanes.cuh, or the one-copy table below that the
-// per-query tail and fused kernels use), the warp transpose that moves
-// bit planes into lanes, and the depth-first walk of a head node's tail
-// subtree. The compat stage (compat_stage.cuh) and the per-query tail
-// (fast_tail.cuh) share them. Kept apart from the kernels so that a host
-// compiler can exercise the same functions; a warp's shuffles run there
-// as a lockstep model of its 32 lanes.
+// fixed-key MMO PRG and the DPF child step over the per-bank AES table of
+// aes_lanes.cuh, the warp transpose that moves bit planes into lanes, and
+// the depth-first walk of a head node's tail subtree. The compat stage
+// (compat_stage.cuh) and the per-query tail (fast_tail.cuh) share them.
+// Kept apart from the kernels so that a host compiler can exercise the
+// same functions; a warp's shuffles run there as a lockstep model of its
+// 32 lanes.
 //
 // Block convention: a 16-byte AES block is 4 little-endian 32-bit words,
 // word c = bytes 4c..4c+3 = state column c (byte i is row i % 4, column
@@ -21,68 +20,12 @@
 
 namespace pir_tail {
 
-// One copy of T0 and the S-box (kernels 4 and 5): a warp's lookups
-// land in random banks.
-struct AesTables {
-  uint32_t t0[256];
-  uint32_t sbox[256];
-};
-
-__device__ __forceinline__ void fill_tables(AesTables& tb, int i) {
-  tb.sbox[i] = kSbox[i];
-  tb.t0[i] = t0_entry(kSbox[i]);
-}
-
-// One AES-128 encryption: rk = 44 round-key words.
-__device__ __forceinline__ void aes128(const AesTables& tb, const uint32_t* rk,
-                                       const uint32_t in[4], uint32_t out[4]) {
-  uint32_t s0 = in[0] ^ rk[0], s1 = in[1] ^ rk[1];
-  uint32_t s2 = in[2] ^ rk[2], s3 = in[3] ^ rk[3];
-#pragma unroll
-  for (int r = 1; r < 10; ++r) {
-    // SubBytes + ShiftRows + MixColumns: new column c takes row j from
-    // old column (c + j) % 4
-    const uint32_t n0 = tb.t0[s0 & 0xFF] ^ rotl(tb.t0[(s1 >> 8) & 0xFF], 8) ^
-                        rotl(tb.t0[(s2 >> 16) & 0xFF], 16) ^ rotl(tb.t0[s3 >> 24], 24) ^ rk[4 * r];
-    const uint32_t n1 = tb.t0[s1 & 0xFF] ^ rotl(tb.t0[(s2 >> 8) & 0xFF], 8) ^
-                        rotl(tb.t0[(s3 >> 16) & 0xFF], 16) ^ rotl(tb.t0[s0 >> 24], 24) ^ rk[4 * r + 1];
-    const uint32_t n2 = tb.t0[s2 & 0xFF] ^ rotl(tb.t0[(s3 >> 8) & 0xFF], 8) ^
-                        rotl(tb.t0[(s0 >> 16) & 0xFF], 16) ^ rotl(tb.t0[s1 >> 24], 24) ^ rk[4 * r + 2];
-    const uint32_t n3 = tb.t0[s3 & 0xFF] ^ rotl(tb.t0[(s0 >> 8) & 0xFF], 8) ^
-                        rotl(tb.t0[(s1 >> 16) & 0xFF], 16) ^ rotl(tb.t0[s2 >> 24], 24) ^ rk[4 * r + 3];
-    s0 = n0; s1 = n1; s2 = n2; s3 = n3;
-  }
-  out[0] = (tb.sbox[s0 & 0xFF] | (tb.sbox[(s1 >> 8) & 0xFF] << 8) |
-            (tb.sbox[(s2 >> 16) & 0xFF] << 16) | (tb.sbox[s3 >> 24] << 24)) ^ rk[40];
-  out[1] = (tb.sbox[s1 & 0xFF] | (tb.sbox[(s2 >> 8) & 0xFF] << 8) |
-            (tb.sbox[(s3 >> 16) & 0xFF] << 16) | (tb.sbox[s0 >> 24] << 24)) ^ rk[41];
-  out[2] = (tb.sbox[s2 & 0xFF] | (tb.sbox[(s3 >> 8) & 0xFF] << 8) |
-            (tb.sbox[(s0 >> 16) & 0xFF] << 16) | (tb.sbox[s1 >> 24] << 24)) ^ rk[42];
-  out[3] = (tb.sbox[s3 & 0xFF] | (tb.sbox[(s0 >> 8) & 0xFF] << 8) |
-            (tb.sbox[(s1 >> 16) & 0xFF] << 16) | (tb.sbox[s2 >> 24] << 24)) ^ rk[43];
-}
-
 // Matyas-Meyer-Oseas: AES_k(x) ^ x.
-template <class Tables>
-__device__ __forceinline__ void mmo(const Tables& tb, const uint32_t* rk, const uint32_t x[4],
+__device__ __forceinline__ void mmo(const AesLanes& tb, const uint32_t* rk, const uint32_t x[4],
                                     uint32_t out[4]) {
   aes128(tb, rk, x, out);
 #pragma unroll
   for (int i = 0; i < 4; ++i) out[i] ^= x[i];
-}
-
-// Bit `lane` of 128 bit-plane words -> one block. Word (bit k, byte i)
-// sits at p[k * bit_stride + i * byte_stride].
-__device__ __forceinline__ void gather_block(const uint32_t* __restrict__ p,
-                                             size_t bit_stride, size_t byte_stride,
-                                             int lane, uint32_t blk[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) blk[i] = 0u;
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      blk[i >> 2] |= ((p[k * bit_stride + i * byte_stride] >> lane) & 1u) << (8 * (i & 3) + k);
 }
 
 // The PRG children of seed st, before the DPF correction
@@ -90,8 +33,7 @@ __device__ __forceinline__ void gather_block(const uint32_t* __restrict__ p,
 // right sR = block 1 bytes 1..15 ++ block 2 byte 0 and tR = block 2
 // byte 1 bit 0. Block 1 serves both, so one child costs two AES blocks
 // and both cost three. keys = the three tree keys, 44 words each.
-template <class Tables>
-__device__ __forceinline__ void prg_children(const Tables& tb, const uint32_t* keys,
+__device__ __forceinline__ void prg_children(const AesLanes& tb, const uint32_t* keys,
                                              const uint32_t st[4], bool want_left,
                                              bool want_right, uint32_t sl[4], uint32_t* tl,
                                              uint32_t sr[4], uint32_t* tr) {
@@ -178,7 +120,8 @@ __device__ __forceinline__ void ballot_planes(const uint32_t o[4], uint32_t* wor
 }
 
 // This lane's block from the warp's 128 plane words: 4 loads a lane
-// and 4 transposes (20 shuffles), where gather_block makes 128 loads.
+// and 4 transposes (20 shuffles), where a gather of its bit from every
+// word would make 128 loads.
 __device__ __forceinline__ void warp_unbitslice(const uint32_t* __restrict__ p, size_t bit_stride,
                                                 size_t byte_stride, int lane, uint32_t blk[4]) {
   uint32_t x[4];
@@ -190,17 +133,24 @@ __device__ __forceinline__ void warp_unbitslice(const uint32_t* __restrict__ p, 
 
 #else
 
+// Host model of warp_transpose: the same exchanges for all 32 lanes in
+// lockstep; x[l] is lane l's word.
+inline void transpose_lockstep(uint32_t x[32]) {
+  uint32_t y[32];
+  for (int r = 0; r < 5; ++r) {
+    for (int l = 0; l < 32; ++l) y[l] = x[l ^ (16 >> r)];
+    for (int l = 0; l < 32; ++l) x[l] = transpose_step(x[l], y[l], l, r);
+  }
+}
+
 // Host model of warp_unbitslice: the same loads and exchanges for all 32
 // lanes in lockstep; blk[l] is lane l's block.
 inline void unbitslice_lockstep(const uint32_t* p, size_t bit_stride, size_t byte_stride,
                                 uint32_t blk[32][4]) {
   for (int c = 0; c < 4; ++c) {
-    uint32_t x[32], y[32];
+    uint32_t x[32];
     for (int l = 0; l < 32; ++l) x[l] = p[plane_offset(l, c, bit_stride, byte_stride)];
-    for (int r = 0; r < 5; ++r) {
-      for (int l = 0; l < 32; ++l) y[l] = x[l ^ (16 >> r)];
-      for (int l = 0; l < 32; ++l) x[l] = transpose_step(x[l], y[l], l, r);
-    }
+    transpose_lockstep(x);
     for (int l = 0; l < 32; ++l) blk[l][c] = x[l];
   }
 }
@@ -234,8 +184,8 @@ struct TailArgs {
 // it is called before each expansion, by every lane of a warp at once.
 // keys = the three tree keys, 44 words each. The loops are not unrolled,
 // so a kernel holds one copy of the PRG; the stack lives in local memory.
-template <class Tables, class Cw, class Leaf>
-__device__ __forceinline__ void for_each_tail_leaf(const Tables& tb, const uint32_t* keys,
+template <class Cw, class Leaf>
+__device__ __forceinline__ void for_each_tail_leaf(const AesLanes& tb, const uint32_t* keys,
                                                    int tail, uint32_t st[4], uint32_t t,
                                                    Cw&& cw, Leaf&& leaf) {
   uint32_t sib[kMaxTail][4], tsib[kMaxTail];
@@ -271,8 +221,7 @@ __device__ __forceinline__ void for_each_tail_leaf(const Tables& tb, const uint3
 
 // Leaf CTR block b of a leaf seed, before the t & fcw correction: MMO of
 // seed ^ LE64(b) under the leaf key.
-template <class Tables>
-__device__ __forceinline__ void leaf_mmo(const Tables& tb, const uint32_t* leaf_key,
+__device__ __forceinline__ void leaf_mmo(const AesLanes& tb, const uint32_t* leaf_key,
                                          const uint32_t st[4], int b, uint32_t o[4]) {
   const uint32_t x[4] = {st[0] ^ (uint32_t)b, st[1], st[2], st[3]};
   mmo(tb, leaf_key, x, o);

@@ -5,8 +5,10 @@
 (Q, H) uint8 in {0, 1} -> (Q, B) uint8, row q the XOR of the table rows
 query q selects. Keyword batches scan with it (``server.py``,
 ``TorchPirServer._keyword_query_batch``). On a CUDA tensor the wrapper
-launches ``csrc/planes_scan.cu`` (int8 tensor-core products of the bits
-with the table's bit planes, each taken mod 2); on a CPU tensor it runs
+launches ``csrc/planes_scan.cu``: a pre-pass packs bit 0 of each byte into
+(ceil(H / 32), Q) selection words, then ``wgmma`` int8 products of the
+selection bits with the table's bit planes, each taken mod 2, run on the
+packed scan's tile (64-query blocks for Q <= 64). On a CPU tensor it runs
 ``ops.matmul_scan.mxu_batched_scan``, the same arithmetic in float32.
 """
 
@@ -19,8 +21,8 @@ import torch
 from .. import _build
 from .matmul_scan import mxu_batched_scan
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_MAX_Q = 65535 * 64  # queries of one launch: 64 a block row of the grid
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_MAX_ROW_BYTES = 65535 * 32  # row bytes: 32 per block of the launch grid's y, at most
 _MAX_INT = (1 << 31) - 1
 
 
@@ -51,19 +53,19 @@ def planes_scan(table_u8: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
                          "contiguous table with B % 4 == 0")
     if not bits.is_contiguous():
         raise ValueError("selection bits must be contiguous")
-    if q > _MAX_Q or h > _MAX_INT:
-        raise ValueError(f"{q} queries x {h} rows exceed one launch")
+    if q > _MAX_INT or h > _MAX_INT or b > _MAX_ROW_BYTES:
+        raise ValueError(f"{q} queries x {h} rows of {b} bytes exceed one launch")
     out = torch.zeros((q, b), dtype=torch.uint8, device=table_u8.device)
     if not (q and h and b):
         return out
-    vec_table = b % 16 == 0 and table_u8.data_ptr() % 16 == 0
+    words = torch.empty(((h + 31) // 32, q), dtype=torch.int32, device=table_u8.device)
     vec_bits = h % 16 == 0 and bits.data_ptr() % 16 == 0
     fn = _build.load("planes_scan").pir_planes_scan
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     with torch.cuda.device(table_u8.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(table_u8.data_ptr(), bits.data_ptr(), out.data_ptr(), h, b // 4, q,
-                 int(vec_table), int(vec_bits), stream)
+        err = fn(table_u8.data_ptr(), bits.data_ptr(), words.data_ptr(), out.data_ptr(), h,
+                 b // 4, q, int(vec_bits), stream)
     _build.check(err, "planes_scan")
     planes_scan.launches += 1
     return out

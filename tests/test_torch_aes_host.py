@@ -1,13 +1,12 @@
 """The kernels' AES-128 and bit-plane transpose, built for the host.
 
 csrc/aes_lanes_host.cpp compiles the per-bank T-table AES of
-csrc/aes_lanes.cuh (the stacked tail and compat stage kernels), the
-one-copy table AES of csrc/stacked_tail.cuh (the per-query tail and fused
-kernels) and the lockstep model of the kernels' warp transpose with a
-host C++ compiler. The AES must give FIPS-197's ciphertext as every lane
-reads the table, and equal the one-copy AES and the port's numpy AES on
-random blocks and keys; the transpose must hand each lane the block that
-a plain un-bitslice of the planes gives.
+csrc/aes_lanes.cuh (every AES kernel of the port: the stacked tail,
+compat stage, per-query tail and fused kernels) and the lockstep model
+of the kernels' warp transpose with a host C++ compiler. The AES must
+give FIPS-197's ciphertext as every lane reads the table, and equal the
+port's numpy AES on random blocks and keys; the transpose must hand each
+lane the block that a plain un-bitslice of the planes gives.
 """
 
 import ctypes
@@ -22,7 +21,6 @@ from pir_tpu_torch.dpf.aes_host import aes_encrypt_blocks, key_schedule, key_sch
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CSRC = Path(__file__).resolve().parent.parent / "pir_tpu_torch" / "csrc"
-ONE_COPY = -1  # lane argument for the one-copy table
 
 
 @pytest.fixture(scope="module")
@@ -56,20 +54,20 @@ def test_fips197_c1_as_every_lane_reads_the_table(host_aes):
     rk = key_schedule(bytes(range(16)))[None]
     pt = np.frombuffer(bytes.fromhex("00112233445566778899aabbccddeeff"), np.uint8)[None]
     want = bytes.fromhex("69c4e0d86a7b0430d8cdb78070b4c55a")
-    for lane in [*range(32), ONE_COPY]:
+    for lane in range(32):
         assert _encrypt(host_aes, rk, pt, lane).tobytes() == want, lane
 
 
 def test_lane_table_equals_one_copy_table_and_numpy(host_aes):
-    """256 seeded random blocks, each under its own random key."""
+    """256 seeded random blocks, each under its own random key, as every
+    lane reads the table, against the numpy AES (the one-copy table this
+    test once also held them against is gone from the kernels)."""
     rng = np.random.default_rng(11)
     rk = key_schedule_batch(rng.integers(0, 256, size=(256, 16), dtype=np.uint8))
     blocks = rng.integers(0, 256, size=(256, 16), dtype=np.uint8)
-    one_copy = _encrypt(host_aes, rk, blocks, ONE_COPY)
     want = np.stack([aes_encrypt_blocks(b[None], k)[0] for b, k in zip(blocks, rk)])
-    assert np.array_equal(one_copy, want)
     for lane in range(32):
-        assert np.array_equal(_encrypt(host_aes, rk, blocks, lane), one_copy), lane
+        assert np.array_equal(_encrypt(host_aes, rk, blocks, lane), want), lane
 
 
 def test_every_byte_value_in_every_lane(host_aes):
@@ -77,8 +75,7 @@ def test_every_byte_value_in_every_lane(host_aes):
     entry is read at least once in the first round, as each lane."""
     rk = key_schedule(bytes(16))[None].repeat(16, axis=0)  # round key 0 is zero
     blocks = np.arange(256, dtype=np.uint8).reshape(16, 16)
-    want = _encrypt(host_aes, rk, blocks, ONE_COPY)
-    assert np.array_equal(want, np.stack([aes_encrypt_blocks(b[None], rk[0])[0] for b in blocks]))
+    want = np.stack([aes_encrypt_blocks(b[None], rk[0])[0] for b in blocks])
     for lane in range(32):
         assert np.array_equal(_encrypt(host_aes, rk, blocks, lane), want), lane
 

@@ -91,6 +91,11 @@ def _pertail_operands(dev, seed, q, nw0, levels, n_blk, distinct):
 @pytest.mark.parametrize("distinct,levels,n_blk,nw0,q", [
     (False, 5, 8, 1, 5), (True, 5, 8, 1, 3), (False, 0, 1, 1, 4), (True, 0, 8, 2, 3),
     (False, 5, 1, 8, 3), (True, 5, 1, 4, 2), (False, 2, 2, 16, 3), (True, 3, 1, 32, 2),
+    # both serving geometries at a batch of 256: NW0 = 1, split 3, 8 leaf
+    # blocks (the per-query tail path); NW0 = 8, split 0, 1 block (the
+    # fused kernel's tail items); fcw past the 8 blocks in shared memory;
+    # 12 thread-grid lane words (a block of 8 warps, one of 4)
+    (False, 5, 8, 1, 256), (True, 5, 1, 8, 256), (True, 2, 16, 2, 3), (False, 3, 2, 3, 2),
 ])
 def test_fast_tail_kernel_matches_plain(dev, distinct, levels, n_blk, nw0, q):
     ops = _pertail_operands(dev, 60 + levels + nw0, q, nw0, levels, n_blk, distinct)
@@ -496,12 +501,15 @@ def test_cuda_single_queries_match_cpu_server(dev, slot):
 
 
 @pytest.mark.parametrize("h,b,q", [
-    (4096, 1024, 64),   # the keyword path's tile shape, whole tiles
-    (1000, 12, 1),      # ragged rows (h % 16 != 0: byte loads of the bits)
-    (4099, 4, 13),      # 3-byte slots padded to 4-byte rows, odd Q
-    (8192, 68, 33),     # B % 16 != 0 (word loads of the table), MF = 4 with a ragged tile
-    (2048, 80, 17),     # MF = 2
-    (65536, 256, 130),  # several row chunks and query tiles
+    # the small-batch tile (Q <= 64): the keyword path's tile shape, whole
+    # tiles; Q = 1 on ragged rows (h % 16 != 0: byte loads in the pack);
+    # 3-byte slots padded to 4-byte rows; B % 16 != 0; Q = 63 and 64 on
+    # rows a multiple of 32 but not of a stage, or not of 32
+    (4096, 1024, 64), (1000, 12, 1), (4099, 4, 13), (8192, 68, 33), (2048, 80, 17),
+    (2080, 36, 63), (1008, 8, 64),
+    # the 128-query tile: several row chunks and query tiles; Q = 65 with
+    # a half last word row (16-byte loads); Q = 1024
+    (65536, 256, 130), (1040, 520, 65), (2048, 64, 1024),
 ])
 def test_planes_scan_kernel_matches_plain(dev, h, b, q):
     rng = np.random.default_rng(h + b + q)

@@ -1,13 +1,19 @@
 """The per-query tail kernel's per-thread code, built for the host.
 
-csrc/fast_tail_host.cpp compiles the query constants, split walk,
-depth-first subtree walk and leaf blocks of csrc/fast_tail.cuh with a
-host C++ compiler; its output must equal the plain torch version's
-(itself held against the TPU kernel in test_torch_fast_tail.py) on real
-operands from the port's head walk: 1024-bit leaves (8 blocks) at the
-serving depth with 5 tail levels, 128-bit leaves at the stream's depth
-13 (8 head lane words) with 5, and depth-5 keys with no tail level, for
-shared and distinct keys.
+csrc/fast_tail_host.cpp compiles the query constants, the walk down to
+a thread's node, depth-first subtree walk and leaf blocks of
+csrc/fast_tail.cuh with a host C++ compiler, on the per-bank AES table as
+each lane reads it, with the head seeds and the leaf blocks' words
+through the lockstep model of the kernel's warp transposes; its output
+must equal the plain torch version's (itself held against the TPU kernel
+in test_torch_fast_tail.py) on real operands from the port's head walk:
+1024-bit leaves (8 blocks) at the serving depth with 5 tail levels,
+128-bit leaves at the stream's depth 13 (8 head lane words) with 5, and
+depth-5 keys with no tail level, for shared and distinct keys; and on
+random operands at both serving geometries (NW0 = 1, split 3, 8 leaf
+blocks; NW0 = 8, split 0, 1 block), past the fcw words kept in shared
+memory (16 blocks) and on a thread grid of 12 lane words (a block of 8
+and one of 4).
 """
 
 import ctypes
@@ -65,5 +71,36 @@ def test_host_build_matches_plain_tail(host_tail, height, leaf_bits, levels, n_b
     got = torch.empty_like(want)
     q, nw0 = ops[0].shape[0], ops[0].shape[-1]
     assert host_tail(*(x.data_ptr() for x in ops), got.data_ptr(), q, nw0, tail, n_blk,
+                     int(distinct)) == 0
+    assert torch.equal(got, want)
+
+
+FULL = np.uint32(0xFFFFFFFF)
+
+
+@pytest.mark.parametrize("distinct,levels,n_blk,nw0,q", [
+    (False, 5, 8, 1, 3), (True, 5, 8, 1, 2), (False, 5, 1, 8, 2), (True, 5, 1, 8, 2),
+    (False, 2, 16, 2, 2), (True, 3, 2, 3, 2),
+])
+def test_host_build_matches_plain_tail_random(host_tail, distinct, levels, n_blk, nw0, q):
+    """Random seed, t and fcw words; every other operand 0 / ~0 masks, the
+    form the payload unpack gives them."""
+    rng = np.random.default_rng(200 + levels + n_blk + nw0)
+
+    def words(*shape):
+        return rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
+
+    def masks(*shape):
+        return rng.integers(0, 2, size=shape).astype(np.uint32) * FULL
+
+    rk, rkl = ((masks(q, 11, 8, 3, 16, 1), masks(q, 11, 8, 16, 1)) if distinct
+               else (masks(11, 8, 3, 16, 1), masks(11, 8, 16, 1)))
+    fcw = words(q, 8, n_blk, 16, 1) if n_blk > 1 else words(q, 8, 16, 1)
+    ops = [torch.from_numpy(np.ascontiguousarray(x).view(np.int32)) for x in (
+        words(q, 8, 16, nw0), words(q, 1, nw0), masks(q, levels, 8, 16, 1), masks(q, levels),
+        masks(q, levels), rk, fcw, rkl)]
+    want = fast_tail_expand_plain(*ops, levels=levels)
+    got = torch.empty_like(want)
+    assert host_tail(*(x.data_ptr() for x in ops), got.data_ptr(), q, nw0, levels, n_blk,
                      int(distinct)) == 0
     assert torch.equal(got, want)
