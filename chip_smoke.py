@@ -72,6 +72,22 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
    stream's first batch, dispatched before the update, the old ones);
    then the database goes through save(mmap_capable=True) and
    load(mmap=True), and a server on the map serves a fast batch;
+   4c. the serving shell (service_phase): two PirServices with the
+   default config (TorchPirServer on the card) over the 1 GiB table, its
+   keywords and a 2^20-row table of 32-byte auth keys, on 127.0.0.1; a
+   port PirClient sends metadata, 3 fast batches of 4096, 3 compat
+   batches of 1024, fast and compat singles, a stream of 3 fast batches
+   of 4096 and a flush, a keyword batch of 8 and a keyword single, a
+   3-party index single (a third service), a shared ASPIR batch of 64
+   with one wrong key (its item refused) and a wrong-key single
+   (OP_DENIED), 4096 row updates through PirService.apply_updates and a
+   fast batch on the new rows, and OP_METRICS; each batch, single, the
+   stream and both ASPIR requests also through the engines directly,
+   with equal bytes (ASPIR: equal verdicts and released answers) and
+   equal launch counts; the wire encode and decode of a 4096-share
+   batch; then a second pair serves the cPIR yardstick table (2^10 x
+   3 B) with a 1024-bit Paillier key: an encrypted query, a recursive
+   one, and AHE ASPIR with the right and a wrong key;
 5. times each kernel, its plain version and its PyTorch yardstick at the
    main paths' shapes (the masked-XOR scan at Q = 1 and Q = 8, the
    bit-plane scan at Q = 64 and Q = 1024 on the natural table's bytes,
@@ -93,6 +109,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import json
 import os
 import re
@@ -129,6 +146,18 @@ BST_KEYS = 1 << 12   # binary search tree of 12 levels
 PROBE_CHECK_ITERS = (1, 7, 256)  # overlap probe: rounds checked in phase 2
 PROBE_LONG_ITERS = 16384  # rounds at which both probe chains take over 1 ms
 UPDATES = 4096  # live row updates of the 1 GiB tables
+# phase 4c, the serving shell: two PirServices on the 1 GiB table
+SVC_FAST_BATCH = 4096
+SVC_COMPAT_BATCH = 1024
+SVC_BATCHES = 3
+SVC_KW_BATCH = 8  # a keyword batch of 64 would spend ~53 s in the plain-torch point walk
+SVC_ASPIR_BATCH = 64
+SVC_UPDATES = 4096
+SVC_KEY_BYTES = 32  # the auth-key table: one 32-byte key a row
+# the cPIR yardstick (benchmarks_paillier_tpu.py's shape) and its key size
+CPIR_ROWS = 1 << 10
+CPIR_SLOT_BYTES = 3
+CPIR_KEY_BYTES = 8  # AHE ASPIR auth keys (secparam bytes, test_constants.go:16)
 # H100 SXM data-sheet peaks
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
@@ -261,6 +290,7 @@ def main() -> int:
     from pir_tpu_torch import _build
     from pir_tpu_torch import benchmarks_overlap as ov
     from pir_tpu_torch import server as server_mod
+    from pir_tpu_torch.config import PirConfig
     from pir_tpu_torch.database import Database, DBMetadata
     from pir_tpu_torch.dpf import host as dpf_host
     from pir_tpu_torch.dpf.device import (
@@ -1303,6 +1333,16 @@ def main() -> int:
         f"(mmap), stacked table upload from the map {upload_s:.4f}, a fast batch of {BATCH} "
         f"{ckpt_s[0]:.4f} + {ckpt_s[1]:.4f}; all recovered")
 
+    # ---- phase 4c: the serving shell -----------------------------------------
+    t = time.perf_counter()
+    svc = service_phase(db, keywords, args.seed, PirConfig(), (counted, reset_counts, read_counts),
+                        rows_of, torch.cuda.synchronize)
+    svc["phase_s"] = time.perf_counter() - t
+    gc.collect()  # the services' tables
+    torch.cuda.empty_cache()
+    log(f"phase 4c: done in {svc['phase_s']:.2f} s; max_memory_allocated "
+        f"{svc.get('max_memory_allocated', 0) / 2**30:.2f} GiB")
+
     # ---- phase 5: kernel times ----------------------------------------------
     def cuda_ms(fn, reps, warm=True):
         if warm:
@@ -1669,7 +1709,7 @@ def main() -> int:
                                              "library_ms": v[3]} for q, v in ps_time.items()},
                        overlap_probe={str(k): v for k, v in probe_time.items()},
                        updates_s=upd_s, updates_split_s=split_u, permutations_s=perms_s,
-                       after_updates_s=upd_serve, persistence_s=persist,
+                       after_updates_s=upd_serve, persistence_s=persist, service=svc,
                        elapsed_s=time.perf_counter() - T0)
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)
@@ -1679,6 +1719,458 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def service_phase(db, keywords, seed, config, counting, rows_of, sync) -> dict:
+    """Phase 4c: the port's serving shell on the card. Two PirServices
+    (service 0 the audit leader) over the rows and keywords of `db`, each
+    with its own Database over the same rows and an auth-key table of
+    SVC_KEY_BYTES a row, a third for 3-party shares; a port PirClient
+    sends every request kind over 127.0.0.1. For every kind (the fast,
+    compat and keyword batches, the singles, the stream, and the shared
+    ASPIR batch and wrong-key single) the same shares then go through
+    each service's TorchPirServer directly (both shares at once, as the
+    two services answer them; for ASPIR the expansion, the answer on its
+    bits and the key table's audit): the answers must be equal bytes,
+    the ASPIR verdicts those of the direct audits, and the launches of
+    the same kernels as many (counts set to 0 before each and read
+    after). Then 4096 row updates through PirService.apply_updates
+    on both services and a fast batch that recovers the new rows, and
+    OP_METRICS. A second pair of services serves the cPIR yardstick
+    table (CPIR_ROWS x CPIR_SLOT_BYTES) with a config.PAILLIER_BITS
+    key: an encrypted query, a recursive one, and an AHE ASPIR round with
+    the right key and one with a wrong key (only the null side proves).
+    counting = (counted wrappers, reset_counts, read_counts); sync waits
+    for the card. Returns what it measured."""
+    import struct
+
+    import numpy as np
+    import torch
+
+    from pir_tpu_torch import wire
+    from pir_tpu_torch.aspir_shared import (
+        check_audit,
+        generate_audit_for_shared_query_with_expanded_bits,
+        new_authenticated_index_query_shares,
+    )
+    from pir_tpu_torch.config import PAILLIER_BITS
+    from pir_tpu_torch.crypto.paillier import keygen
+    from pir_tpu_torch.database import DBMetadata
+    from pir_tpu_torch.query import (
+        new_index_query_shares,
+        new_index_query_shares_batch,
+        new_keyword_query_shares,
+        new_keyword_query_shares_batch,
+    )
+    from pir_tpu_torch.service import (
+        OP_ASPIR_SHARED_QUERY,
+        OP_ASPIR_SHARED_QUERY_BATCH,
+        OP_DENIED,
+        OP_QUERY,
+        OP_QUERY_BATCH,
+        OP_STREAM_FLUSH,
+        OP_STREAM_SUBMIT,
+        PirClient,
+        PirService,
+        _decode_result_batch,
+        _pack_blobs,
+        _recv_frame,
+        _send_frame,
+        _unpack_blobs,
+    )
+    from pir_tpu_torch.slot import Slot
+    from pir_tpu_torch.state import database_from_numpy
+
+    counted, reset_counts, read_counts = counting
+    rng = np.random.default_rng(seed + 4)
+    keygen_rng = np.random.default_rng(seed + 5)
+    height, slot = db.db_size, db.slot_bytes
+    md = DBMetadata(slot, height)
+    out = {"rtt_s": {}, "direct_s": {}, "split_s": {}, "launches": {}}
+    t = time.perf_counter()
+    key_db = database_from_numpy(np.frombuffer(rng.bytes(height * SVC_KEY_BYTES), np.uint8)
+                                 .reshape(height, SVC_KEY_BYTES), SVC_KEY_BYTES)
+    dbs = [database_from_numpy(db.data, slot, keywords=keywords) for _ in range(3)]
+    s0 = PirService(dbs[0], config=config, key_db=key_db).start()
+    s1 = PirService(dbs[1], config=config, key_db=key_db, audit_leader=s0.address).start()
+    s2 = PirService(dbs[2], config=config).start()
+    client = PirClient([s0.address, s1.address])
+    client3 = PirClient([s0.address, s1.address, s2.address])
+    if (client.metadata.slot_bytes, client.metadata.db_size) != (slot, height):
+        fail(f"OP_METADATA says {client.metadata}, the table is {height} x {slot}")
+    log(f"phase 4c: services on {s0.address} and {s1.address} (engine {s0.engine_name}, "
+        f"device {s0._engine.device}), {height}-row auth-key table, metadata, in "
+        f"{time.perf_counter() - t:.2f} s")
+
+    def exchange(cl, frames):
+        """frames[k] to server k of client cl, all sent before any answer
+        is read (as PirClient fans out); the answer frames."""
+        with cl._lock:
+            for sock, (op, payload) in zip(cl._socks, frames):
+                _send_frame(sock, op, payload)
+            return [_recv_frame(sock) for sock in cl._socks]
+
+    def both(fns):
+        """fns[k]() for every server k at once (the services answer their
+        shares on their own handler threads)."""
+        with ThreadPoolExecutor(len(fns)) as pool:
+            return list(pool.map(lambda f: f(), fns))
+
+    def check_rows(idx, answers, label, table=None):
+        table = dbs[0].data if table is None else table
+        rec = np.bitwise_xor.reduce(np.stack([rows_of(a) for a in answers]), axis=0)
+        want = (np.stack([table[i] if i is not None else np.zeros(slot, np.uint8)
+                          for i in idx]))
+        bad = np.flatnonzero((rec != want).any(axis=1))
+        if bad.size:
+            fail(f"service {label}: {bad.size} of {len(idx)} answers do not recover "
+                 f"(first {bad[0]})")
+
+    def launched():
+        return {name: fn.launches for name, fn in counted.items() if fn.launches}
+
+    def served(label, idx, share_lists, needs, forbid=(), cl=None, single=False,
+               table=None):
+        """share_lists (one list of shares a query) through the service
+        (OP_QUERY_BATCH, or OP_QUERY a query when single), then through
+        the engines directly; checks bytes, launches and recovery."""
+        cl = cl or client
+        n = len(cl._socks)
+        engines = [s0._engine, s1._engine, s2._engine][:n]
+        t0 = time.perf_counter()
+        if single:
+            payloads = [[wire.serialize_query_share(sl[k]) for k in range(n)]
+                        for sl in share_lists]
+        else:
+            payloads = [_pack_blobs([wire.serialize_query_share(sl[k]) for sl in share_lists])
+                        for k in range(n)]
+        t1 = time.perf_counter()
+        reset_counts()
+        if single:
+            frames = [exchange(cl, [(OP_QUERY, p) for p in per_q]) for per_q in payloads]
+        else:
+            frames = [exchange(cl, [(OP_QUERY_BATCH, p) for p in payloads])]
+        t2 = time.perf_counter()
+        if single:
+            answers = [[wire.deserialize_shared_result(f[k][1]) if f[k][0] == OP_QUERY
+                        else fail(f"service {label}: opcode {f[k][0]}: {f[k][1][:200]!r}")
+                        for f in frames] for k in range(n)]
+        else:
+            answers = [_decode_result_batch(*frames[0][k]) for k in range(n)]
+        t3 = time.perf_counter()
+        svc_counts = read_counts(f"service: {label} {len(out['rtt_s'].get(label, []))}",
+                                 needs, forbid)
+        reset_counts()
+        td = time.perf_counter()
+        if single:
+            direct = both([lambda e=e, k=k: [e.private_secret_shared_query(sl[k])
+                                               for sl in share_lists]
+                           for k, e in enumerate(engines)])
+        else:
+            direct = both([lambda e=e, k=k: e.private_secret_shared_query_batch(
+                [sl[k] for sl in share_lists]) for k, e in enumerate(engines)])
+        direct_s = time.perf_counter() - td
+        direct_counts = launched()
+        if direct_counts != svc_counts:
+            fail(f"service {label}: launches {svc_counts}, the direct API's {direct_counts}")
+        for k in range(n):
+            if [wire.serialize_shared_result(r) for r in answers[k]] != \
+                    [wire.serialize_shared_result(r) for r in direct[k]]:
+                fail(f"service {label}: server {k}'s answers differ from the direct API's")
+        check_rows(idx, answers, label, table)
+        out["rtt_s"].setdefault(label, []).append(t3 - t0)
+        out["direct_s"].setdefault(label, []).append(direct_s)
+        out["split_s"].setdefault(label, []).append(
+            {"encode": t1 - t0, "exchange": t2 - t1, "decode": t3 - t2})
+        out["launches"][label] = svc_counts
+        return t3 - t0, direct_s
+
+    # fast batches (stacked path), compat batches, fast and compat singles
+    for label, n, fast, needs in (
+            ("fast batch", SVC_FAST_BATCH, True, ("stacked_tail", "packed_scan")),
+            ("compat batch", SVC_COMPAT_BATCH, False, ("compat_stage", "packed_scan"))):
+        for b in range(SVC_BATCHES):
+            idx = [int(i) for i in rng.integers(0, height, n)]
+            t = time.perf_counter()
+            pairs = new_index_query_shares_batch(md, idx, 1, fast=fast, num_shares=2,
+                                                 rand_bytes=keygen_rng.bytes)
+            keygen_s = time.perf_counter() - t
+            rtt, direct = served(label, idx, pairs, needs)
+            log(f"phase 4c: {label} {b} of {n}: keygen {keygen_s:.3f} s (client); round trip "
+                f"{rtt:.4f} s, direct API {direct:.4f} s (both shares at once); equal bytes, "
+                f"equal launches, all recovered")
+    # the natural word tables of the per-query paths, built here so that
+    # no single's round trip holds a 1 GiB build (the batches' first
+    # round trips above hold theirs)
+    sync()
+    t = time.perf_counter()
+    both([lambda s=s: s._engine._table(1) for s in (s0, s1, s2)])
+    sync()
+    out["natural_tables_s"] = time.perf_counter() - t
+    log(f"phase 4c: the three services' natural word tables built in "
+        f"{out['natural_tables_s']:.2f} s (at once)")
+    single_idx = [0, height - 1, int(rng.integers(height))]
+    for label, fast in (("fast single", True), ("compat single", False)):
+        pairs = [new_index_query_shares(md, i, 1, fast=fast, num_shares=2,
+                                        rand_bytes=keygen_rng.bytes) for i in single_idx]
+        rtt, direct = served(label, single_idx, pairs, ("masked_xor_scan",),
+                             ("packed_scan",), single=True)
+        log(f"phase 4c: {label}s at rows {single_idx}: round trips {rtt:.4f} s, direct API "
+            f"{direct:.4f} s; equal bytes, equal launches, all recovered")
+
+    # wire encode and decode of a fast batch, each half alone
+    pairs = new_index_query_shares_batch(md, list(range(SVC_FAST_BATCH)), 1, fast=True,
+                                         num_shares=2, rand_bytes=keygen_rng.bytes)
+    t = time.perf_counter()
+    blob = _pack_blobs([wire.serialize_query_share(p[0]) for p in pairs])
+    t_enc = time.perf_counter() - t
+    t = time.perf_counter()
+    parsed = PirService._parse_share_batch(blob)
+    t_dec = time.perf_counter() - t
+    results = s0._engine.private_secret_shared_query_batch(parsed)
+    t = time.perf_counter()
+    res_blob = PirService._pack_results(results)
+    t_renc = time.perf_counter() - t
+    t = time.perf_counter()
+    _decode_result_batch(OP_QUERY_BATCH, res_blob)
+    t_rdec = time.perf_counter() - t
+    out["wire_s"] = {"shares_encode": t_enc, "shares_decode": t_dec, "results_encode": t_renc,
+                     "results_decode": t_rdec, "shares_bytes": len(blob),
+                     "results_bytes": len(res_blob)}
+    log(f"phase 4c: wire, one share of a {SVC_FAST_BATCH}-query fast batch: shares encode "
+        f"{t_enc:.4f} s and decode {t_dec:.4f} s ({len(blob)} B), results encode "
+        f"{t_renc:.4f} s and decode {t_rdec:.4f} s ({len(res_blob)} B)")
+    del pairs, parsed, results
+
+    # the stacked stream: three fast batches and a flush, then the same
+    # shares through each engine's own stream
+    s_idx = [[int(i) for i in rng.integers(0, height, SVC_FAST_BATCH)] for _ in range(3)]
+    s_pairs = [new_index_query_shares_batch(md, b, 1, fast=True, num_shares=2,
+                                            rand_bytes=keygen_rng.bytes) for b in s_idx]
+    reset_counts()
+    t = time.perf_counter()
+    steps = [exchange(client, [(OP_STREAM_SUBMIT, _pack_blobs(
+        [wire.serialize_query_share(p[k]) for p in pairs])) for k in (0, 1)])
+        for pairs in s_pairs]
+    steps.append(exchange(client, [(OP_STREAM_FLUSH, b"")] * 2))
+    answers = [[_decode_result_batch(*f[k]) for k in (0, 1)] for f in steps]
+    rtt = time.perf_counter() - t
+    svc_counts = read_counts("service: stream", ("stacked_tail", "packed_scan"))
+    if any(answers[0]):
+        fail("the stream's first submit answered something")
+
+    def engine_stream(eng, k):
+        st = eng.fast_serving_stream()
+        futs = [st.submit([p[k] for p in pairs]) for pairs in s_pairs][1:] + [st.flush()]
+        return [f() for f in futs]
+
+    reset_counts()
+    t = time.perf_counter()
+    direct = both([lambda: engine_stream(s0._engine, 0), lambda: engine_stream(s1._engine, 1)])
+    direct_s = time.perf_counter() - t
+    if launched() != svc_counts:
+        fail(f"service stream: launches {svc_counts}, the direct streams' {launched()}")
+    for step in range(3):
+        for k in (0, 1):
+            if [wire.serialize_shared_result(r) for r in answers[step + 1][k]] != \
+                    [wire.serialize_shared_result(r) for r in direct[k][step]]:
+                fail(f"service stream: batch {step} server {k} differs from the direct stream")
+        check_rows(s_idx[step], answers[step + 1], f"stream batch {step}")
+    out["rtt_s"]["stream"], out["direct_s"]["stream"] = [rtt], [direct_s]
+    out["launches"]["stream"] = svc_counts
+    log(f"phase 4c: stream of 3 x {SVC_FAST_BATCH} and a flush: {rtt:.4f} s, the engines' "
+        f"own streams {direct_s:.4f} s; equal bytes, equal launches, all recovered")
+
+    # keywords: a batch (kernel 6) and a single (kernel 7)
+    kw_rows = [int(i) for i in rng.integers(0, height, SVC_KW_BATCH)]
+    kw_pairs = new_keyword_query_shares_batch(md, [int(keywords[r]) for r in kw_rows], 1,
+                                              num_shares=2, rand_bytes=keygen_rng.bytes)
+    rtt, direct = served("keyword batch", kw_rows, kw_pairs, ("planes_scan",),
+                         ("packed_scan", "masked_xor_scan"))
+    log(f"phase 4c: keyword batch of {SVC_KW_BATCH}: round trip {rtt:.4f} s, direct API "
+        f"{direct:.4f} s; equal bytes, equal launches, all recovered")
+    r = kw_rows[0]
+    rtt, direct = served("keyword single", [r], [new_keyword_query_shares(
+        md, int(keywords[r]), 1, num_shares=2, rand_bytes=keygen_rng.bytes)],
+        ("masked_xor_scan",), ("planes_scan", "packed_scan"), single=True)
+    log(f"phase 4c: keyword single: round trip {rtt:.4f} s, direct API {direct:.4f} s")
+    # a 3-party index single on three services
+    r = int(rng.integers(height))
+    rtt, direct = served("3-party single", [r], [new_index_query_shares(
+        md, r, 1, num_shares=3, rand_bytes=keygen_rng.bytes)], ("masked_xor_scan",),
+        ("planes_scan", "packed_scan"), cl=client3, single=True)
+    log(f"phase 4c: 3-party index single: round trip {rtt:.4f} s, direct API {direct:.4f} s")
+    client3.close()
+    s2.close()
+
+    # shared ASPIR: a batch with one wrong key (its item refused), then a
+    # single with a wrong key (OP_DENIED); the same shares then go through
+    # each engine directly: the expansion, the answer on its bits and the
+    # key table's audit on the same bits, as each service answers a share
+    def aspir_direct(eng, share):
+        bits = eng.expand_shared_query(share.query_share)
+        res = eng.private_secret_shared_query_with_expanded_bits(share.query_share, bits)
+        return res, generate_audit_for_shared_query_with_expanded_bits(
+            key_db, share, bits.cpu().numpy().astype(bool))
+
+    def aspir_served(label, share_lists, opcode, payloads, needs, forbid):
+        """Frames to both services, then the shares through both engines;
+        the launches must be equal. Returns the answer frames, the direct
+        (result, audit) pairs a server, and the two times."""
+        reset_counts()
+        t = time.perf_counter()
+        frames = exchange(client, [(opcode, p) for p in payloads])
+        rtt = time.perf_counter() - t
+        svc_counts = read_counts(f"service: {label}", needs, forbid)
+        reset_counts()
+        t = time.perf_counter()
+        direct = both([lambda e=e, k=k: [aspir_direct(e, sl[k]) for sl in share_lists]
+                       for k, e in enumerate((s0._engine, s1._engine))])
+        direct_s = time.perf_counter() - t
+        if launched() != svc_counts:
+            fail(f"service {label}: launches {svc_counts}, the direct API's {launched()}")
+        out["rtt_s"][label], out["direct_s"][label] = [rtt], [direct_s]
+        out["launches"][label] = svc_counts
+        return frames, direct, rtt, direct_s
+
+    a_idx = [int(i) for i in rng.integers(0, height, SVC_ASPIR_BATCH)]
+    a_keys = [key_db.slot(i) for i in a_idx]
+    wrong = SVC_ASPIR_BATCH // 2
+    a_keys[wrong] = key_db.slot((a_idx[wrong] + 1) % height)
+    a_shares = [new_authenticated_index_query_shares(md, i, key, 1, 2, fast=True)
+                for i, key in zip(a_idx, a_keys)]
+    head = struct.pack("<QB", int(rng.integers(1 << 63)), 2)
+    frames, direct, rtt, direct_s = aspir_served(
+        "shared ASPIR batch", a_shares, OP_ASPIR_SHARED_QUERY_BATCH,
+        [head + _pack_blobs([wire.serialize_auth_share(sl[k]) for sl in a_shares])
+         for k in (0, 1)], ("masked_xor_scan",), ("packed_scan",))
+    if any(op != OP_ASPIR_SHARED_QUERY_BATCH for op, _ in frames):
+        fail(f"service shared ASPIR batch: opcodes {[op for op, _ in frames]}: "
+             f"{frames[0][1][:200]!r}")
+    items = [_unpack_blobs(p) for _, p in frames]
+    verdicts = [check_audit(direct[0][q][1], direct[1][q][1]) for q in range(SVC_ASPIR_BATCH)]
+    if [q for q, v in enumerate(verdicts) if not v] != [wrong]:
+        fail(f"shared ASPIR batch: the direct audits fail at {verdicts.count(False)} items, "
+             f"not at item {wrong} alone")
+    for k in (0, 1):
+        if [it[:1] == b"\x01" for it in items[k]] != verdicts:
+            fail(f"service shared ASPIR batch: server {k}'s verdicts differ from the direct "
+                 f"audits'")
+        if any(it[1:] != wire.serialize_shared_result(direct[k][q][0])
+               for q, it in enumerate(items[k]) if verdicts[q]):
+            fail(f"service shared ASPIR batch: server {k}'s released answers differ from the "
+                 f"direct API's")
+    released = [q for q in range(SVC_ASPIR_BATCH) if q != wrong]
+    check_rows([a_idx[q] for q in released],
+               [[wire.deserialize_shared_result(items[k][q][1:]) for q in released]
+                for k in (0, 1)], "shared ASPIR batch")
+    log(f"phase 4c: shared ASPIR batch of {SVC_ASPIR_BATCH} (item {wrong} with a wrong key): "
+        f"round trip {rtt:.4f} s, direct API {direct_s:.4f} s; {SVC_ASPIR_BATCH - 1} released, "
+        f"equal bytes to the direct API's and recovered, item {wrong} refused as the direct "
+        f"audits say; equal launches")
+    w_shares = [new_authenticated_index_query_shares(
+        md, a_idx[0], key_db.slot((a_idx[0] + 1) % height), 1, 2, fast=True)]
+    head = struct.pack("<QB", int(rng.integers(1 << 63)), 2)
+    frames, direct, rtt, direct_s = aspir_served(
+        "shared ASPIR single, wrong key", w_shares, OP_ASPIR_SHARED_QUERY,
+        [head + wire.serialize_auth_share(w_shares[0][k]) for k in (0, 1)],
+        ("masked_xor_scan",), ("packed_scan",))
+    if any(op != OP_DENIED for op, _ in frames):
+        fail(f"service shared ASPIR single: a wrong key was not refused: "
+             f"{[(op, p[:200]) for op, p in frames]}")
+    if check_audit(direct[0][0][1], direct[1][0][1]):
+        fail("shared ASPIR single: the direct audit passes a wrong key")
+    log(f"phase 4c: shared ASPIR single with a wrong key: OP_DENIED "
+        f"({frames[0][1].decode()!r}) in {rtt:.4f} s, direct API {direct_s:.4f} s (its audit "
+        f"fails too); equal launches")
+
+    # live updates through both services, then a fast batch on new rows
+    upd_rows = rng.choice(height, size=SVC_UPDATES, replace=False)
+    updates = {int(r): rng.bytes(slot) for r in upd_rows}
+    sync()
+    t = time.perf_counter()
+    s0.apply_updates(updates)
+    s1.apply_updates(updates)
+    sync()
+    out["updates_s"] = time.perf_counter() - t
+    for k, d in enumerate(dbs[:2]):
+        if any(d.data[r].tobytes() != b for r, b in list(updates.items())[:64]):
+            fail(f"service {k}'s database did not take the updates")
+    idx = [int(i) for i in rng.choice(upd_rows, SVC_FAST_BATCH // 2)] + \
+        [int(i) for i in rng.integers(0, height, SVC_FAST_BATCH // 2)]
+    pairs = new_index_query_shares_batch(md, idx, 1, fast=True, num_shares=2,
+                                         rand_bytes=keygen_rng.bytes)
+    rtt, direct = served("fast batch after updates", idx, pairs,
+                         ("stacked_tail", "packed_scan"))
+    log(f"phase 4c: {SVC_UPDATES} row updates through PirService.apply_updates on both "
+        f"services in {out['updates_s']:.4f} s (synchronised); a fast batch of "
+        f"{SVC_FAST_BATCH}, half on updated rows: round trip {rtt:.4f} s, all recover the new "
+        f"rows")
+    metrics = [client.get_metrics(k) for k in (0, 1)]
+    if any(m["engine"] != "torch" or m["queries"] <= 0 for m in metrics):
+        fail(f"OP_METRICS: {metrics}")
+    out["metrics"] = metrics
+    log(f"phase 4c: OP_METRICS: {json.dumps(metrics)}")
+    client.close()
+    s0.close()
+    s1.close()
+
+    # the cPIR yardstick table: cPIR and AHE ASPIR with a 1024-bit key
+    cdata = np.frombuffer(rng.bytes(CPIR_ROWS * CPIR_SLOT_BYTES), np.uint8).reshape(
+        CPIR_ROWS, CPIR_SLOT_BYTES)
+    cdb = database_from_numpy(cdata, CPIR_SLOT_BYTES)
+    ckeys = database_from_numpy(np.frombuffer(rng.bytes(CPIR_ROWS * CPIR_KEY_BYTES), np.uint8)
+                                .reshape(CPIR_ROWS, CPIR_KEY_BYTES), CPIR_KEY_BYTES)
+    c0 = PirService(cdb, config=config, key_db=ckeys).start()
+    c1 = PirService(cdb, config=config, key_db=ckeys, audit_leader=c0.address).start()
+    cclient = PirClient([c0.address, c1.address])
+    bits = PAILLIER_BITS
+    t = time.perf_counter()
+    sk, pk = keygen(bits)
+    cpir = {"keygen_s": time.perf_counter() - t, "key_bits": pk.n.bit_length()}
+    if pk.n.bit_length() < bits - 1:
+        fail(f"a {bits}-bit Paillier key has {pk.n.bit_length()} bits")
+    cmd = cdb.metadata()
+    width, _ = cmd.get_dimensions_for_database(int(np.ceil(np.sqrt(CPIR_ROWS))), 1)
+    row = int(rng.integers(CPIR_ROWS // width))
+    t = time.perf_counter()
+    got = cclient.query_encrypted(row, sk, pk)
+    cpir["encrypted_s"] = time.perf_counter() - t
+    if [bytes(x.data) for x in got] != [cdata[row * width + j].tobytes() for j in range(width)]:
+        fail("cPIR: the encrypted query does not recover its grid row")
+    target = int(rng.integers(CPIR_ROWS))
+    t = time.perf_counter()
+    got = cclient.query_encrypted_recursive(target, sk, pk, server=1)
+    cpir["recursive_s"] = time.perf_counter() - t
+    if bytes(got[0].data) != cdata[target].tobytes():
+        fail("cPIR: the recursive query does not recover its row")
+    t = time.perf_counter()
+    got = cclient.query_authenticated(target, sk, ckeys.slot(target))
+    cpir["aspir_right_key_s"] = time.perf_counter() - t
+    if bytes(got[0].data) != cdata[target].tobytes():
+        fail("AHE ASPIR: the right key does not recover its row")
+    t = time.perf_counter()
+    try:
+        cclient.query_authenticated(target, sk, ckeys.slot((target + 1) % CPIR_ROWS))
+        fail("AHE ASPIR: a wrong key was not refused")
+    except PermissionError as e:
+        if "decoy" not in str(e):
+            fail(f"AHE ASPIR: a wrong key was refused for another reason: {e}")
+    cpir["aspir_wrong_key_s"] = time.perf_counter() - t
+    cpir["server_scan_s"] = list(c0.metrics.latencies_s) + list(c1.metrics.latencies_s)
+    out["cpir"] = cpir
+    log(f"phase 4c: cPIR on {CPIR_ROWS} x {CPIR_SLOT_BYTES} B with a {pk.n.bit_length()}-bit "
+        f"key (keygen {cpir['keygen_s']:.2f} s): encrypted query {cpir['encrypted_s']:.3f} s, "
+        f"recursive {cpir['recursive_s']:.3f} s, AHE ASPIR right key "
+        f"{cpir['aspir_right_key_s']:.3f} s (recovered), wrong key "
+        f"{cpir['aspir_wrong_key_s']:.3f} s (only the null side proved, refused); server scans "
+        f"(s) {[round(x, 4) for x in cpir['server_scan_s']]}")
+    cclient.close()
+    c0.close()
+    c1.close()
+    if torch.cuda.is_available():
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out
 
 
 def ncu_launches(spec, dev, np, torch, compat_stage, fast_tail_expand_stacked) -> int:

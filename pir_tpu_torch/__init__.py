@@ -13,11 +13,27 @@ evaluate on the device too; keyword batches scan with the bit-plane
 scan kernel. ``TorchPirServer.apply_updates`` changes rows live and
 ``Database.save`` / ``load`` checkpoint a table; ``benchmarks_overlap``
 ports the TPU overlap probe. The kernels are hand-written CUDA
-(``csrc/``). Nothing of JAX or of pir_tpu is imported; each module names
-its pir_tpu counterpart.
+(``csrc/``).
+
+The serving shell (``service.PirService`` / ``PirClient``, the same
+frames and ``wire`` messages as pir_tpu's) answers every protocol family
+over TCP: index, keyword and multi-party shares on a TorchPirServer,
+single-server cPIR under Paillier (``encrypted``, ``crypto/paillier``,
+CPython on the host) and both ASPIR variants (``aspir``,
+``aspir_shared``); ``config.PirConfig`` picks the engine and device, and
+``python -m pir_tpu_torch.demo`` runs them all. Nothing of JAX or of
+pir_tpu is imported; each module names its pir_tpu counterpart.
 """
 
-from .database import Database, DBMetadata, generate_random_db
+from .database import (
+    Database,
+    DBMetadata,
+    generate_empty_db,
+    generate_random_db,
+    get_optimal_db_dimensions,
+    get_optimal_weighted_db_dimensions,
+    new_database,
+)
 from .query import (
     QueryShare,
     SecretSharedQueryResult,
@@ -29,7 +45,15 @@ from .query import (
     recover,
 )
 from .server import FastServingStream, TorchPirServer
-from .slot import Slot
+from .slot import (
+    Slot,
+    get_required_slot_size,
+    new_empty_slot,
+    new_random_slot,
+    new_slot,
+    new_slot_from_string,
+    xor_slots,
+)
 
 __all__ = [
     "Database",
@@ -39,11 +63,21 @@ __all__ = [
     "SecretSharedQueryResult",
     "Slot",
     "TorchPirServer",
+    "generate_empty_db",
     "generate_random_db",
+    "get_optimal_db_dimensions",
+    "get_optimal_weighted_db_dimensions",
+    "get_required_slot_size",
+    "new_database",
+    "new_empty_slot",
     "new_fast_index_query_shares",
     "new_index_query_shares",
     "new_index_query_shares_batch",
     "new_keyword_query_shares",
     "new_keyword_query_shares_batch",
+    "new_random_slot",
+    "new_slot",
+    "new_slot_from_string",
     "recover",
+    "xor_slots",
 ]

@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -95,3 +96,10 @@ def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add n to a kernel wrapper's launch count under a lock: a service's
+    handler threads launch the same kernels at once."""
+    with _count_lock:
+        wrapper.launches += n

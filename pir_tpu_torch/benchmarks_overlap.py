@@ -164,7 +164,7 @@ def vpu_probe(v: torch.Tensor, iters: int = ITERS) -> torch.Tensor:
         return vpu_chain(v, iters)
     out = torch.empty_like(v)
     _launch("vpu", dev, [v.data_ptr(), out.data_ptr()], iters)
-    vpu_probe.launches += 1
+    _build.count_launch(vpu_probe)
     return out
 
 
@@ -175,7 +175,7 @@ def mxu_probe(a: torch.Tensor, b: torch.Tensor, iters: int = ITERS) -> torch.Ten
         return mxu_chain(a, b, iters)
     out = torch.empty((M, N), dtype=torch.int32, device=dev)
     _launch("mxu", dev, [a.data_ptr(), b.data_ptr(), out.data_ptr()], iters)
-    mxu_probe.launches += 1
+    _build.count_launch(mxu_probe)
     return out
 
 
@@ -190,7 +190,7 @@ def mixed_probe(v: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     mo = torch.empty((M, N), dtype=torch.int32, device=dev)
     _launch("mixed", dev, [v.data_ptr(), a.data_ptr(), b.data_ptr(), vo.data_ptr(),
                            mo.data_ptr()], iters)
-    mixed_probe.launches += 1
+    _build.count_launch(mixed_probe)
     return vo, mo
 
 

@@ -5,12 +5,13 @@ device; ``update_slots`` changes rows, ``save`` / ``load`` checkpoint it."""
 
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from .slot import Slot
+from .slot import Slot, get_required_slot_size
 
 
 @dataclass
@@ -19,6 +20,36 @@ class DBMetadata:
 
     slot_bytes: int = 0
     db_size: int = 0
+
+    # ---- grid dimensions (db.go:396-446) ----
+
+    def index_to_coordinates(self, index: int, width: int, height: int):
+        return index // width, index % width
+
+    def get_dimensions_for_database(self, height: int, group_size: int):
+        """(width * group_size, height) of the grid (db.go:403-420); the
+        reference's float-of-integer-division makes every ceil a floor,
+        kept here as integer division."""
+        dim_width = self.db_size // (height * group_size)
+        if dim_width == 0:
+            dim_width = 1
+        dim_height = self.db_size // (dim_width * group_size)
+        return dim_width * group_size, dim_height
+
+    def get_sqrt_of_db_size(self) -> int:
+        return int(math.sqrt(self.db_size) + 1)
+
+
+def get_optimal_db_dimensions(slot_size: int, db_size: int):
+    """Bandwidth-optimal grid (db.go:425-434)."""
+    height = int(max(1, math.sqrt(db_size * slot_size)))
+    width = math.ceil(db_size / height)
+    return int(width), int(height)
+
+
+def get_optimal_weighted_db_dimensions(slot_size: int, db_size: int, weight: int):
+    width, height = get_optimal_db_dimensions(slot_size, db_size)
+    return int(width / weight), int(math.ceil(height * weight))
 
 
 @dataclass
@@ -31,8 +62,14 @@ class Database(DBMetadata):
     def slots(self) -> list[Slot]:
         return [Slot(self.data[i].tobytes()) for i in range(self.db_size)]
 
+    def slot(self, i: int) -> Slot:
+        return Slot(self.data[i].tobytes())
+
     def metadata(self) -> DBMetadata:
         return DBMetadata(self.slot_bytes, self.db_size)
+
+    def build_for_data(self, data: list[str]) -> None:
+        self.build_for_data_with_slot_size(data, get_required_slot_size(data))
 
     def build_for_data_with_slot_size(self, data: list[str], slot_size: int) -> None:
         """One row per string, its latin-1 bytes cut or zero-padded to
@@ -128,4 +165,10 @@ def generate_random_db(size: int, num_bytes: int) -> Database:
     db.data = np.frombuffer(os.urandom(size * num_bytes), dtype=np.uint8).reshape(
         size, num_bytes
     ).copy()
+    return db
+
+
+def generate_empty_db(size: int, num_bytes: int) -> Database:
+    db = Database(slot_bytes=num_bytes, db_size=size)
+    db.data = np.zeros((size, num_bytes), dtype=np.uint8)
     return db

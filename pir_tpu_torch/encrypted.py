@@ -1,0 +1,319 @@
+"""Single-server computational PIR under additively homomorphic Paillier
+(counterpart of ``pir_tpu/encrypted.py``).
+
+Client side (query.go:118-221, 299-334): the query is a vector of
+encryptions of 0/1 — a one-hot row indicator (and for recursive queries a
+second, level-2 one-hot column indicator). Server side (db.go:176-358):
+an encrypted selection, sum_row Enc(bit_row) * slot_chunk, per column and
+chunk; the recursive variant re-selects over the level-1 ciphertexts with
+level-2 ConstMult/Add.
+
+The scan is the CPython loop, pir_tpu's golden engine; its answers are
+the same ciphertext ints as every pir_tpu engine's. pir_tpu's other two
+scan engines are not ported and are refused by name (``scan_engine``):
+the native C++ engine (ROADMAP queue 1 [18]) and the batched Montgomery
+engine on the device (queue 1 [13]).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+from .crypto.paillier import (
+    ENC_LEVEL_ONE,
+    ENC_LEVEL_TWO,
+    Ciphertext,
+    PublicKey,
+    SecretKey,
+    msg_space_bytes,
+)
+from .database import Database, DBMetadata
+from .slot import Slot
+
+# Serving bound on client-supplied Paillier moduli: scan work is cubic
+# in bits(N) on every engine, and on the TPU engine each 240-bit limb
+# bucket compiles a fresh executable — an uncapped modulus lets one
+# client stall a serving host indefinitely. 8192-bit N (N^3 = 24 kbit)
+# is far beyond any real deployment's key size.
+MAX_PAILLIER_BITS = 8192
+
+
+@dataclass
+class EncryptedQuery:
+    """query.go:24-32."""
+
+    pk: PublicKey
+    ebits: list[Ciphertext]
+    group_size: int
+    db_width: int
+    db_height: int
+
+
+@dataclass
+class DoublyEncryptedQuery:
+    """query.go:34-39."""
+
+    row: EncryptedQuery
+    col: EncryptedQuery
+
+
+@dataclass
+class EncryptedSlot:
+    cts: list[Ciphertext]
+
+
+@dataclass
+class DoublyEncryptedSlot:
+    cts: list[Ciphertext]  # level-2 ciphertexts
+
+
+@dataclass
+class EncryptedQueryResult:
+    slots: list[EncryptedSlot]
+    pk: PublicKey
+    slot_bytes: int
+    num_bytes_per_ciphertext: int
+
+
+@dataclass
+class DoublyEncryptedQueryResult:
+    slots: list[DoublyEncryptedSlot]
+    pk: PublicKey
+    slot_bytes: int
+    num_bytes_per_ciphertext: int
+
+
+# --------------------------------------------------------------------------
+# Client: query generation
+# --------------------------------------------------------------------------
+
+def new_encrypted_query(
+    dbmd: DBMetadata, pk: PublicKey, group_size: int, index: int
+) -> EncryptedQuery:
+    """query.go:118-127: sqrt-grid default dimensions."""
+    height = int(math.ceil(math.sqrt(dbmd.db_size)))
+    width, height = dbmd.get_dimensions_for_database(height, group_size)
+    return new_encrypted_query_with_dimensions(pk, width, height, group_size, index)
+
+
+def new_encrypted_query_with_dimensions(
+    pk: PublicKey, width: int, height: int, group_size: int, index: int
+) -> EncryptedQuery:
+    """query.go:129-150: EBits one-hot at `index` (index -1 => all zeros).
+    The blinding modexps batch through encrypt_batch."""
+    ebits = pk.encrypt_batch([1 if i == index else 0 for i in range(height)])
+    return EncryptedQuery(pk, ebits, group_size, width, height)
+
+
+def new_doubly_encrypted_query(
+    dbmd: DBMetadata, pk: PublicKey, group_size: int, index: int
+) -> DoublyEncryptedQuery:
+    """query.go:152-221."""
+    height = int(math.ceil(math.sqrt(dbmd.db_size)))
+    width, height = dbmd.get_dimensions_for_database(height, group_size)
+    return new_doubly_encrypted_query_with_dimensions(
+        dbmd, pk, width, height, group_size, index
+    )
+
+
+def new_doubly_encrypted_query_with_dimensions(
+    dbmd: DBMetadata, pk: PublicKey, width: int, height: int, group_size: int,
+    index: int,
+) -> DoublyEncryptedQuery:
+    row_index, col_index = dbmd.index_to_coordinates(index, width, height)
+    col_index //= group_size
+    if index == -1:
+        row_index = col_index = -1
+
+    row = pk.encrypt_batch([1 if i == row_index else 0 for i in range(height)])
+    grouped_width = width // group_size
+    col = pk.encrypt_batch(
+        [1 if i == col_index else 0 for i in range(grouped_width)],
+        ENC_LEVEL_TWO,
+    )
+    return DoublyEncryptedQuery(
+        row=EncryptedQuery(pk, row, group_size, width, height),
+        col=EncryptedQuery(pk, col, group_size, width, 1),
+    )
+
+
+def new_doubly_encrypted_null_query(
+    dbmd: DBMetadata, pk: PublicKey, group_size: int
+) -> DoublyEncryptedQuery:
+    """query.go:152-155: index -1 => all-zero (retrieves nothing)."""
+    return new_doubly_encrypted_query(dbmd, pk, group_size, -1)
+
+
+# --------------------------------------------------------------------------
+# Server: encrypted scans
+# --------------------------------------------------------------------------
+
+def scan_engine(engine: str | None) -> None:
+    """Resolve a cPIR scan engine (pir_tpu/encrypted.py:_scan_fn): None and
+    "python" run the CPython loop; pir_tpu's "native" and "tpu" engines
+    are not ported and raise, never falling back to the loop."""
+    if engine in (None, "python"):
+        return
+    if engine == "native":
+        raise ValueError("the native cPIR scan engine is not ported (ROADMAP queue 1 [18]); "
+                         "use engine=None or 'python'")
+    if engine == "tpu":
+        raise ValueError("the device cPIR scan engine is not ported (ROADMAP queue 1 [13]); "
+                         "use engine=None or 'python'")
+    raise ValueError(f"unknown cPIR scan engine {engine!r}")
+
+
+def private_encrypted_query(
+    db: Database, query: EncryptedQuery, nprocs: int | None = None,
+    engine: str | None = None,
+) -> EncryptedQueryResult:
+    """The AHE scan (db.go:176-271).
+
+    Slots are packed into ceil(slot_bytes / (|N|-2)) plaintext chunks;
+    answer[col][chunk] = sum_row Enc(bit_row) * chunk(row, col).
+
+    `engine` is checked by scan_engine; `nprocs` (the reference's
+    goroutine fan-out, db.go:193-261) is accepted and unused: the scan is
+    one CPython loop.
+    """
+    pk = query.pk
+    dim_width, dim_height = query.db_width, query.db_height
+    # served queries are attacker-controlled: the scan's work and
+    # allocations are O(width * height * num_cts), so the geometry must
+    # be bounded by the database it claims to address (the wire layer
+    # bounds only byte counts; same DoS class as wire._need)
+    if dim_height != len(query.ebits):
+        raise ValueError("query height does not match its ebits vector")
+    if dim_width < 1 or dim_height < 1:
+        raise ValueError("invalid query dimensions")
+    if dim_width > db.db_size or dim_height > db.db_size:
+        # each axis alone is bounded by the database: the product bound
+        # below is vacuous at height 1 (w*1 <= db_size + w always holds)
+        raise ValueError("query dimensions exceed the database")
+    if dim_width * dim_height > db.db_size + dim_width:
+        # the reference's dimension sanity bound (db_test.go:211-220)
+        raise ValueError("query dimensions exceed the database")
+    if msg_space_bytes(pk) < 1:
+        raise ValueError("paillier modulus too small for any plaintext")
+    if pk.n.bit_length() > MAX_PAILLIER_BITS:
+        raise ValueError("paillier modulus exceeds the serving bound")
+    num_cts = max(1, math.ceil(db.slot_bytes / msg_space_bytes(pk)))
+
+    scan_engine(engine)
+    num_bytes_per_ciphertext = 0
+    slots = [
+        EncryptedSlot([pk.null_ciphertext(ENC_LEVEL_ONE) for _ in range(num_cts)])
+        for _ in range(dim_width)
+    ]
+    for row in range(dim_height):
+        ebit = query.ebits[row]
+        for col in range(dim_width):
+            slot_index = row * dim_width + col
+            if slot_index >= db.db_size:
+                continue
+            int_arr, per = db.slot(slot_index).to_int_array(num_cts)
+            if num_bytes_per_ciphertext == 0:
+                num_bytes_per_ciphertext = per
+            for j, val in enumerate(int_arr):
+                sel = pk.const_mult(ebit, val)
+                slots[col].cts[j] = pk.add(slots[col].cts[j], sel)
+
+    return EncryptedQueryResult(slots, pk, db.slot_bytes, num_bytes_per_ciphertext)
+
+
+def private_doubly_encrypted_query(
+    db: Database, query: DoublyEncryptedQuery, nprocs: int | None = None,
+    engine: str | None = None,
+) -> DoublyEncryptedQueryResult:
+    """db.go:273-292: row pass then column pass."""
+    if query.row.group_size > db.db_size or query.row.group_size == 0:
+        raise ValueError("invalid group size provided in query")
+    if query.col.group_size > query.row.db_width or query.col.group_size == 0:
+        raise ValueError("invalid group size provided in query")
+    row_res = private_encrypted_query(db, query.row, nprocs, engine)
+    return private_encrypted_query_over_encrypted_result(
+        db, query.col, row_res, nprocs, engine
+    )
+
+
+def private_encrypted_query_over_encrypted_result(
+    db: Database, query: EncryptedQuery, result: EncryptedQueryResult,
+    nprocs: int | None = None, engine: str | None = None,
+) -> DoublyEncryptedQueryResult:
+    """db.go:294-358: level-2 selection over level-1 ciphertext values."""
+    pk = query.pk
+    g = query.group_size
+    # the column query is attacker-controlled when served (db.go:294-358
+    # semantics over the wire): bound its geometry against the row result
+    # it selects over, with the same ValueError class as the row pass —
+    # a short ebits vector must not surface as an IndexError.
+    if g < 1:
+        raise ValueError("invalid group size provided in query")
+    if not result.slots:
+        raise ValueError("empty row result")
+    num_cts = len(result.slots[0].cts)
+    if len(result.slots) % g != 0:
+        raise ValueError("row has a size that is not a multiple of the group size")
+    if len(query.ebits) != len(result.slots) // g:
+        raise ValueError("column query does not match the row result geometry")
+
+    scan_engine(engine)
+    res = [
+        [pk.null_ciphertext(ENC_LEVEL_TWO) for _ in range(num_cts)]
+        for _ in range(g)
+    ]
+    member = 0
+    for col in range(len(result.slots)):
+        if col % g == 0:
+            member = 0
+        bit_ct = query.ebits[col // g]
+        for j, slot_ct in enumerate(result.slots[col].cts):
+            sel = pk.const_mult(bit_ct, slot_ct.c)
+            res[member][j] = pk.add(res[member][j], sel)
+        member += 1
+
+    return DoublyEncryptedQueryResult(
+        [DoublyEncryptedSlot(cts) for cts in res],
+        pk,
+        db.slot_bytes,
+        result.num_bytes_per_ciphertext,
+    )
+
+
+# --------------------------------------------------------------------------
+# Client: recovery
+# --------------------------------------------------------------------------
+
+def recover_encrypted(res: EncryptedQueryResult, sk: SecretKey) -> list[Slot]:
+    """query.go:299-315. All chunks decrypt in one modexp batch."""
+    counts = [len(eslot.cts) for eslot in res.slots]
+    flat = sk.decrypt_batch([ct for eslot in res.slots for ct in eslot.cts])
+    out, off = [], 0
+    for c in counts:
+        out.append(
+            Slot.from_int_array(
+                flat[off:off + c], res.slot_bytes, res.num_bytes_per_ciphertext
+            )
+        )
+        off += c
+    return out
+
+
+def recover_doubly_encrypted(
+    res: DoublyEncryptedQueryResult, sk: SecretKey
+) -> list[Slot]:
+    """query.go:317-334. Both decryption layers run as modexp batches."""
+    counts = [len(dslot.cts) for dslot in res.slots]
+    flat = sk.nested_decrypt_batch(
+        [ct for dslot in res.slots for ct in dslot.cts]
+    )
+    out, off = [], 0
+    for c in counts:
+        out.append(
+            Slot.from_int_array(
+                flat[off:off + c], res.slot_bytes, res.num_bytes_per_ciphertext
+            )
+        )
+        off += c
+    return out

@@ -15,8 +15,8 @@ unless the tree is made with ``device="cpu"``.
 
 The other keyword mechanism, a DPF over the 32-bit keyword space, lives
 in the query and server layers (``query.new_keyword_query_shares``,
-``Database.set_keywords``; db.go:119-135). The encrypted (Paillier)
-query of the sqrt tree is not ported.
+``Database.set_keywords``; db.go:119-135). The sqrt tree's encrypted
+(Paillier) query runs the host cPIR scan of ``encrypted.py``.
 """
 
 from __future__ import annotations
@@ -77,6 +77,12 @@ class PrivateSqrtST:
         """PIR over the second layer (keyword.go:76-81): through `server`
         (a TorchPirServer over self.second_layer) or self.server()."""
         return (server or self.server()).private_secret_shared_query(query)
+
+    def private_encrypted_query(self, query):
+        """cPIR over the second layer (keyword.go:84-90)."""
+        from .encrypted import private_encrypted_query
+
+        return private_encrypted_query(self.second_layer, query)
 
     def find_bucket(self, key: str) -> int:
         """First-layer scan: the bucket that may hold `key`."""

@@ -133,7 +133,7 @@ def compat_stage(seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, *, tail: int, emit_bits:
         err = fn(*(x.data_ptr() for x in ops), out_s.data_ptr(), words.data_ptr(),
                  q, nc, w, tail, int(emit_bits), stream)
     _build.check(err, "compat_stage")
-    compat_stage.launches += 1
+    _build.count_launch(compat_stage)
     return words if emit_bits else (out_s, words)
 
 

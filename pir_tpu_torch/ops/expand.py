@@ -120,7 +120,7 @@ def fast_tail_expand_stacked(seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, rk_leaf,
         err = fn(*(x.data_ptr() for x in ops), out.data_ptr(),
                  s_n, w, tail, n_blk, rk_lanes, stream)
     _build.check(err, "stacked_tail")
-    fast_tail_expand_stacked.launches += 1
+    _build.count_launch(fast_tail_expand_stacked)
     return out
 
 

@@ -137,7 +137,7 @@ def fast_tail_expand(seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, rk_leaf,
         err = fn(*(x.data_ptr() for x in ops), out.data_ptr(), q, nw0, levels, n_blk,
                  int(rk.dim() == 6), stream)
     _build.check(err, "fast_tail")
-    fast_tail_expand.launches += 1
+    _build.count_launch(fast_tail_expand)
     return out
 
 

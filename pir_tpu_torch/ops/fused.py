@@ -62,7 +62,7 @@ def fused_scan_expand(table_u8, words_t, seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, 
         err = fn(table_u8.data_ptr(), words_t.data_ptr(), *(x.data_ptr() for x in tail_ops),
                  out.data_ptr(), tail_out.data_ptr(), h, b // 4, q, qe, nw0, levels, stream)
     _build.check(err, "fused_scan_expand")
-    fused_scan_expand.launches += 1
+    _build.count_launch(fused_scan_expand)
     return out, tail_out
 
 

@@ -86,7 +86,7 @@ def packed_scan(table_u8: torch.Tensor, words_t: torch.Tensor) -> torch.Tensor:
         err = fn(table_u8.data_ptr(), words_t.data_ptr(), out.data_ptr(),
                  h, b // 4, q, stream)
     _build.check(err, "packed_scan")
-    packed_scan.launches += 1
+    _build.count_launch(packed_scan)
     return out
 
 

@@ -67,7 +67,7 @@ def planes_scan(table_u8: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
         err = fn(table_u8.data_ptr(), bits.data_ptr(), words.data_ptr(), out.data_ptr(), h,
                  b // 4, q, int(vec_bits), stream)
     _build.check(err, "planes_scan")
-    planes_scan.launches += 1
+    _build.count_launch(planes_scan)
     return out
 
 

@@ -66,7 +66,7 @@ def masked_xor_scan(table_words: torch.Tensor, bits: torch.Tensor) -> torch.Tens
                 err = fn(table_words.data_ptr(), bits_q[q0].data_ptr(), out[q0].data_ptr(),
                          h, c, min(MAX_Q, q - q0), vec, stream)
                 _build.check(err, "masked_xor_scan")
-                masked_xor_scan.launches += 1
+                _build.count_launch(masked_xor_scan)
     return out[0] if bits.dim() == 1 else out
 
 

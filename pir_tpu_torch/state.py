@@ -2,9 +2,12 @@
 
 The "weights" of a PIR server are its table (and its rows' keywords)
 and the query shares it is asked to answer, and of a single answer step
-its device key. All arrive here as plain numpy arrays, bytes and ints
-(the fields of a ``pir_tpu`` database, share, key or device key), so
-nothing of the JAX package is imported.
+its device key; of the Paillier protocols, the key pair and the
+ciphertexts. All arrive here as plain numpy arrays, bytes and ints (the
+fields of a ``pir_tpu`` database, share, key, device key or ciphertext),
+so nothing of the JAX package is imported. Every other message crosses
+as wire bytes: pir_tpu's ``serialize_*``, then the port's
+``wire.deserialize_*``, and the reverse.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .crypto.paillier import Ciphertext, PublicKey, SecretKey
 from .database import Database
 from .dpf.device import u32_tensor
 from .dpf.host import FastKey2P, Key2P, KeyMP, PrfKey
@@ -95,3 +99,18 @@ def device_fast_key_from_numpy(*, seeds0, t0, cw_seed_masks, cw_tl, cw_tr, fcw_m
     words = [u32_tensor(a, device) for a in (seeds0, t0, cw_seed_masks, cw_tl, cw_tr, fcw_masks,
                                              rk_masks, rk_leaf)]
     return (*words, torch.from_numpy(np.asarray(perm, dtype=np.int64)).to(device))
+
+
+def paillier_secret_key(p: int, q: int) -> SecretKey:
+    """The port's Paillier secret key of a ``pir_tpu`` key's primes p, q."""
+    return SecretKey(int(p), int(q))
+
+
+def paillier_public_key(n: int) -> PublicKey:
+    """The port's Paillier public key of a ``pir_tpu`` key's modulus n."""
+    return PublicKey(int(n))
+
+
+def ciphertext_from_fields(c: int, level: int) -> Ciphertext:
+    """The port's ciphertext of a ``pir_tpu`` ciphertext's (c, level)."""
+    return Ciphertext(int(c), int(level))

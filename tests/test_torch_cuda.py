@@ -710,3 +710,115 @@ def test_cuda_apply_updates_equals_rebuild(dev, slot):
             pairs = tq.new_index_query_shares_batch(md, sorted(updates), 1, fast=fast,
                                                     rand_bytes=rng.bytes)
             _check_servers(srv, TorchPirServer(db, device="cpu"), db, sorted(updates), pairs)
+
+
+def _service_pair(db, key_db, device):
+    from pir_tpu_torch.config import PirConfig
+    from pir_tpu_torch.service import PirService
+
+    cfg = PirConfig(device=device)
+    lead = PirService(db, config=cfg, key_db=key_db).start()
+    return [lead, PirService(db, config=cfg, key_db=key_db, audit_leader=lead.address).start()]
+
+
+def _fan_frames(pair, frames):
+    """frames[k] (a list of (opcode, payload)) in order on one connection
+    to pair[k], the two connections in step (a shared ASPIR batch waits
+    for both servers); the answer frames of each."""
+    import socket
+
+    from pir_tpu_torch.service import _recv_frame, _send_frame
+
+    socks = [socket.create_connection(s.address) for s in pair]
+    try:
+        out = [[], []]
+        for step in range(len(frames[0])):
+            for k, s in enumerate(socks):
+                _send_frame(s, *frames[k][step])
+            for k, s in enumerate(socks):
+                out[k].append(_recv_frame(s))
+        return out
+    finally:
+        for s in socks:
+            s.close()
+
+
+def test_cuda_services_match_cpu_services(dev):
+    """A port service pair on the card answers a fast batch, a compat
+    batch, a stream (three batches and a flush) and a shared ASPIR batch
+    (one wrong key) with the same frames as a pair on the CPU; every row
+    recovers and the wrong key's item is refused."""
+    import struct
+
+    from pir_tpu_torch import wire
+    from pir_tpu_torch.aspir_shared import new_authenticated_index_query_shares
+    from pir_tpu_torch.service import (
+        OP_ASPIR_SHARED_QUERY_BATCH,
+        OP_QUERY_BATCH,
+        OP_STREAM_FLUSH,
+        OP_STREAM_SUBMIT,
+        _pack_blobs,
+        _unpack_blobs,
+    )
+
+    db = generate_random_db(1 << 15, 16)
+    key_db = generate_random_db(1 << 15, 8)
+    md = db.metadata()
+    rng = np.random.default_rng(71)
+
+    def idx(n):
+        return [int(i) for i in rng.integers(0, db.db_size, size=n)]
+
+    batches = {"fast": idx(16), "compat": idx(8), "aspir": idx(8)}
+    fast = tq.new_index_query_shares_batch(md, batches["fast"], 1, fast=True,
+                                           rand_bytes=rng.bytes)
+    compat = tq.new_index_query_shares_batch(md, batches["compat"], 1, rand_bytes=rng.bytes)
+    stream_idx = [idx(8) for _ in range(3)]
+    stream = [tq.new_index_query_shares_batch(md, b, 1, fast=True, rand_bytes=rng.bytes)
+              for b in stream_idx]
+    keys = [key_db.slot(i) for i in batches["aspir"]]
+    keys[3] = key_db.slot((batches["aspir"][3] + 1) % db.db_size)
+    auth = [new_authenticated_index_query_shares(md, i, k, 1, 2, fast=True)
+            for i, k in zip(batches["aspir"], keys)]
+
+    def frames(k):
+        ser = wire.serialize_query_share
+        return ([(OP_QUERY_BATCH, _pack_blobs([ser(p[k]) for p in fast])),
+                 (OP_QUERY_BATCH, _pack_blobs([ser(p[k]) for p in compat]))]
+                + [(OP_STREAM_SUBMIT, _pack_blobs([ser(p[k]) for p in b])) for b in stream]
+                + [(OP_STREAM_FLUSH, b""),
+                   (OP_ASPIR_SHARED_QUERY_BATCH, struct.pack("<QB", 9, 2) + _pack_blobs(
+                       [wire.serialize_auth_share(a[k]) for a in auth]))])
+
+    answers = {}
+    for device in ("cuda", "cpu"):
+        pair = _service_pair(db, key_db, device)
+        try:
+            answers[device] = _fan_frames(pair, [frames(0), frames(1)])
+        finally:
+            for s in pair:
+                s.close()
+    assert answers["cuda"] == answers["cpu"]
+    (a0, a1) = answers["cuda"]
+    assert [op for op, _ in a0] == [op for op, _ in frames(0)]
+
+    def rows(p0, p1):
+        r0 = [wire.deserialize_shared_result(b) for b in _unpack_blobs(p0)]
+        r1 = [wire.deserialize_shared_result(b) for b in _unpack_blobs(p1)]
+        return [bytes(np.frombuffer(x.shares[0].data, np.uint8)
+                      ^ np.frombuffer(y.shares[0].data, np.uint8)) for x, y in zip(r0, r1)]
+
+    assert rows(a0[0][1], a1[0][1]) == [db.data[i].tobytes() for i in batches["fast"]]
+    assert rows(a0[1][1], a1[1][1]) == [db.data[i].tobytes() for i in batches["compat"]]
+    assert rows(a0[2][1], a1[2][1]) == []
+    for step, b in zip((3, 4, 5), stream_idx):  # one-batch lag
+        assert rows(a0[step][1], a1[step][1]) == [db.data[i].tobytes() for i in b]
+    items = [_unpack_blobs(a[6][1]) for a in (a0, a1)]
+    for q, (i0, i1) in enumerate(zip(*items)):
+        if q == 3:
+            assert i0 == i1 == b"\x00"
+            continue
+        x = wire.deserialize_shared_result(i0[1:]).shares[0].data
+        y = wire.deserialize_shared_result(i1[1:]).shares[0].data
+        assert bytes(np.frombuffer(x, np.uint8) ^ np.frombuffer(y, np.uint8)) == \
+            db.data[batches["aspir"][q]].tobytes()

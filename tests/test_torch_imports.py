@@ -22,7 +22,11 @@ SLICE_MODULES = [
     "pir_tpu_torch/ops/xor_scan.py", "pir_tpu_torch/ops/scan.py", "pir_tpu_torch/entry.py",
     "pir_tpu_torch/ops/planes_scan.py", "pir_tpu_torch/ops/matmul_scan.py",
     "pir_tpu_torch/keyword.py", "pir_tpu_torch/database.py", "pir_tpu_torch/slot.py",
-    "pir_tpu_torch/benchmarks_overlap.py",
+    "pir_tpu_torch/benchmarks_overlap.py", "pir_tpu_torch/wire.py",
+    "pir_tpu_torch/commitment.py", "pir_tpu_torch/aspir.py", "pir_tpu_torch/aspir_shared.py",
+    "pir_tpu_torch/encrypted.py", "pir_tpu_torch/config.py", "pir_tpu_torch/service.py",
+    "pir_tpu_torch/demo.py", "pir_tpu_torch/crypto/paillier.py",
+    "pir_tpu_torch/utils/metrics.py",
 ]
 
 
