@@ -6,14 +6,18 @@
 From the repository root, on a machine with one NVIDIA H100 and nvcc:
 
 0. prints the card (nvidia-smi name and power limit) and the versions;
-1. builds the eight CUDA kernels from pir_tpu_torch/csrc with nvcc, one
-   nvcc per source, all at once, and logs ptxas's registers, spills,
-   stack, static shared memory and warnings per kernel (--out: "ptxas",
-   "ptxas_summary") and the fused kernel's dynamic shared memory, the
-   larger of its scan tile's and its tail's (--out: "fused_smem");
-   meanwhile builds a probe of one AES-128 block on
-   the per-bank table, counts its SASS by pipe, and fails if the AES
-   bound (AES_BLOCK_PIPES) counts more on a pipe (--out: "aes_sass");
+1. builds the CUDA kernels from pir_tpu_torch/csrc with nvcc (nine
+   sources, kernels 1-10), one nvcc per source, all at once, and logs
+   ptxas's registers, spills, stack (local memory), static shared memory
+   and warnings per kernel (--out: "ptxas", "ptxas_summary") and the fused
+   kernel's dynamic shared memory, the larger of its scan tile's and its
+   tail's (--out: "fused_smem"); meanwhile builds a probe of one AES-128
+   block on the per-bank table, counts its SASS by pipe, and fails if the
+   AES bound (AES_BLOCK_PIPES) counts more on a pipe (--out: "aes_sass");
+   and a probe of one Montgomery product (csrc/mont.cuh), whose inner
+   loop's SASS it counts by pipe an iteration, failing if an iteration
+   does fewer wide products than kernels 9 and 10's bound counts (--out:
+   "mont_sass");
 2. builds a 2^20-row x 1024-byte table (1 GiB) from --seed, in the
    storage orders of every path (stacked and classic for 1024-bit keys,
    classic for the stream's 128-bit keys, compat), and holds each kernel
@@ -87,11 +91,26 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
    equal launch counts; the wire encode and decode of a 4096-share
    batch; then a second pair serves the cPIR yardstick table (2^10 x
    3 B) with a 1024-bit Paillier key: an encrypted query, a recursive
-   one, and AHE ASPIR with the right and a wrong key;
+   one, and AHE ASPIR with the right and a wrong key (the default cPIR
+   engine: the services' scans and proof checks on the card, the
+   client's modexps in CPython);
+   4d. cPIR on the card (cpir_phase), a 1024-bit key: kernels 9 and 10
+   against their plain versions on the card, then, with the launch counts
+   set to 0, against CPython pow at full size (an encryption batch of
+   1024, its CRT decryption, 64 level-2 modexps), the yardstick queries
+   through engine "torch" (equal to engine "python"), one encrypted query
+   on the sqrt grid of 2^20 slots x 3 B with its split and 8 columns
+   against CPython, an AHE ASPIR round under device_modexp (right and
+   wrong key), and a PirService with paillier_engine="torch" whose
+   answers equal a CPython service's bytes; every row recovered, both
+   kernels launched;
 5. times each kernel, its plain version and its PyTorch yardstick at the
    main paths' shapes (the masked-XOR scan at Q = 1 and Q = 8, the
    bit-plane scan at Q = 64 and Q = 1024 on the natural table's bytes,
-   the probe at 256 rounds and at PROBE_LONG_ITERS), the fused kernel's
+   the probe at 256 rounds and at PROBE_LONG_ITERS, kernel 9 on phase
+   4d's encryption, CRT decryption and level-2 batches, kernel 10 on its
+   grid, both also at phase 4d (a)'s shapes beside their plain versions,
+   with bounds from their Montgomery products), the fused kernel's
    step against each of its halves alone (co-issue: near the larger half
    or near their sum); where Nsight Compute (ncu) is installed, reads its
    shared-memory bank conflicts, LSU instructions and ALU pipe share on
@@ -158,6 +177,13 @@ SVC_KEY_BYTES = 32  # the auth-key table: one 32-byte key a row
 CPIR_ROWS = 1 << 10
 CPIR_SLOT_BYTES = 3
 CPIR_KEY_BYTES = 8  # AHE ASPIR auth keys (secparam bytes, test_constants.go:16)
+# phase 4d, cPIR on the card (kernels 9 and 10) with a config.PAILLIER_BITS key
+CPIR_CHECK_ROWS, CPIR_CHECK_COLS = 64, 4  # (a): a level-1 scan chunk, kernel vs plain
+CPIR_CHECK_MODEXPS, CPIR_CHECK_BITS = 16, 256  # (a): modexps mod N^2, kernel vs plain
+CPIR_BATCH = 1024  # (b): encryptions and decryptions against CPython pow
+CPIR_L2_MODEXPS = 64  # (b): modexps mod N^3 with exponents of bits(N^2)
+CPIR_GRID_ROWS = 1 << 20  # (d): the sqrt grid, 1024 x 1024 slots of CPIR_SLOT_BYTES
+CPIR_GRID_SAMPLES = 8  # (d): columns held against CPython
 # H100 SXM data-sheet peaks
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
@@ -221,6 +247,30 @@ extern "C" __global__ void aes_probe(const uint4* rk_in, uint4* io) {
 # SASS opcodes by the pipe that runs them (integer ALU, FMA, shared memory)
 AES_SASS_PIPES = {"alu": ("LOP3", "SHF", "PRMT", "IADD3", "LEA", "ISETP", "SEL", "MOV"),
                   "fma": ("IMAD",), "lds": ("LDS",)}
+# Phase 1's probe of one Montgomery product (csrc/mont.cuh) on a thread's
+# words in shared memory, as kernels 9 and 10 keep them, at a runtime L
+MONT_PROBE_CU = r"""
+#include "mont.cuh"
+extern "C" __global__ void mont_probe(const uint32_t* n, uint32_t n0inv, int L, uint32_t* io) {
+  extern __shared__ uint32_t s[];
+  const long long b = blockDim.x;
+  pir_mont::Words a{s + threadIdx.x, b}, t{s + threadIdx.x + (L + 1) * b, b};
+  for (int j = 0; j < L; ++j) a[j] = io[j * b + threadIdx.x];
+  pir_mont::mont_mul(a, a, pir_mont::CWords{n, 1}, n0inv, L, t);
+  for (int j = 0; j < L; ++j) io[j * b + threadIdx.x] = t[j];
+}
+"""
+# A Montgomery product of L words runs 2 L^2 + L wide (32 x 32 -> 64)
+# products, each two 32-bit integer multiply results at the INT32 rate: the
+# kernels' operations bound (mont_ms). Phase 1 counts the SASS of the
+# product's inner loop by pipe (mont_sass_counts; an IMAD.WIDE takes two
+# FMA-pipe slots) and fails if an iteration does fewer wide products than
+# the bound's 2.
+MONT_SASS_PIPES = {"alu": ("IADD3", "VIADD", "LOP3", "SHF", "SEL", "ISETP", "LEA", "MOV",
+                           "IABS", "PRMT"),
+                   "fma": ("IMAD",), "lsu": ("LDS", "STS", "LDG", "STG", "LD", "ST", "LDL",
+                                             "STL")}
+MONT_PIPE_RATES = {"alu": INT32_OPS_PER_S, "fma": INT32_OPS_PER_S, "lsu": SMEM_WORDS_PER_S}
 
 T0 = time.perf_counter()
 
@@ -263,6 +313,66 @@ def aes_sass_counts(nvcc: str, csrc: str) -> dict:
             "pipes": {p: sum(one.get(op, 0) for op in ops) for p, ops in AES_SASS_PIPES.items()}}
 
 
+def mont_sass_counts(nvcc: str, csrc: str) -> dict:
+    """One iteration of the Montgomery product's inner loop (the loop over
+    j of mont_mul), by opcode and by pipe, from the SASS of MONT_PROBE_CU:
+    of the innermost loops (a backward branch with no other inside it),
+    the one whose body holds the most wide multiplies (IMAD.WIDE.U32 or
+    IMAD.HI.U32 on registers), divided by its iterations (two wide
+    multiplies each: the compiler unrolls the loop)."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "mont_probe.cu")
+        with open(src, "w") as f:
+            f.write(MONT_PROBE_CU)
+        out = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-cubin",
+                              "-I", csrc, "-o", os.path.join(d, "mont.cubin"), src],
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            fail(f"the Montgomery probe did not build:\n{out.stdout}{out.stderr}")
+        sass = subprocess.run([cuobjdump, "-sass", os.path.join(d, "mont.cubin")],
+                              capture_output=True, text=True, check=True).stdout
+    ins = [(int(m.group(1), 16), m.group(2)) for m in
+           re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([^;]*?)\s*;", sass)]
+    at = {a: i for i, (a, _) in enumerate(ins)}
+
+    def wide(text):
+        return bool(re.match(r"IMAD\.(WIDE\.U32|HI\.U32) R\d+, R\d+, R\d+", text))
+
+    loops = []  # (first, last) instruction of each loop, by its backward branch
+    for i, (a, text) in enumerate(ins):
+        m = re.match(r"BRA .*?0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < a and int(m.group(1), 16) in at:
+            loops.append((at[int(m.group(1), 16)], i))
+    best = None
+    for lo, hi in loops:
+        if any(lo <= lo2 and hi2 < hi for lo2, hi2 in loops):
+            continue  # not innermost
+        body = ins[lo:hi + 1]
+        n = sum(wide(t) for _, t in body)
+        if n >= 2 and (best is None or n > best[0]):
+            best = (n, body)
+    if best is None:
+        return {"found": False}
+    iters = best[0] / 2
+    ops = {}
+    for _, text in best[1]:
+        op = text.split()[0]
+        ops[op] = ops.get(op, 0) + 1
+    pipes = {p: sum(n * (2 if op.startswith("IMAD.WIDE") else 1)
+                    for op, n in ops.items() if op.split(".")[0] in names) / iters
+             for p, names in MONT_SASS_PIPES.items()}
+    return {"found": True, "iterations_unrolled": iters,
+            "opcodes": {op: n / iters for op, n in sorted(ops.items())},
+            "wide_per_iteration": best[0] / iters, "pipes": pipes}
+
+
+def mont_ms(products: int, L: int) -> float:
+    """The least time of `products` Montgomery products of L words on the
+    card: their 2 L^2 + L wide products, two INT32 results each, in ms."""
+    return products * (2 * L * L + L) * 2 / INT32_OPS_PER_S * 1e3
+
+
 def aes_ms(blocks: int) -> float:
     """The least time of `blocks` AES-128 blocks on the card: the time of
     their busiest pipe (AES_BLOCK_PIPES), in ms."""
@@ -291,6 +401,7 @@ def main() -> int:
     from pir_tpu_torch import benchmarks_overlap as ov
     from pir_tpu_torch import server as server_mod
     from pir_tpu_torch.config import PirConfig
+    from pir_tpu_torch.crypto import mont
     from pir_tpu_torch.database import Database, DBMetadata
     from pir_tpu_torch.dpf import host as dpf_host
     from pir_tpu_torch.dpf.device import (
@@ -357,14 +468,19 @@ def main() -> int:
 
     # ---- phase 1: build -----------------------------------------------
     t = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         sass = pool.submit(aes_sass_counts, _build.nvcc_path(), str(_build.CSRC))
+        msass = pool.submit(mont_sass_counts, _build.nvcc_path(), str(_build.CSRC))
         logs = _build.build()
-        aes_sass = sass.result()
+        aes_sass, mont_sass = sass.result(), msass.result()
     log(f"phase 1: SASS of one AES-128 block (aes_lanes.cuh): by pipe {aes_sass['pipes']}, "
         f"the bound counts {AES_BLOCK_PIPES}; opcodes {aes_sass['opcodes']}")
     if any(aes_sass["pipes"][p] < n for p, n in AES_BLOCK_PIPES.items()):
         fail("the AES bound counts more instructions on a pipe than the SASS of a block has")
+    log(f"phase 1: SASS of one Montgomery inner-loop iteration (mont.cuh): {mont_sass}; the "
+        f"bound counts 2 wide products an iteration")
+    if mont_sass["found"] and mont_sass["wide_per_iteration"] < 2:
+        fail("the Montgomery bound counts more wide products than an iteration's SASS has")
     ptxas = {}  # kernel (mangled name) -> ptxas lines on registers, spills, wgmma serialized
     for name, text in logs.items():
         func = "?"
@@ -645,7 +761,8 @@ def main() -> int:
                "compat_stage": compat_stage, "fast_tail": fast_tail_expand,
                "fused_scan_expand": fused_scan_expand, "masked_xor_scan": masked_xor_scan,
                "planes_scan": planes_scan, "overlap_vpu": ov.vpu_probe,
-               "overlap_mxu": ov.mxu_probe, "overlap_mixed": ov.mixed_probe}
+               "overlap_mxu": ov.mxu_probe, "overlap_mixed": ov.mixed_probe,
+               "mont_powmod": mont.mont_powmod, "mont_scan": mont.mont_scan}
     path_launches = {}  # path -> {kernel: launches in that path's run}
 
     def reset_counts():
@@ -1338,10 +1455,21 @@ def main() -> int:
     svc = service_phase(db, keywords, args.seed, PirConfig(), (counted, reset_counts, read_counts),
                         rows_of, torch.cuda.synchronize)
     svc["phase_s"] = time.perf_counter() - t
+    cpir_tables = svc.pop("cpir_tables")
     gc.collect()  # the services' tables
     torch.cuda.empty_cache()
     log(f"phase 4c: done in {svc['phase_s']:.2f} s; max_memory_allocated "
         f"{svc.get('max_memory_allocated', 0) / 2**30:.2f} GiB")
+
+    # ---- phase 4d: cPIR on the card (kernels 9 and 10) -------------------------
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cpir = cpir_phase(*cpir_tables, args.seed, (counted, reset_counts, read_counts), None)
+    cpir["phase_s"] = time.perf_counter() - t
+    log(f"phase 4d: done in {cpir['phase_s']:.2f} s; max_memory_allocated "
+        f"{cpir['max_memory_allocated'] / 2**30:.3f} GiB")
+    gc.collect()  # phase 4d's services and references: no collection inside phase 5's timings
+    torch.cuda.empty_cache()
 
     # ---- phase 5: kernel times ----------------------------------------------
     def cuda_ms(fn, reps, warm=True):
@@ -1637,6 +1765,91 @@ def main() -> int:
                       f"{c_qc},{nc_last},{cw_w},{tails[-1]}")
     log(f"phase 5: ncu: {json.dumps(ncu)}")
 
+    # kernels 9 and 10 (crypto/mont.py) at phase 4d's shapes: kernel 9 on (b)'s
+    # r^N mod N^2 of an encryption batch (and, in the log and --out, on its
+    # CRT decryption halves and its level-2 modexps), kernel 10 on (d)'s grid;
+    # each kernel and its plain version also at (a)'s shapes
+    n = cpir.pop("n")
+    n2, n3 = n * n, n ** 3
+    prng = np.random.default_rng(args.seed + 8)
+
+    def big(m, count):  # random ints below m
+        return [int.from_bytes(prng.bytes(m.bit_length() // 8 + 8), "little") % m
+                for _ in range(count)]
+
+    def u32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)).to(dev)
+
+    L2, L3 = mont.words_for_modulus(n2), mont.words_for_modulus(n3)
+    mont_time = {}
+    e_enc = max(256, 1 << (n.bit_length() - 1).bit_length())  # paillier's device route
+    p2, q2 = cpir.pop("crt_moduli")
+    cases = {  # name: (bases, exponents, moduli, e_max, L)
+        "encrypt": ([x % n2 for x in big(n, CPIR_BATCH)], [n] * CPIR_BATCH, n2, e_enc, L2),
+        "decrypt_crt": (big(p2, CPIR_BATCH) + big(q2, CPIR_BATCH),
+                        big(p2, 2 * CPIR_BATCH),
+                        [p2] * CPIR_BATCH + [q2] * CPIR_BATCH, None,
+                        mont.words_for_modulus(max(p2, q2))),
+        "level2": (big(n3, CPIR_L2_MODEXPS), big(n2, CPIR_L2_MODEXPS), n3,
+                   n2.bit_length(), L3),
+        "check": (big(n2, CPIR_CHECK_MODEXPS), [x % (1 << CPIR_CHECK_BITS)
+                                               for x in big(n2, CPIR_CHECK_MODEXPS)],
+                  n2, CPIR_CHECK_BITS, L2),
+    }
+    for name, (bs, es, mods, e_max, L) in cases.items():
+        if e_max is None:  # the CRT route's bound: 256-bit steps
+            e_max = -(-max(e.bit_length() for e in es) // 256) * 256
+        bt, et = u32(mont.ints_to_words(bs, L)), u32(mont.pack_exponents(es, e_max))
+        ms9, got = cuda_ms(lambda: mont.mont_powmod(bt, et, mods, e_max), 3)
+        rows = len(bs)
+        # bound: the fewest products over every fixed window, not the
+        # kernel's own window
+        rec = {"ms": ms9, "rows": rows, "e_max": e_max, "words": L,
+               "products": mont.powmod_products(e_max, rows),
+               "least_products": mont.least_powmod_products(e_max, rows),
+               "bound_ms": {"operations": mont_ms(mont.least_powmod_products(e_max, rows), L),
+                            "bytes": nbytes(bt, et, got) / HBM_BYTES_PER_S * 1e3}}
+        if mont_sass["found"]:
+            rec["sass_floor_ms"] = mont.powmod_products(e_max, rows) * L * L * max(
+                c / MONT_PIPE_RATES[p] for p, c in mont_sass["pipes"].items()) * 1e3
+        if name == "check":  # phase 4d (a) timed the plain version on its operands
+            rec["plain_ms"] = cpir["s"]["check_powmod_plain"] * 1e3
+            rec["max_abs_err"] = cpir["max_abs_err"]["mont_powmod"]
+        if mont.words_to_ints(got[:4].cpu().numpy()) != [
+                pow(b, e, m) for b, e, m in zip(bs[:4], es[:4], mods if isinstance(mods, list)
+                                                 else [mods] * 4)]:
+            fail(f"phase 5: kernel 9 differs from CPython on the {name} batch")
+        mont_time[f"powmod_{name}"] = rec
+        log(f"phase 5: Montgomery modexps, {name} ({rows} x {e_max}-bit exponents, {L} "
+            f"words): {json.dumps(rec)}")
+    for name, (h, w) in (("grid", (cpir["grid"]["rows"], cpir["grid"]["width"])),
+                         ("check", (CPIR_CHECK_ROWS, CPIR_CHECK_COLS))):
+        bt = u32(mont.ints_to_words(big(n2, h), L2))
+        et = u32(prng.integers(0, 1 << 24, size=(h, w, 1), dtype=np.uint32))
+        ms10, got = cuda_ms(lambda: mont.mont_scan(bt, et, n2, 24), 3)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = mont.scan_plan(h, w, L2, 24, sms, mont._smem_optin(0))
+        # bound: Straus's method in one chunk at the best fixed window, each
+        # row's table shared by the columns (8 bits at 1024 x 1024), not the
+        # kernel's own plan
+        least = mont.least_scan_products(h, w, 24)
+        rec = {"ms": ms10, "rows": h, "cols": w, "plan": plan,
+               "products": mont.scan_products(plan, h, w, 24), "least_products": least,
+               "bound_ms": {"operations": mont_ms(least, L2),
+                            "bytes": nbytes(bt, et, got) / HBM_BYTES_PER_S * 1e3}}
+        if mont_sass["found"]:
+            rec["sass_floor_ms"] = rec["products"] * L2 * L2 * max(
+                c / MONT_PIPE_RATES[p] for p, c in mont_sass["pipes"].items()) * 1e3
+        if name == "check":
+            rec["plain_ms"] = cpir["s"]["check_scan_plain"] * 1e3
+            rec["max_abs_err"] = cpir["max_abs_err"]["mont_scan"]
+        mont_time[f"scan_{name}"] = rec
+        log(f"phase 5: Montgomery scan, {name} ({h} x {w} 24-bit exponents mod a "
+            f"{n2.bit_length()}-bit N^2): {json.dumps(rec)}")
+        del bt, et, got
+    if mont_time["powmod_check"]["max_abs_err"] or mont_time["scan_check"]["max_abs_err"]:
+        fail("phase 5: a Montgomery kernel disagrees with its plain version")
+
     launches = {name: sum(run.get(name, 0) for run in path_launches.values())
                 for name in counted}
 
@@ -1676,6 +1889,17 @@ def main() -> int:
               "pir_tpu/ops/pallas_scan.py:53", *ps_time[KW_BATCH][:4],
               max([v[4] for v in ps_time.values()] + list(e_ps.values()))),
     ]}
+    # kernels 9 and 10 have no Pallas counterpart (mont_tpu.py is jitted jnp):
+    # at (b)'s encryption batch and (d)'s grid, the plain versions at (a)'s
+    # shapes (the kernels' times there: log, --out); no PyTorch call does a
+    # big-integer modexp, hence no library time
+    for name, key, line in (("mont_powmod", "powmod_encrypt", 459),
+                            ("mont_scan", "scan_grid", 267)):
+        rec, chk = mont_time[key], mont_time[key.split("_")[0] + "_check"]
+        kernels["kernels"].append(entry(
+            name, "pir_tpu_torch/csrc/mont_exp.cu", f"pir_tpu/crypto/mont_tpu.py:{line}",
+            rec["ms"], chk["plain_ms"], rec["bound_ms"], None,
+            max(chk["max_abs_err"], cpir["max_abs_err"][name])))
     # the probe at the TPU probe's 256 rounds (PROBE_LONG_ITERS: log, --out);
     # only chain B has a PyTorch yardstick; max_abs_err from phase 2 (1, 7
     # and 256 rounds; run() raised on any difference at PROBE_LONG_ITERS)
@@ -1710,6 +1934,7 @@ def main() -> int:
                        overlap_probe={str(k): v for k, v in probe_time.items()},
                        updates_s=upd_s, updates_split_s=split_u, permutations_s=perms_s,
                        after_updates_s=upd_serve, persistence_s=persist, service=svc,
+                       cpir=cpir, mont_time=mont_time, mont_sass=mont_sass,
                        elapsed_s=time.perf_counter() - T0)
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)
@@ -2159,6 +2384,7 @@ def service_phase(db, keywords, seed, config, counting, rows_of, sync) -> dict:
     cpir["aspir_wrong_key_s"] = time.perf_counter() - t
     cpir["server_scan_s"] = list(c0.metrics.latencies_s) + list(c1.metrics.latencies_s)
     out["cpir"] = cpir
+    out["cpir_tables"] = (cdb, ckeys)  # phase 4d serves them again (not in --out)
     log(f"phase 4c: cPIR on {CPIR_ROWS} x {CPIR_SLOT_BYTES} B with a {pk.n.bit_length()}-bit "
         f"key (keygen {cpir['keygen_s']:.2f} s): encrypted query {cpir['encrypted_s']:.3f} s, "
         f"recursive {cpir['recursive_s']:.3f} s, AHE ASPIR right key "
@@ -2170,6 +2396,311 @@ def service_phase(db, keywords, seed, config, counting, rows_of, sync) -> dict:
     c1.close()
     if torch.cuda.is_available():
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def cpir_phase(cdb, ckeys, seed, counting, device) -> dict:
+    """Phase 4d: single-server cPIR with its modexps on the card, a
+    config.PAILLIER_BITS key (db_test.go:330); every comparison is exact
+    integer equality. (a) The kernels against their plain versions on the
+    card: a CPIR_CHECK_ROWS x CPIR_CHECK_COLS level-1 scan chunk and
+    CPIR_CHECK_MODEXPS modexps mod N^2 of CPIR_CHECK_BITS-bit exponents
+    (outside the counted run). Then, every launch count set to 0: (b) the
+    kernels against CPython pow at full size: the r^N mod N^2 of
+    encrypt_batch of CPIR_BATCH, decrypt_batch of those ciphertexts through
+    the CRT halves (a modulus a row), CPIR_L2_MODEXPS modexps mod N^3 with
+    exponents of bits(N^2); (c) the yardstick table (cdb) through engine
+    "torch": an encrypted and a recursive query equal to engine "python"'s
+    ciphertexts and recovering their rows; (d) the sqrt grid of
+    CPIR_GRID_ROWS slots, one encrypted query through engine "torch", its
+    split (host packing, upload, kernels, download and merge),
+    CPIR_GRID_SAMPLES columns against CPython and the row recovered; (e) an
+    AHE ASPIR round under device_modexp on the direct API (the right key
+    recovers, a wrong key proves only the decoy side); (f) a PirService
+    with PirConfig(paillier_engine="torch") beside one with
+    paillier_engine="python" (CPython): equal response bytes to the same encrypted, recursive and AHE
+    ASPIR frames, and a client's encrypted, recursive and AHE rounds
+    through it (a wrong key refused). Then each kernel's launches over
+    (b)-(f). device: None is the card ("cpu" rehearses on the plain
+    versions). Returns what it measured."""
+    import random
+    import socket
+    import struct
+
+    import numpy as np
+    import torch
+
+    from pir_tpu_torch import encrypted as enc
+    from pir_tpu_torch import wire
+    from pir_tpu_torch.aspir import (
+        auth_check,
+        auth_prove,
+        generate_auth_chal_for_query,
+        new_authenticated_query,
+    )
+    from pir_tpu_torch.config import PAILLIER_BITS, PirConfig
+    from pir_tpu_torch.crypto import mont, paillier
+    from pir_tpu_torch.service import (
+        OP_ASPIR_CHAL,
+        OP_ASPIR_PROOF,
+        OP_ENCRYPTED_QUERY,
+        OP_ENCRYPTED_QUERY_REC,
+        PirClient,
+        PirService,
+        _recv_frame,
+        _send_frame,
+    )
+    from pir_tpu_torch.state import database_from_numpy
+
+    counted, reset_counts, read_counts = counting
+    dev = mont.resolve_device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    rnd = random.Random(seed + 7)
+    nrng = np.random.default_rng(seed + 7)
+    out = {"s": {}}
+    t = time.perf_counter()
+    sk, pk = paillier.keygen(PAILLIER_BITS)
+    out["keygen_s"], out["key_bits"] = time.perf_counter() - t, pk.n.bit_length()
+    n, n2, n3 = pk.n, pk.n2, pk.n3
+
+    def u32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)).to(dev)
+
+    def timed(label, fn):
+        t = time.perf_counter()
+        res = fn()
+        sync()
+        out["s"][label] = time.perf_counter() - t
+        return res
+
+    # (a) kernels against plain versions, on the card
+    L2 = mont.words_for_modulus(n2)
+    cb = u32(mont.ints_to_words([rnd.randrange(1, n2) for _ in range(CPIR_CHECK_ROWS)], L2))
+    ce = u32(nrng.integers(0, 1 << 24, size=(CPIR_CHECK_ROWS, CPIR_CHECK_COLS, 1),
+                           dtype=np.uint32))
+    pb = u32(mont.ints_to_words([rnd.randrange(n2) for _ in range(CPIR_CHECK_MODEXPS)], L2))
+    pe = u32(mont.pack_exponents([rnd.getrandbits(CPIR_CHECK_BITS)
+                                  for _ in range(CPIR_CHECK_MODEXPS)], CPIR_CHECK_BITS))
+    mont.mont_scan(cb, ce, n2, 24)  # warm-ups
+    mont.mont_powmod(pb, pe, n2, CPIR_CHECK_BITS)
+    got = timed("check_scan_kernel", lambda: mont.mont_scan(cb, ce, n2, 24))
+    want = timed("check_scan_plain", lambda: mont.mont_scan_plain(cb, ce, n2, 24))
+    got_p = timed("check_powmod_kernel", lambda: mont.mont_powmod(pb, pe, n2, CPIR_CHECK_BITS))
+    want_p = timed("check_powmod_plain",
+                   lambda: mont.mont_powmod_plain(pb, pe, n2, CPIR_CHECK_BITS))
+    out["max_abs_err"] = {
+        "mont_scan": int((got.long() - want.long()).abs().max()),
+        "mont_powmod": int((got_p.long() - want_p.long()).abs().max())}
+    log(f"phase 4d: {pk.n.bit_length()}-bit key; (a) kernels vs plain on {dev}: a "
+        f"{CPIR_CHECK_ROWS} x {CPIR_CHECK_COLS} scan chunk and {CPIR_CHECK_MODEXPS} modexps "
+        f"of {CPIR_CHECK_BITS}-bit exponents mod N^2, max_abs_err {out['max_abs_err']}")
+    if any(out["max_abs_err"].values()):
+        fail("phase 4d: a Montgomery kernel disagrees with its plain version")
+
+    reset_counts()
+    # (b) against CPython pow at full size
+    rs = [pk.random_r() for _ in range(CPIR_BATCH)]
+    with paillier.device_modexp(True, device):
+        got = timed("encrypt_modexps", lambda: paillier._powmod_batch(rs, [n] * CPIR_BATCH, n2))
+    t = time.perf_counter()
+    want = [pow(r, n, n2) for r in rs]
+    out["s"]["encrypt_modexps_cpython"] = time.perf_counter() - t
+    if got != want:
+        fail("phase 4d: r^N mod N^2 of the encryption batch differs from CPython")
+    ms = [rnd.randrange(n) for _ in range(CPIR_BATCH)]
+    with paillier.device_modexp(True, device):
+        cts = timed("encrypt_batch", lambda: pk.encrypt_batch(ms))
+        dec = timed("decrypt_batch", lambda: sk.decrypt_batch(cts))
+        crt = sk._powmod_batch_sk([c.c for c in cts[:64]], [sk.lam] * len(cts[:64]), 2)
+    t = time.perf_counter()
+    dec_py = sk.decrypt_batch(cts)
+    out["s"]["decrypt_batch_cpython"] = time.perf_counter() - t
+    if dec != ms or dec_py != ms or crt != [pow(c.c, sk.lam, n2) for c in cts[:64]]:
+        fail("phase 4d: the decryption batch (CRT, a modulus a row) differs from CPython")
+    b3 = [rnd.randrange(n3) for _ in range(CPIR_L2_MODEXPS)]
+    e3 = [rnd.getrandbits(n2.bit_length()) for _ in range(CPIR_L2_MODEXPS)]
+    got = timed("level2_modexps", lambda: mont.device_powmod_batch(
+        b3, e3, n3, e_max=n2.bit_length(), device=device))
+    t = time.perf_counter()
+    want = [pow(b, e, n3) for b, e in zip(b3, e3)]
+    out["s"]["level2_modexps_cpython"] = time.perf_counter() - t
+    if got != want:
+        fail("phase 4d: the level-2 modexps differ from CPython")
+    log(f"phase 4d: (b) equal to CPython pow: {CPIR_BATCH} r^N mod N^2, encrypt_batch and "
+        f"decrypt_batch (CRT halves, a modulus a row) of {CPIR_BATCH}, {CPIR_L2_MODEXPS} "
+        f"modexps mod N^3 of {n2.bit_length()}-bit exponents; s {out['s']}")
+
+    # (c) the yardstick table through engine "torch"
+    cmd = cdb.metadata()
+    width, _ = cmd.get_dimensions_for_database(int(np.ceil(np.sqrt(cdb.db_size))), 1)
+    row, target = rnd.randrange(cdb.db_size // width), rnd.randrange(cdb.db_size)
+    with paillier.device_modexp(True, device):
+        q = timed("yardstick_query_gen", lambda: enc.new_encrypted_query(cmd, pk, 1, row))
+        dq = timed("yardstick_recursive_gen",
+                   lambda: enc.new_doubly_encrypted_query(cmd, pk, 1, target))
+    res = {}
+    for engine in ("python", "torch"):
+        res[engine] = (
+            timed(f"yardstick_scan_{engine}", lambda: enc.private_encrypted_query(
+                cdb, q, engine=engine, device=device)),
+            timed(f"yardstick_recursive_{engine}", lambda: enc.private_doubly_encrypted_query(
+                cdb, dq, engine=engine, device=device)))
+    ints = {e: [[[c.c for c in sl.cts] for sl in r.slots] for r in v] for e, v in res.items()}
+    if ints["torch"] != ints["python"]:
+        fail("phase 4d: engine 'torch' differs from engine 'python' on the yardstick table")
+    with paillier.device_modexp(True, device):
+        got = timed("yardstick_recover", lambda: enc.recover_encrypted(res["torch"][0], sk))
+        got2 = enc.recover_doubly_encrypted(res["torch"][1], sk)
+    if [bytes(x.data) for x in got] != [cdb.data[row * width + j].tobytes()
+                                        for j in range(width)] or \
+            bytes(got2[0].data) != cdb.data[target].tobytes():
+        fail("phase 4d: the yardstick queries through engine 'torch' do not recover their rows")
+    log(f"phase 4d: (c) {cdb.db_size} x {cdb.slot_bytes} B: engine 'torch' equal to 'python' "
+        f"(encrypted and recursive), rows recovered")
+
+    # (d) the sqrt grid: CPIR_GRID_ROWS slots
+    gdata = np.frombuffer(nrng.bytes(CPIR_GRID_ROWS * CPIR_SLOT_BYTES), np.uint8).reshape(
+        CPIR_GRID_ROWS, CPIR_SLOT_BYTES)
+    gdb = database_from_numpy(gdata, CPIR_SLOT_BYTES)
+    gmd = gdb.metadata()
+    gw, gh = gmd.get_dimensions_for_database(int(np.ceil(np.sqrt(CPIR_GRID_ROWS))), 1)
+    grow = rnd.randrange(gh)
+    with paillier.device_modexp(True, device):
+        gq = timed("grid_query_gen", lambda: enc.new_encrypted_query(gmd, pk, 1, grow))
+    num_cts = max(1, -(-CPIR_SLOT_BYTES // paillier.msg_space_bytes(pk)))
+    split = {}
+    t = time.perf_counter()
+    emat, e_max, _ = enc._level1_exponents(gdb, gw, gh, num_cts)
+    bases = mont.ints_to_words([c.c % n2 for c in gq.ebits], L2)
+    split["host_packing"] = time.perf_counter() - t
+    t = time.perf_counter()
+    bt, et = u32(bases), u32(emat)
+    sync()
+    split["upload"] = time.perf_counter() - t
+    t = time.perf_counter()
+    words = mont.mont_scan(bt, et, n2, e_max)
+    sync()
+    split["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    prods = mont.words_to_ints(words.cpu().numpy())
+    slots = [enc.EncryptedSlot([enc.Ciphertext(prods[c * num_cts + j], 1)
+                                for j in range(num_cts)]) for c in range(gw)]
+    split["download_merge"] = time.perf_counter() - t
+    gres = timed("grid_scan_entry_point", lambda: enc.private_encrypted_query(
+        gdb, gq, engine="torch", device=device))
+    if [[c.c for c in sl.cts] for sl in gres.slots] != [[c.c for c in sl.cts] for sl in slots]:
+        fail("phase 4d: the grid query's entry point differs from its split run")
+    t = time.perf_counter()
+    for col in rnd.sample(range(gw * num_cts), CPIR_GRID_SAMPLES):
+        acc = 1
+        for r in range(gh):
+            acc = acc * pow(gq.ebits[r].c, int.from_bytes(emat[r, col].tobytes(), "little"),
+                            n2) % n2
+        if acc != prods[col]:
+            fail(f"phase 4d: grid column {col} differs from CPython")
+    out["s"]["grid_samples_cpython"] = time.perf_counter() - t
+    with paillier.device_modexp(True, device):
+        got = timed("grid_recover", lambda: enc.recover_encrypted(gres, sk))
+    if [bytes(x.data) for x in got] != [gdata[grow * gw + j].tobytes() for j in range(gw)]:
+        fail("phase 4d: the grid query does not recover its row")
+    out["grid"] = {"rows": gh, "width": gw, "num_cts": num_cts, "e_max": e_max,
+                   "split_s": split}
+    log(f"phase 4d: (d) {CPIR_GRID_ROWS} slots x {CPIR_SLOT_BYTES} B as {gh} x {gw}: "
+        f"{gh * gw * num_cts} modexps of {e_max}-bit exponents mod a {n2.bit_length()}-bit "
+        f"N^2; split (s) {split}; entry point {out['s']['grid_scan_entry_point']:.4f} s; "
+        f"{CPIR_GRID_SAMPLES} columns equal CPython, row {grow} recovered")
+    del gdata, gdb, emat, bt, et, words
+
+    # (e) AHE ASPIR on the direct API under device_modexp
+    aspir = {}
+    for key_row, label in ((target, "right"), ((target + 1) % cdb.db_size, "wrong")):
+        t0 = time.perf_counter()
+        with paillier.device_modexp(True, device):
+            aq, ast = timed(f"aspir_{label}_query_gen", lambda: new_authenticated_query(
+                cmd, sk, 1, target, ckeys.slot(key_row)))
+            chal = timed(f"aspir_{label}_challenge", lambda: generate_auth_chal_for_query(
+                8, ckeys, aq, engine="torch", device=device))
+            proof = timed(f"aspir_{label}_prove", lambda: auth_prove(ast, chal))
+            ok = timed(f"aspir_{label}_check", lambda: auth_check(pk, aq, chal, proof))
+            side = aq.query0 if proof.q_bit == 0 else aq.query1
+            ans = timed(f"aspir_{label}_answer", lambda: enc.private_doubly_encrypted_query(
+                cdb, side, engine="torch", device=device))
+            got = enc.recover_doubly_encrypted(ans, sk)
+        aspir[label] = time.perf_counter() - t0
+        real = proof.q_bit == ast.bit  # else only the decoy (null) side was provable
+        recovered = bytes(got[0].data) == cdb.data[target].tobytes()
+        if not ok or real != (label == "right") or recovered != (label == "right"):
+            fail(f"phase 4d: AHE ASPIR with the {label} key: proof {ok}, real side {real}, "
+                 f"recovered {recovered}")
+    out["aspir_round_s"] = aspir
+    log(f"phase 4d: (e) AHE ASPIR under device_modexp: right key recovers in "
+        f"{aspir['right']:.3f} s (DDLEQ prove {out['s']['aspir_right_prove']:.3f} s, "
+        f"check {out['s']['aspir_right_check']:.3f} s), wrong key proves only the decoy side "
+        f"({aspir['wrong']:.3f} s)")
+
+    # (f) a PirService with paillier_engine="torch" beside a CPython one
+    svcs = {"python": PirService(cdb, config=PirConfig(paillier_engine="python", device=device),
+                                 key_db=ckeys).start(),
+            "torch": PirService(cdb, config=PirConfig(paillier_engine="torch", device=device),
+                                key_db=ckeys).start()}
+    try:
+        aq, ast = new_authenticated_query(cmd, sk, 1, target, ckeys.slot(target))
+        frames = [(OP_ENCRYPTED_QUERY, wire.serialize_encrypted_query(q)),
+                  (OP_ENCRYPTED_QUERY_REC, wire.serialize_doubly_encrypted_query(dq)),
+                  (OP_ASPIR_CHAL, struct.pack("<I", 8) + wire.serialize_auth_query(aq))]
+        answers, socks, proof_frame = {}, {}, None
+        for engine, svc in svcs.items():
+            socks[engine] = sock = socket.create_connection(svc.address)
+            answers[engine] = []
+            t = time.perf_counter()
+            for op, payload in frames:
+                _send_frame(sock, op, payload)
+                answers[engine].append(_recv_frame(sock))
+            out["s"][f"service_frames_{engine}"] = time.perf_counter() - t
+        for engine, sock in socks.items():  # the same challenge: one proof for both
+            if proof_frame is None:
+                chal_resp = answers[engine][-1][1]
+                with paillier.device_modexp(True, device):
+                    proof = auth_prove(ast, wire.deserialize_chal_token(chal_resp[8:]))
+                proof_frame = chal_resp[:8] + wire.serialize_proof_token(proof)
+            t = time.perf_counter()
+            _send_frame(sock, OP_ASPIR_PROOF, proof_frame)
+            answers[engine].append(_recv_frame(sock))
+            out["s"][f"service_proof_{engine}"] = time.perf_counter() - t
+            sock.close()
+        if answers["torch"] != answers["python"] or answers["torch"][-1][1][:1] != b"\x01":
+            fail("phase 4d: the 'torch' service's cPIR and AHE ASPIR answers differ from the "
+                 "CPython service's")
+        client = PirClient([svcs["torch"].address])
+        with paillier.device_modexp(True, device):
+            got = timed("service_encrypted", lambda: client.query_encrypted(row, sk, pk))
+            got2 = timed("service_recursive",
+                         lambda: client.query_encrypted_recursive(target, sk, pk))
+            got3 = timed("service_aspir_right", lambda: client.query_authenticated(
+                target, sk, ckeys.slot(target)))
+            t = time.perf_counter()
+            try:
+                client.query_authenticated(target, sk, ckeys.slot((target + 1) % cdb.db_size))
+                fail("phase 4d: the 'torch' service let a wrong AHE ASPIR key through")
+            except PermissionError:
+                out["s"]["service_aspir_wrong"] = time.perf_counter() - t
+        client.close()
+        if [bytes(x.data) for x in got] != [cdb.data[row * width + j].tobytes()
+                                            for j in range(width)] or \
+                bytes(got2[0].data) != cdb.data[target].tobytes() or \
+                bytes(got3[0].data) != cdb.data[target].tobytes():
+            fail("phase 4d: the 'torch' service's rounds do not recover their rows")
+    finally:
+        for svc in svcs.values():
+            svc.close()
+    log(f"phase 4d: (f) the 'torch' service's encrypted, recursive, AHE challenge and proof "
+        f"answers equal the CPython service's bytes; its client rounds recover, a wrong key "
+        f"is refused")
+    out["launches"] = read_counts("cpir", ("mont_powmod", "mont_scan"))
+    out["n"], out["crt_moduli"] = n, (sk.p ** 2, sk.q ** 2)  # phase 5's operands
+    out["max_memory_allocated"] = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+                                   else 0)
+    log(f"phase 4d: seconds {json.dumps({k: round(v, 4) for k, v in out['s'].items()})}")
     return out
 
 

@@ -18,10 +18,11 @@ ports the TPU overlap probe. The kernels are hand-written CUDA
 The serving shell (``service.PirService`` / ``PirClient``, the same
 frames and ``wire`` messages as pir_tpu's) answers every protocol family
 over TCP: index, keyword and multi-party shares on a TorchPirServer,
-single-server cPIR under Paillier (``encrypted``, ``crypto/paillier``,
-CPython on the host) and both ASPIR variants (``aspir``,
-``aspir_shared``); ``config.PirConfig`` picks the engine and device, and
-``python -m pir_tpu_torch.demo`` runs them all. Nothing of JAX or of
+single-server cPIR under Paillier (``encrypted``, ``crypto/paillier``:
+CPython on the host, or with engine ``"torch"`` its batched modexps on
+the card's Montgomery kernels, ``crypto/mont``) and both ASPIR variants
+(``aspir``, ``aspir_shared``); ``config.PirConfig`` picks the engines and
+device, and ``python -m pir_tpu_torch.demo`` runs them all. Nothing of JAX or of
 pir_tpu is imported; each module names its pir_tpu counterpart.
 """
 

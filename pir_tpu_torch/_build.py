@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("stacked_tail", "packed_scan", "compat_stage", "fast_tail", "fused_scan_expand",
-           "masked_xor_scan", "planes_scan", "overlap_probe")
+           "masked_xor_scan", "planes_scan", "overlap_probe", "mont_exp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -107,7 +107,7 @@ def new_authenticated_query(
 
 def generate_auth_chal_for_query(
     secparam: int, key_db: Database, query: AuthenticatedEncryptedQuery,
-    engine: str | None = None,
+    engine: str | None = None, device=None,
 ) -> ChalToken:
     """aspir.go:62-108.
 
@@ -115,7 +115,7 @@ def generate_auth_chal_for_query(
     group size 1 and the row width divided by the data group size. The
     reference mutates the query struct and restores it (aspir.go:69-76,
     100-105); we adjust copies instead. `engine` selects the cPIR scan
-    backend (encrypted._scan_fn) for both passes.
+    engine (encrypted.scan_engine) for both passes, `device` its device.
     """
     from dataclasses import replace
 
@@ -136,13 +136,13 @@ def generate_auth_chal_for_query(
 
     q0, q1 = narrowed(query.query0), narrowed(query.query1)
 
-    row_res0 = private_encrypted_query(key_db, q0.row, engine=engine)
-    row_res1 = private_encrypted_query(key_db, q1.row, engine=engine)
+    row_res0 = private_encrypted_query(key_db, q0.row, engine=engine, device=device)
+    row_res1 = private_encrypted_query(key_db, q1.row, engine=engine, device=device)
     res0 = private_encrypted_query_over_encrypted_result(
-        key_db, q0.col, row_res0, engine=engine
+        key_db, q0.col, row_res0, engine=engine, device=device
     )
     res1 = private_encrypted_query_over_encrypted_result(
-        key_db, q1.col, row_res1, engine=engine
+        key_db, q1.col, row_res1, engine=engine, device=device
     )
 
     for res in (res0, res1):

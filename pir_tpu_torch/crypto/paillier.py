@@ -11,15 +11,22 @@ knowledge of (a, b) with ct2 = ct1^(a^N) * b^(N^2) mod N^3. Keys,
 ciphertexts, proofs and challenge bits equal pir_tpu's on the same
 inputs.
 
-Every modexp is CPython ``pow``. pir_tpu's two accelerated routes are
-not ported: its native C++ Montgomery engine (ROADMAP queue 1 [18]) and
-its batched Montgomery engine on the TPU (``enable_tpu_modexp``,
-``tpu_modexp``; ROADMAP queue 1 [13]). The secret-key side keeps its
-CRT fast path (``SecretKey._powmod_batch_sk``), which is arithmetic.
+Single modexps are CPython ``pow``. Batched modexps (encryption batches,
+decryption batches, the DDLEQ repetitions) run on the card's Montgomery
+engine (``crypto/mont.py``, kernel 9) when ``enable_device_modexp()``
+(process-wide) or the scoped ``device_modexp()`` (the calling thread,
+until it exits) turns the route on, under pir_tpu's
+conditions for its TPU route (``enable_tpu_modexp`` / ``tpu_modexp``);
+else CPython ``pow``. Both give equal ints. The secret-key side keeps its
+CRT fast path (``SecretKey._powmod_batch_sk``), whose two halves ride one
+launch with a modulus per row on the device route. pir_tpu's native C++
+engine is not ported (ROADMAP queue 1 [18]).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import hashlib
 import secrets
 from dataclasses import dataclass
@@ -28,6 +35,40 @@ from dataclasses import dataclass
 ENC_LEVEL_ONE = 1
 ENC_LEVEL_TWO = 2
 
+# the device route: None (off) or (device,), None being the card. The
+# process-wide default (enable_device_modexp), which device_modexp()
+# overrides in the calling thread's context only.
+_device_modexp: tuple | None = None
+_UNSET = object()
+_scoped_modexp: contextvars.ContextVar = contextvars.ContextVar("device_modexp",
+                                                               default=_UNSET)
+_DEVICE_MODEXP_MIN_BATCH = 16
+
+
+def enable_device_modexp(enabled: bool = True, device=None) -> None:
+    """Route batched modexps through the card's Montgomery engine
+    (crypto/mont.py) when the batch is large enough, process-wide; device
+    None is the card (raising at the first batch where no CUDA is
+    present), "cpu" the engine's plain version."""
+    global _device_modexp
+    _device_modexp = (device,) if enabled else None
+
+
+@contextlib.contextmanager
+def device_modexp(enabled: bool = True, device=None):
+    """Scoped route: on (to `device`) or off for the calling thread until
+    exit, whatever the process-wide default; other threads keep theirs."""
+    token = _scoped_modexp.set((device,) if enabled else None)
+    try:
+        yield
+    finally:
+        _scoped_modexp.reset(token)
+
+
+def _route() -> tuple | None:
+    route = _scoped_modexp.get()
+    return _device_modexp if route is _UNSET else route
+
 
 def _powmod(b: int, e: int, m: int) -> int:
     return pow(b, e, m)
@@ -35,7 +76,18 @@ def _powmod(b: int, e: int, m: int) -> int:
 
 def _powmod_batch(bases, exps, m: int, common_base: bool = False) -> list[int]:
     """Modexps over one modulus; common_base=True takes one base (an int)
-    for every exponent."""
+    for every exponent. On the device route (an odd modulus of >= 256
+    bits, no negative exponent, a batch of >= 16) kernel 9 runs them, the
+    exponent bound rounded up to a power of two of >= 256 bits."""
+    route = _route()
+    if (route is not None and (m & 1) and m.bit_length() >= 256
+            and len(exps) >= _DEVICE_MODEXP_MIN_BATCH and all(e >= 0 for e in exps)):
+        from .mont import device_powmod_batch
+
+        e_max = max((e.bit_length() for e in exps), default=1)
+        e_max = max(256, 1 << (e_max - 1).bit_length())
+        bs = [bases] * len(exps) if common_base else list(bases)
+        return device_powmod_batch(bs, exps, m, e_max=e_max, device=route[0])
     if common_base:
         return [pow(bases, e, m) for e in exps]
     return [pow(b, e, m) for b, e in zip(bases, exps)]
@@ -236,7 +288,8 @@ class SecretKey(PublicKey):
         """Batched pow(base, exp, N^s) via the CRT over p^s / q^s with
         exponents reduced mod phi: knowing the factorization makes every
         sk-side ladder ~4x cheaper (half-width modulus, shorter exponent).
-        Equal to the plain path: a mathematical identity."""
+        Equal to the plain path: a mathematical identity. On the device
+        route both halves ride one launch of kernel 9, a modulus per row."""
         ps, qs, phip, phiq, inv_ps_qs = self._crt[s]
         blist = [bases] * len(exps) if common_base else list(bases)
         if any(b % self.p == 0 or b % self.q == 0 for b in blist):
@@ -246,7 +299,15 @@ class SecretKey(PublicKey):
             return _powmod_batch(bases, exps, ps * qs, common_base=common_base)
         ep = [e % phip for e in exps]
         eq = [e % phiq for e in exps]
-        if common_base:
+        route = _route()
+        if route is not None and 2 * len(exps) >= _DEVICE_MODEXP_MIN_BATCH:
+            from .mont import device_powmod_batch_multi
+
+            res = device_powmod_batch_multi(
+                [b % ps for b in blist] + [b % qs for b in blist],
+                ep + eq, [ps] * len(exps) + [qs] * len(exps), device=route[0])
+            xps, xqs = res[:len(exps)], res[len(exps):]
+        elif common_base:
             xps = _powmod_batch(bases % ps, ep, ps, common_base=True)
             xqs = _powmod_batch(bases % qs, eq, qs, common_base=True)
         else:

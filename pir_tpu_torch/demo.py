@@ -1,7 +1,7 @@
 """End-to-end demo of the port: non-colluding PIR services and a client,
 over TCP (counterpart of ``examples/demo.py``).
 
-    python -m pir_tpu_torch.demo [--device cpu]
+    python -m pir_tpu_torch.demo [--device cpu] [--paillier-engine python]
 
 Runs all four served protocol families:
   1. secret-shared index PIR (2 servers), fast and reference-exact keys
@@ -10,7 +10,10 @@ Runs all four served protocol families:
   4. recursive (doubly-encrypted) cPIR (db.go:273-358)
 plus a local ASPIR audit round (aspir_shared.py) and ASPIR served over
 TCP. Every service answers on a TorchPirServer on the card, or with
-``--device cpu`` on the CPU; Paillier work is CPython on the host.
+``--device cpu`` on the CPU, and runs its cPIR scans on the same device
+(the Montgomery kernels, or their plain versions on the CPU, which take
+minutes there) unless ``--paillier-engine python`` names the CPython
+loop; the client's Paillier work is CPython.
 """
 
 from __future__ import annotations
@@ -34,8 +37,11 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="the services' device: the card by default, 'cpu' for the CPU")
+    ap.add_argument("--paillier-engine", default=None, choices=("torch", "python"),
+                    help="the services' cPIR engine: 'torch' (the default) on --device, "
+                         "'python' for CPython")
     args = ap.parse_args(argv)
-    cfg = PirConfig(device=args.device)
+    cfg = PirConfig(device=args.device, paillier_engine=args.paillier_engine)
 
     # --- 1. 2-server index PIR over TCP ---
     db = generate_random_db(1 << 12, 32)

@@ -8,17 +8,23 @@ an encrypted selection, sum_row Enc(bit_row) * slot_chunk, per column and
 chunk; the recursive variant re-selects over the level-1 ciphertexts with
 level-2 ConstMult/Add.
 
-The scan is the CPython loop, pir_tpu's golden engine; its answers are
-the same ciphertext ints as every pir_tpu engine's. pir_tpu's other two
-scan engines are not ported and are refused by name (``scan_engine``):
-the native C++ engine (ROADMAP queue 1 [18]) and the batched Montgomery
-engine on the device (queue 1 [13]).
+Two scan engines (``scan_engine``): None and ``"torch"`` run the batched
+Montgomery multi-exponentiation of ``crypto/mont.py`` (kernel 10) on
+``device=`` (None is the card, and raises with no CUDA; ``"cpu"`` the
+plain version), as pir_tpu's ``"tpu"`` engine runs
+``tpu_paillier_scan``; ``"python"`` runs the CPython loop, pir_tpu's
+golden engine, which the caller asks for by name. Both give the same
+ciphertext ints as every pir_tpu engine. pir_tpu's ``"tpu"`` engine is
+refused by name in favour of ``"torch"``, its native C++ engine as not
+ported (ROADMAP queue 1 [18]).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+
+import numpy as np
 
 from .crypto.paillier import (
     ENC_LEVEL_ONE,
@@ -32,10 +38,9 @@ from .database import Database, DBMetadata
 from .slot import Slot
 
 # Serving bound on client-supplied Paillier moduli: scan work is cubic
-# in bits(N) on every engine, and on the TPU engine each 240-bit limb
-# bucket compiles a fresh executable — an uncapped modulus lets one
-# client stall a serving host indefinitely. 8192-bit N (N^3 = 24 kbit)
-# is far beyond any real deployment's key size.
+# in bits(N) on every engine, so an uncapped modulus lets one client stall
+# a serving host indefinitely. 8192-bit N (N^3 = 24 kbit, 768 words on the
+# device engine) is far beyond any real deployment's key size.
 MAX_PAILLIER_BITS = 8192
 
 
@@ -149,33 +154,58 @@ def new_doubly_encrypted_null_query(
 # Server: encrypted scans
 # --------------------------------------------------------------------------
 
-def scan_engine(engine: str | None) -> None:
+def scan_engine(engine: str | None) -> str:
     """Resolve a cPIR scan engine (pir_tpu/encrypted.py:_scan_fn): None and
-    "python" run the CPython loop; pir_tpu's "native" and "tpu" engines
-    are not ported and raise, never falling back to the loop."""
-    if engine in (None, "python"):
-        return
+    "torch" are the device Montgomery engine ("torch"), "python" the
+    CPython loop; pir_tpu's "native" and "tpu" engines raise, never
+    falling back to the loop."""
+    if engine in (None, "torch"):
+        return "torch"
+    if engine == "python":
+        return "python"
     if engine == "native":
         raise ValueError("the native cPIR scan engine is not ported (ROADMAP queue 1 [18]); "
-                         "use engine=None or 'python'")
+                         "use engine='torch' or 'python'")
     if engine == "tpu":
-        raise ValueError("the device cPIR scan engine is not ported (ROADMAP queue 1 [13]); "
-                         "use engine=None or 'python'")
+        raise ValueError("the TPU cPIR scan engine is not ported: use engine='torch', the "
+                         "batched Montgomery engine on the card")
     raise ValueError(f"unknown cPIR scan engine {engine!r}")
+
+
+def _level1_exponents(db: Database, dim_width: int, dim_height: int, num_cts: int):
+    """The level-1 exponent matrix (pir_tpu/encrypted.py:234-262) straight
+    from the database's bytes: (dim_height, dim_width * num_cts, EW) uint32
+    words, slot (row, col)'s chunk j at column col * num_cts + j, each
+    chunk the big-endian int of its ceil(slot_bytes / num_cts) bytes
+    (Slot.to_int_array); slots past the database keep exponent 0, the
+    identity. Returns (matrix, e_max = 8 bytes a chunk, bytes a chunk)."""
+    per = max(1, -(-db.slot_bytes // num_cts))
+    ew = max(1, -(-per // 4))
+    n = dim_height * dim_width
+    live = min(n, db.db_size)
+    out = np.zeros((n, num_cts, 4 * ew), dtype=np.uint8)
+    data = np.asarray(db.data[:live], dtype=np.uint8)
+    for j in range(num_cts):
+        start, end = j * per, min(db.slot_bytes, (j + 1) * per)
+        if start < end:  # little-endian bytes of the chunk's big-endian int
+            out[:live, j, :end - start] = data[:, start:end][:, ::-1]
+    words = out.view("<u4").astype(np.uint32).reshape(dim_height, dim_width * num_cts, ew)
+    return words, 8 * -(-db.slot_bytes // num_cts), per
 
 
 def private_encrypted_query(
     db: Database, query: EncryptedQuery, nprocs: int | None = None,
-    engine: str | None = None,
+    engine: str | None = None, device=None,
 ) -> EncryptedQueryResult:
     """The AHE scan (db.go:176-271).
 
     Slots are packed into ceil(slot_bytes / (|N|-2)) plaintext chunks;
     answer[col][chunk] = sum_row Enc(bit_row) * chunk(row, col).
 
-    `engine` is checked by scan_engine; `nprocs` (the reference's
-    goroutine fan-out, db.go:193-261) is accepted and unused: the scan is
-    one CPython loop.
+    `engine` is resolved by scan_engine; "torch" (and None) scans the
+    exponent matrix on `device` (None: the card) with the layout's bound of 8 bits a chunk
+    byte. `nprocs` (the reference's goroutine fan-out, db.go:193-261) is
+    accepted and unused.
     """
     pk = query.pk
     dim_width, dim_height = query.db_width, query.db_height
@@ -200,7 +230,15 @@ def private_encrypted_query(
         raise ValueError("paillier modulus exceeds the serving bound")
     num_cts = max(1, math.ceil(db.slot_bytes / msg_space_bytes(pk)))
 
-    scan_engine(engine)
+    if scan_engine(engine) == "torch":
+        from .crypto.mont import paillier_scan_words
+
+        emat, e_max, per = _level1_exponents(db, dim_width, dim_height, num_cts)
+        out = paillier_scan_words([ct.c for ct in query.ebits], emat, pk.n2, e_max, device)
+        slots = [EncryptedSlot([Ciphertext(out[col * num_cts + j], ENC_LEVEL_ONE)
+                                for j in range(num_cts)]) for col in range(dim_width)]
+        return EncryptedQueryResult(slots, pk, db.slot_bytes, per)
+
     num_bytes_per_ciphertext = 0
     slots = [
         EncryptedSlot([pk.null_ciphertext(ENC_LEVEL_ONE) for _ in range(num_cts)])
@@ -224,24 +262,27 @@ def private_encrypted_query(
 
 def private_doubly_encrypted_query(
     db: Database, query: DoublyEncryptedQuery, nprocs: int | None = None,
-    engine: str | None = None,
+    engine: str | None = None, device=None,
 ) -> DoublyEncryptedQueryResult:
     """db.go:273-292: row pass then column pass."""
     if query.row.group_size > db.db_size or query.row.group_size == 0:
         raise ValueError("invalid group size provided in query")
     if query.col.group_size > query.row.db_width or query.col.group_size == 0:
         raise ValueError("invalid group size provided in query")
-    row_res = private_encrypted_query(db, query.row, nprocs, engine)
+    row_res = private_encrypted_query(db, query.row, nprocs, engine, device)
     return private_encrypted_query_over_encrypted_result(
-        db, query.col, row_res, nprocs, engine
+        db, query.col, row_res, nprocs, engine, device
     )
 
 
 def private_encrypted_query_over_encrypted_result(
     db: Database, query: EncryptedQuery, result: EncryptedQueryResult,
-    nprocs: int | None = None, engine: str | None = None,
+    nprocs: int | None = None, engine: str | None = None, device=None,
 ) -> DoublyEncryptedQueryResult:
-    """db.go:294-358: level-2 selection over level-1 ciphertext values."""
+    """db.go:294-358: level-2 selection over level-1 ciphertext values.
+    With engine "torch" one scan over column blocks (pir_tpu/encrypted.py:
+    323-345): out[member][j] = prod_block ebits[block]^(slot block * g +
+    member's chunk j) mod N^3, exponents bounded by bits(N^2)."""
     pk = query.pk
     g = query.group_size
     # the column query is attacker-controlled when served (db.go:294-358
@@ -258,7 +299,23 @@ def private_encrypted_query_over_encrypted_result(
     if len(query.ebits) != len(result.slots) // g:
         raise ValueError("column query does not match the row result geometry")
 
-    scan_engine(engine)
+    if scan_engine(engine) == "torch":
+        from .crypto.mont import ints_to_words, paillier_scan_words
+
+        num_blocks = len(result.slots) // g
+        e_max = pk.n2.bit_length()
+        vals = [result.slots[blk * g + member].cts[j].c for blk in range(num_blocks)
+                for member in range(g) for j in range(num_cts)]
+        if any(v < 0 or v.bit_length() > e_max for v in vals):
+            raise ValueError("a level-1 ciphertext exceeds N^2")
+        emat = ints_to_words(vals, -(-e_max // 32)).reshape(num_blocks, g * num_cts, -1)
+        out = paillier_scan_words([query.ebits[blk].c for blk in range(num_blocks)], emat,
+                                  pk.n3, e_max, device)
+        res = [[Ciphertext(out[member * num_cts + j], ENC_LEVEL_TWO) for j in range(num_cts)]
+               for member in range(g)]
+        return DoublyEncryptedQueryResult([DoublyEncryptedSlot(cts) for cts in res], pk,
+                                          db.slot_bytes, result.num_bytes_per_ciphertext)
+
     res = [
         [pk.null_ciphertext(ENC_LEVEL_TWO) for _ in range(num_cts)]
         for _ in range(g)

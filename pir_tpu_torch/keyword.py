@@ -79,10 +79,11 @@ class PrivateSqrtST:
         return (server or self.server()).private_secret_shared_query(query)
 
     def private_encrypted_query(self, query):
-        """cPIR over the second layer (keyword.go:84-90)."""
+        """cPIR over the second layer (keyword.go:84-90), on the default
+        cPIR engine on self.device."""
         from .encrypted import private_encrypted_query
 
-        return private_encrypted_query(self.second_layer, query)
+        return private_encrypted_query(self.second_layer, query, device=self.device)
 
     def find_bucket(self, key: str) -> int:
         """First-layer scan: the bucket that may hold `key`."""

@@ -21,8 +21,10 @@ Frame format: u32 little-endian length ‖ u8 opcode ‖ payload.
 The engine comes from ``config.PirConfig`` / ``pick_engine``: with no
 config a service answers on a ``TorchPirServer`` on the card (and raises
 when there is none); ``PirConfig(device="cpu")`` runs the same engine on
-the CPU, ``PirConfig(engine="host")`` the numpy golden model. Paillier
-work is CPython on the host.
+the CPU, ``PirConfig(engine="host")`` the numpy golden model. The cPIR
+scans and the AHE ASPIR proof checks' modexp batches run on the config's
+device too (the card unless ``device="cpu"``), or with
+``PirConfig(paillier_engine="python")`` in CPython on the host.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from .aspir_shared import (
     new_authenticated_index_query_shares,
 )
 from .config import PirConfig, pick_engine
+from .crypto.paillier import device_modexp
 from .database import Database, DBMetadata
 from .query import (
     QueryShare,
@@ -549,14 +552,16 @@ class PirService:
             q = wire.deserialize_encrypted_query(payload)
             with self.metrics.timed_query(scan):
                 res = enc.private_encrypted_query(
-                    self.db, q, engine=self.config.paillier_engine
+                    self.db, q, engine=self.config.paillier_engine,
+                    device=self.config.device,
                 )
             return OP_ENCRYPTED_QUERY, wire.serialize_encrypted_result(res)
         if opcode == OP_ENCRYPTED_QUERY_REC:
             q = wire.deserialize_doubly_encrypted_query(payload)
             with self.metrics.timed_query(scan):
                 res = enc.private_doubly_encrypted_query(
-                    self.db, q, engine=self.config.paillier_engine
+                    self.db, q, engine=self.config.paillier_engine,
+                    device=self.config.device,
                 )
             return OP_ENCRYPTED_QUERY_REC, wire.serialize_doubly_encrypted_result(res)
         if opcode == OP_ASPIR_CHAL:
@@ -568,7 +573,7 @@ class PirService:
             q = wire.deserialize_auth_query(payload[4:])
             chal = generate_auth_chal_for_query(
                 secparam, self._require_key_db(), q,
-                engine=self.config.paillier_engine,
+                engine=self.config.paillier_engine, device=self.config.device,
             )
             with self._chal_lock:
                 chal_id = self._chal_next
@@ -590,12 +595,18 @@ class PirService:
             if entry is None:
                 raise ValueError("unknown or expired challenge id")
             q, chal = entry
-            if not auth_check(q.query0.row.pk, q, chal, proof):
+            # the DDLEQ check's modexp batches follow the cPIR engine
+            # (equal verdicts either way), in this handler's thread only
+            with device_modexp(enc.scan_engine(self.config.paillier_engine) == "torch",
+                               self.config.device):
+                ok = auth_check(q.query0.row.pk, q, chal, proof)
+            if not ok:
                 return OP_ASPIR_PROOF, struct.pack("<B", 0)
             dq = q.query0 if proof.q_bit == 0 else q.query1
             with self.metrics.timed_query(scan):
                 res = enc.private_doubly_encrypted_query(
-                    self.db, dq, engine=self.config.paillier_engine
+                    self.db, dq, engine=self.config.paillier_engine,
+                    device=self.config.device,
                 )
             return OP_ASPIR_PROOF, (
                 struct.pack("<B", 1) + wire.serialize_doubly_encrypted_result(res)

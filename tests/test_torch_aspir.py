@@ -112,7 +112,7 @@ def _round(ahe, client, server, index, key_index, tamper=None):
     md = jkeys.metadata()
     q, st = ca.new_authenticated_query(md, sk, 1, index, jkeys.slot(key_index))
     sq = sw.deserialize_auth_query(cw.serialize_auth_query(q))
-    chal = sa.generate_auth_chal_for_query(SEC, keys, sq)
+    chal = sa.generate_auth_chal_for_query(SEC, keys, sq, engine="python")
     proof = ca.auth_prove(st, cw.deserialize_chal_token(sw.serialize_chal_token(chal)))
     if tamper == "token":
         proof.auth_token = sk.public_key.encrypt_zero()
@@ -141,7 +141,8 @@ def test_challenge_tokens_equal_for_one_query(ahe):
     q, _ = ja.new_authenticated_query(jkeys.metadata(), sk_j, 1, 7, jkeys.slot(7))
     blob = jw.serialize_auth_query(q)
     cj = ja.generate_auth_chal_for_query(SEC, jkeys, jw.deserialize_auth_query(blob))
-    ct = ta.generate_auth_chal_for_query(SEC, tkeys, tw.deserialize_auth_query(blob))
+    ct = ta.generate_auth_chal_for_query(SEC, tkeys, tw.deserialize_auth_query(blob),
+                                        engine="python")
     assert tw.serialize_chal_token(ct) == jw.serialize_chal_token(cj)
 
 
@@ -154,11 +155,11 @@ def test_auth_chal_geometry_bounds_as_pir_tpu(ahe):
     q = fresh()
     q.query1.col.group_size = 2
     with pytest.raises(ValueError, match="group size"):
-        ta.generate_auth_chal_for_query(SEC, tkeys, q)
+        ta.generate_auth_chal_for_query(SEC, tkeys, q, engine="python")
     q = fresh()
     q.query0.col.ebits = q.query0.col.ebits[:-1]
     with pytest.raises(ValueError, match="geometry"):
-        ta.generate_auth_chal_for_query(SEC, tkeys, q)
+        ta.generate_auth_chal_for_query(SEC, tkeys, q, engine="python")
     wide = state.database_from_numpy(np.zeros((AHE_ROWS, 33), np.uint8), 33)
     with pytest.raises(ValueError, match="exactly one ciphertext"):
-        ta.generate_auth_chal_for_query(SEC, wide, fresh())
+        ta.generate_auth_chal_for_query(SEC, wide, fresh(), engine="python")

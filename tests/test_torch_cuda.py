@@ -7,6 +7,8 @@ the port is installed:
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
 
+import random
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ import torch
 from pir_tpu_torch import benchmarks_overlap as ov
 from pir_tpu_torch import query as tq
 from pir_tpu_torch import server as server_mod
+from pir_tpu_torch.crypto import mont
 from pir_tpu_torch.database import generate_random_db
 from pir_tpu_torch.keyword import new_private_bst, new_private_sqrt_st, pad_to_sqrt
 from pir_tpu_torch.ops.compat_stage import compat_stage, compat_stage_plain
@@ -822,3 +825,160 @@ def test_cuda_services_match_cpu_services(dev):
         y = wire.deserialize_shared_result(i1[1:]).shares[0].data
         assert bytes(np.frombuffer(x, np.uint8) ^ np.frombuffer(y, np.uint8)) == \
             db.data[batches["aspir"][q]].tobytes()
+
+
+# ---- kernels 9 and 10: the Montgomery engine (crypto/mont.py) ----
+
+def _mont_moduli():
+    rnd = random.Random(0xC0FFEE)
+
+    def odd(bits):
+        return rnd.getrandbits(bits) | (1 << (bits - 1)) | 1
+
+    # tests/test_mont_tpu.py's moduli, and N^3 of a 2048-bit key (6144 bits)
+    return rnd, [odd(61), odd(256), (1 << 255) - 19, (1 << 511) - 1, odd(1024), odd(2049),
+                 odd(6144)]
+
+
+def _u32(a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("k", range(7))
+@pytest.mark.parametrize("e_max", [24, 256])
+def test_mont_powmod_kernel_matches_plain_and_pow(dev, k, e_max):
+    rnd, mods = _mont_moduli()
+    m = mods[k]
+    L = mont.words_for_modulus(m)
+    rows = 3 if m.bit_length() > 4096 else 13  # 13: not a multiple of a warp
+    bases = [rnd.randrange(m) for _ in range(rows - 3)] + [m - 1, 0, 1]
+    exps = [rnd.getrandbits(e_max) for _ in range(rows - 1)] + [(1 << e_max) - 1]
+    exps[1] = 0
+    b, e = _u32(mont.ints_to_words(bases, L)).to(dev), _u32(mont.pack_exponents(exps, e_max)).to(dev)
+    before = mont.mont_powmod.launches
+    got = mont.mont_powmod(b, e, m, e_max)
+    torch.cuda.synchronize()
+    assert mont.mont_powmod.launches == before + 1
+    assert mont.words_to_ints(got.cpu().numpy()) == [pow(x, y, m) for x, y in zip(bases, exps)]
+    if m.bit_length() <= 4096 or e_max < 64:  # the plain version: ~10^5 small launches
+        assert torch.equal(got, mont.mont_powmod_plain(b, e, m, e_max))
+
+
+def test_mont_powmod_kernel_per_row_moduli(dev):
+    """Moduli of different word counts in one launch (the CRT halves of
+    the secret-key batches), an odd row count, and 0 / m - 1 operands."""
+    rnd, mods = _mont_moduli()
+    pairs = [(mods[4], mods[5]), (rnd.getrandbits(300) | (1 << 299) | 1,
+                                  rnd.getrandbits(250) | (1 << 249) | 1)]
+    for m1, m2 in pairs:
+        ms = [m1, m2, m1, m2, m1, m2, m1]
+        bases = [rnd.randrange(m) for m in ms[:-2]] + [ms[-2] - 1, 0]
+        exps = [0, 1, rnd.getrandbits(200), rnd.getrandbits(300), 2, 3, rnd.getrandbits(100)]
+        assert mont.device_powmod_batch_multi(bases, exps, ms) == [
+            pow(b, e, m) for b, e, m in zip(bases, exps, ms)]
+        L = max(mont.words_for_modulus(m) for m in ms)
+        b = _u32(mont.ints_to_words([x % m for x, m in zip(bases, ms)], L)).to(dev)
+        e = _u32(mont.pack_exponents(exps, 512)).to(dev)
+        assert torch.equal(mont.mont_powmod(b, e, ms, 512), mont.mont_powmod_plain(b, e, ms, 512))
+
+
+@pytest.mark.parametrize("h,w,bits,e_max", [
+    (1, 1, 512, 24), (5, 3, 512, 24), (64, 4, 2048, 24), (67, 1, 512, 24), (130, 33, 256, 40),
+    (6, 2, 384, 384), (33, 3, 3072, 2048),
+])
+def test_mont_scan_kernel_matches_plain_and_pow(dev, h, w, bits, e_max):
+    """The scan at level-1 (short exponents, square and multiply) and
+    level-2 (exponents of bits(N^2), 4-bit windows) shapes, row counts
+    that are not powers of two, exponent 0 (the identity) and the all-ones
+    exponent."""
+    rnd = random.Random(h * 1000 + w)
+    m = rnd.getrandbits(bits) | (1 << (bits - 1)) | 1
+    L = mont.words_for_modulus(m)
+    ebits = [rnd.randrange(1, m) for _ in range(h)]
+    vals = [rnd.getrandbits(e_max) if rnd.random() < 0.8 else 0 for _ in range(h * w)]
+    vals[-1] = (1 << e_max) - 1
+    b = _u32(mont.ints_to_words(ebits, L)).to(dev)
+    e = _u32(mont.pack_exponents(vals, e_max).reshape(h, w, -1)).to(dev)
+    before = mont.mont_scan.launches
+    got = mont.mont_scan(b, e, m, e_max)
+    torch.cuda.synchronize()
+    assert mont.mont_scan.launches == before + 1
+    want = []
+    for c in range(w):
+        acc = 1
+        for r in range(h):
+            acc = acc * pow(ebits[r], vals[r * w + c], m) % m
+        want.append(acc)
+    assert mont.words_to_ints(got.cpu().numpy()) == want
+    if e_max < 64 or h * w <= 32:
+        assert torch.equal(got, mont.mont_scan_plain(b, e, m, e_max))
+    # one row a chunk: every partial goes through the merge
+    assert torch.equal(mont.mont_scan(b, e, m, e_max, row_chunk=1), got)
+
+
+def test_mont_kernels_at_the_serving_bound(dev):
+    """N^3 of an 8192-bit key (768 words): the threads' state no longer
+    fits in shared memory and lies in global scratch."""
+    rnd = random.Random(8192)
+    m = rnd.getrandbits(24576) | (1 << 24575) | 1
+    assert not mont.scan_plan(2, 1, 768, 64, 132, 232448)["smem_state"]
+    bases, exps = [rnd.randrange(m), m - 1], [rnd.getrandbits(64), 3]
+    assert mont.device_powmod_batch(bases, exps, m, e_max=64) == [
+        pow(b, e, m) for b, e in zip(bases, exps)]
+    assert mont.device_paillier_scan(bases, exps, 1, m, e_max=64) == [
+        pow(bases[0], exps[0], m) * pow(bases[1], exps[1], m) % m]
+
+
+def test_paillier_engine_torch_with_no_device_runs_on_the_card(dev):
+    """PirConfig(paillier_engine="torch"), the default PirConfig() (whose
+    None engine resolves to "torch") and device_modexp() with no device:
+    the cPIR scans, the encryption and decryption batches and the DDLEQ
+    checks launch kernels 9 and 10 on the card."""
+    from pir_tpu_torch import encrypted as enc
+    from pir_tpu_torch import service as tsvc
+    from pir_tpu_torch.config import PirConfig
+    from pir_tpu_torch.crypto import paillier
+
+    sk, pk = paillier.keygen(512)
+    db = generate_random_db(64, 3)
+    key_db = generate_random_db(64, 8)
+    for config in (PirConfig(paillier_engine="torch"), PirConfig()):
+        before = (mont.mont_powmod.launches, mont.mont_scan.launches)
+        svc = tsvc.PirService(db, config=config, key_db=key_db).start()
+        try:
+            client = tsvc.PirClient([svc.address])
+            with paillier.device_modexp():
+                got = client.query_encrypted(2, sk, pk)
+                w = len(got)
+                assert [bytes(s.data) for s in got] == [db.data[2 * w + j].tobytes()
+                                                        for j in range(w)]
+                assert bytes(client.query_encrypted_recursive(41, sk, pk)[0].data) == \
+                    db.data[41].tobytes()
+                assert bytes(client.query_authenticated(9, sk, key_db.slot(9))[0].data) == \
+                    db.data[9].tobytes()
+                with pytest.raises(PermissionError):
+                    client.query_authenticated(9, sk, key_db.slot(10))
+            client.close()
+        finally:
+            svc.close()
+        assert mont.mont_powmod.launches > before[0] and mont.mont_scan.launches > before[1]
+    q = enc.new_encrypted_query(db.metadata(), pk, 1, 5)
+    def ints(engine):
+        return [[c.c for c in s.cts]
+                for s in enc.private_encrypted_query(db, q, engine=engine).slots]
+
+    assert ints("torch") == ints(None) == ints("python")
+
+
+def test_mont_wrappers_reject_bad_operands(dev):
+    m = (1 << 255) - 19
+    b = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    e = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        mont.mont_powmod(torch.zeros((8, 4), dtype=torch.int32, device=dev).t(), e, m, 24)
+    with pytest.raises(ValueError, match="int32"):
+        mont.mont_powmod(b.to(torch.int64), e, m, 24)
+    with pytest.raises(ValueError, match="cover"):
+        mont.mont_powmod(b, e, m, 64)
+    with pytest.raises(ValueError, match="devices"):
+        mont.mont_scan(b, e.cpu().reshape(4, 1, 1), m, 24)

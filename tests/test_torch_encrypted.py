@@ -5,9 +5,11 @@ The same query (made by one package, carried across as wire bytes) on
 the same database gives equal ciphertext ints in both packages: the
 plain scan, the recursive scan, and the column pass over an encrypted
 row result; each package recovers the other's answers. The port's
-geometry checks raise as pir_tpu's do, and pir_tpu's native and device
-scan engines are refused by name. 128-bit keys and the 2^10 x 3 B table
-of tests/test_encrypted.py.
+geometry checks raise as pir_tpu's do, and pir_tpu's native and "tpu"
+scan engines are refused by name. The port's engine "torch" (its device
+Montgomery engine, here its plain version with device="cpu") gives the
+ciphertexts of pir_tpu's engine "tpu" and of the CPython loop. 128-bit
+keys and the 2^10 x 3 B table of tests/test_encrypted.py.
 """
 
 import random
@@ -65,7 +67,7 @@ def test_plain_scan_equal_ciphertexts(ctx, group_size):
     for index in (rnd.randrange(8), -1):
         q = je.new_encrypted_query(jdb.metadata(), pk, group_size, index)
         rj = je.private_encrypted_query(jdb, q)
-        rt = te.private_encrypted_query(tdb, _to_port_query(q))
+        rt = te.private_encrypted_query(tdb, _to_port_query(q), engine="python")
         assert _ints(rt) == _ints(rj)
         assert (rt.slot_bytes, rt.num_bytes_per_ciphertext) == (rj.slot_bytes,
                                                                 rj.num_bytes_per_ciphertext)
@@ -85,7 +87,7 @@ def test_recursive_scan_equal_ciphertexts(ctx, group_size):
     for index in (random.Random(group_size).randrange(DB_SIZE // group_size), -1):
         q = je.new_doubly_encrypted_query(jdb.metadata(), pk, group_size, index)
         rj = je.private_doubly_encrypted_query(jdb, q)
-        rt = te.private_doubly_encrypted_query(tdb, _to_port_dquery(q))
+        rt = te.private_doubly_encrypted_query(tdb, _to_port_dquery(q), engine="python")
         assert _ints(rt) == _ints(rj)
         got = [bytes(s.data) for s in te.recover_doubly_encrypted(rt, sk_t)]
         assert got == [bytes(s.data) for s in je.recover_doubly_encrypted(rj, sk_j)]
@@ -103,7 +105,7 @@ def test_column_pass_over_an_encrypted_result_equal(ctx):
     row_t = tw.deserialize_encrypted_result(jw.serialize_encrypted_result(row_j),
                                             state.paillier_public_key(pk.n))
     tq = _to_port_dquery(q)
-    rt = te.private_encrypted_query_over_encrypted_result(tdb, tq.col, row_t)
+    rt = te.private_encrypted_query_over_encrypted_result(tdb, tq.col, row_t, engine="python")
     rj = je.private_encrypted_query_over_encrypted_result(jdb, q.col, row_j)
     assert _ints(rt) == _ints(rj)
 
@@ -145,7 +147,7 @@ def test_geometry_checks_raise_as_pir_tpu(ctx):
         with pytest.raises(ValueError, match=match):
             je.private_doubly_encrypted_query(jdb, q)
         with pytest.raises(ValueError, match=match):
-            te.private_doubly_encrypted_query(tdb, tq)
+            te.private_doubly_encrypted_query(tdb, tq, engine="python")
 
     both(lambda q: setattr(q.row, "group_size", 0), "group size")
     both(lambda q: setattr(q.col, "ebits", q.col.ebits[:-1]), "geometry")
@@ -154,7 +156,7 @@ def test_geometry_checks_raise_as_pir_tpu(ctx):
     both(lambda q: setattr(q.row, "db_width", DB_SIZE + 1), "exceed")
 
 
-@pytest.mark.parametrize("engine,item", [("native", "[18]"), ("tpu", "[13]")])
+@pytest.mark.parametrize("engine,item", [("native", "[18]"), ("tpu", "'torch'")])
 def test_unported_scan_engines_raise(ctx, engine, item):
     sk_j, _, jdb, tdb = ctx
     q = _to_port_query(je.new_encrypted_query(jdb.metadata(), sk_j.public_key, 1, 2))
@@ -165,8 +167,67 @@ def test_unported_scan_engines_raise(ctx, engine, item):
         te.private_doubly_encrypted_query(tdb, dq, engine=engine)
     with pytest.raises(ValueError, match="unknown"):
         te.scan_engine("gpu")
-    te.scan_engine(None)
-    te.scan_engine("python")
+    assert [te.scan_engine(e) for e in (None, "python", "torch")] == ["torch", "python",
+                                                                      "torch"]
+
+
+@pytest.mark.parametrize("group_size", [1, 3])
+def test_torch_engine_equals_pir_tpu_tpu_engine(ctx, group_size):
+    """Level-1 scans: engine "torch" on the CPU, pir_tpu's engine "tpu" on
+    JAX's CPU backend and the CPython loop give equal ciphertexts; a
+    ragged last grid row keeps exponent 0 (the identity)."""
+    sk_j, sk_t, jdb, tdb = ctx
+    q = je.new_encrypted_query(jdb.metadata(), sk_j.public_key, group_size, 5)
+    rj = je.private_encrypted_query(jdb, q, engine="tpu")
+    rt = te.private_encrypted_query(tdb, _to_port_query(q), engine="torch", device="cpu")
+    assert _ints(rt) == _ints(rj) == _ints(te.private_encrypted_query(tdb, _to_port_query(q),
+                                                                      engine="python"))
+    assert (rt.slot_bytes, rt.num_bytes_per_ciphertext) == (rj.slot_bytes,
+                                                            rj.num_bytes_per_ciphertext)
+    got = [bytes(s.data) for s in te.recover_encrypted(rt, sk_t)]
+    width = q.db_width
+    assert got == [jdb.data[5 * width + j].tobytes() if 5 * width + j < DB_SIZE else bytes(SLOT)
+                   for j in range(width)]
+
+
+@pytest.mark.parametrize("group_size", [1, 2])
+def test_torch_engine_recursive_equals_pir_tpu_tpu_engine(ctx, group_size):
+    """Level-2 column blocks (exponents of bits(N^2), 4-bit windows): the
+    recursive scan; the column pass refuses a ciphertext outside N^2."""
+    sk_j, sk_t, jdb, tdb = ctx
+    index = 37 * group_size
+    q = je.new_doubly_encrypted_query(jdb.metadata(), sk_j.public_key, group_size, index)
+    rj = je.private_doubly_encrypted_query(jdb, q, engine="tpu")
+    rt = te.private_doubly_encrypted_query(tdb, _to_port_dquery(q), engine="torch", device="cpu")
+    assert _ints(rt) == _ints(rj)
+    got = [bytes(s.data) for s in te.recover_doubly_encrypted(rt, sk_t)]
+    assert jdb.data[index].tobytes() in got
+    row_t = te.private_encrypted_query(tdb, _to_port_dquery(q).row, engine="python")
+    bad = te.EncryptedQueryResult([te.EncryptedSlot([te.Ciphertext(-1, 1)])] * len(row_t.slots),
+                                  row_t.pk, SLOT, 3)
+    with pytest.raises(ValueError, match="N\\^2"):
+        te.private_encrypted_query_over_encrypted_result(
+            tdb, _to_port_dquery(q).col, bad, engine="torch", device="cpu")
+
+
+def test_level1_exponent_matrix_equals_the_slot_packing():
+    """The vectorised exponent matrix from the database's bytes equals the
+    per-slot to_int_array packing (pir_tpu/encrypted.py:234-262), for
+    chunks of several words, a short last chunk and slots past the table."""
+    rng = np.random.default_rng(5)
+    for size, slot, num_cts, width, height in ((30, 17, 2, 4, 8), (10, 3, 1, 3, 4),
+                                               (6, 9, 4, 6, 1), (5, 40, 1, 2, 3)):
+        db = state.database_from_numpy(rng.integers(0, 256, size=(size, slot), dtype=np.uint8),
+                                       slot)
+        emat, e_max, per = te._level1_exponents(db, width, height, num_cts)
+        assert per == max(1, -(-slot // num_cts)) and e_max == 8 * -(-slot // num_cts)
+        for r in range(height):
+            for c in range(width):
+                idx = r * width + c
+                want = db.slot(idx).to_int_array(num_cts)[0] if idx < size else [0] * num_cts
+                got = [int.from_bytes(emat[r, c * num_cts + j].tobytes(), "little")
+                       for j in range(num_cts)]
+                assert got == want
 
 
 def test_sqrt_tree_encrypted_query_equal(ctx):

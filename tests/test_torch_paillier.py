@@ -5,13 +5,18 @@ and the other way round; each package decrypts the other's ciphertexts
 at both levels and nested, their Fiat-Shamir challenge bits are equal,
 each package's DDLEQ proof verifies in the other (and a tampered one in
 neither), randomness extraction agrees, and the port's CRT modexps equal
-plain ones. 128-bit keys, as tests/test_encrypted.py (db_test.go:70).
+plain ones. Under ``device_modexp`` (the card's Montgomery engine, here
+its plain version with device="cpu") the batched modexps, both levels'
+encryption and decryption batches, the CRT halves and the DDLEQ
+verdicts equal pir_tpu's under ``tpu_modexp`` and CPython's. 128-bit
+keys, as tests/test_encrypted.py (db_test.go:70).
 """
 
 import random
 import secrets
 
 import pytest
+import torch
 
 from pir_tpu.crypto import paillier as jp
 from pir_tpu_torch import state
@@ -153,3 +158,159 @@ def test_port_keygen_is_a_valid_key():
     assert 126 <= pk.n.bit_length() <= 128
     assert sk.decrypt(pk.encrypt(12345)) == 12345
     assert sk.nested_decrypt(pk.encrypt_at_level(pk.encrypt(9).c, 2)) == 9
+
+
+# ---- the device route (device_modexp; the plain version on the CPU) ----
+
+def test_device_route_batches_equal_pir_tpu_tpu_route(keys):
+    """_powmod_batch (one modulus, common base) and the CRT batches
+    (_powmod_batch_sk, the halves a modulus a row) under device_modexp
+    equal pir_tpu's under tpu_modexp and CPython pow."""
+    sk_j, sk_t = keys[0]
+    rnd = random.Random(21)
+    n2, n3 = sk_t.n2, sk_t.n3
+    bases = [rnd.randrange(1, n3) for _ in range(16)]
+    exps = [rnd.randrange(n2) for _ in range(15)] + [0]
+    with tp.device_modexp(True, "cpu"), jp.tpu_modexp(True):
+        got = tp._powmod_batch(bases, exps, n3)
+        assert got == jp._powmod_batch(bases, exps, n3)
+        assert tp._powmod_batch(bases[0], exps, n3, common_base=True) == [
+            pow(bases[0], e, n3) for e in exps]
+        for s in (2, 3):
+            m = sk_t.n ** s
+            bs = [b % m for b in bases[:8]]
+            es = [sk_t.lam, 1, 0] + exps[:5]
+            want = [pow(b, e, m) for b, e in zip(bs, es)]
+            assert sk_t._powmod_batch_sk(bs, es, s) == want == sk_j._powmod_batch_sk(bs, es, s)
+    assert got == [pow(b, e, n3) for b, e in zip(bases, exps)]
+
+
+def test_encrypt_decrypt_batches_under_device_modexp(keys):
+    _, sk_t = keys[0]
+    pk = sk_t.public_key
+    ms = [0, 1, 7, pk.n - 1] * 4  # 16: the route's smallest batch
+    with tp.device_modexp(True, "cpu"):
+        cts1 = pk.encrypt_batch(ms)
+        cts2 = pk.encrypt_batch(ms, tp.ENC_LEVEL_TWO)
+        assert sk_t.decrypt_batch(cts1) == ms
+        assert sk_t.decrypt_level2_batch(cts2) == ms
+        nested = pk.encrypt_batch([c.c for c in cts1], tp.ENC_LEVEL_TWO)
+        assert sk_t.nested_decrypt_batch(nested) == ms
+    assert sk_t.decrypt_batch(cts1) == ms  # CPython decrypts the device's ciphertexts
+
+
+def test_ddleq_verdicts_under_device_modexp(keys):
+    """A port proof made under device_modexp verifies in both packages
+    (pir_tpu under tpu_modexp) and a tampered one in neither."""
+    sk_j, sk_t = keys[0]
+    pk = sk_t.public_key
+    ct1 = pk.encrypt_at_level(pk.encrypt(0).c, 2)
+    ct2, a, b = sk_t.nested_randomize(ct1)
+    with tp.device_modexp(True, "cpu"):
+        proof = sk_t.prove_ddleq(2, ct1, ct2, a, b)
+        assert pk.verify_ddleq(ct1, ct2, proof)
+        jproof = jp.DDLEQProof(list(proof.commitments), list(proof.responses), proof.secparam)
+        with jp.tpu_modexp(True):
+            assert sk_j.public_key.verify_ddleq(jp.Ciphertext(ct1.c, 2), jp.Ciphertext(ct2.c, 2),
+                                                jproof)
+        other = pk.encrypt_at_level(pk.encrypt(3).c, 2)
+        assert not pk.verify_ddleq(other, ct2, proof)
+        proof.commitments[0] = proof.commitments[0] * 2 % pk.n3
+        assert not pk.verify_ddleq(ct1, ct2, proof)
+
+
+def test_device_route_conditions(keys, monkeypatch):
+    """The route takes what pir_tpu's TPU route takes: an odd modulus of
+    >= 256 bits, no negative exponent, a batch of >= 16; e_max rounds up
+    to a power of two of >= 256 bits. It is scoped, and off by default."""
+    from pir_tpu_torch.crypto import mont
+
+    calls = []
+
+    def spy(bases, exps, m, e_max=None, batch_chunk=4096, device=None):
+        calls.append((len(exps), e_max, device))  # the route, not the arithmetic
+        return [pow(b, e, m) for b, e in zip(bases, exps)]
+
+    monkeypatch.setattr(mont, "device_powmod_batch", spy)
+    _, sk_t = keys[0]
+    m = sk_t.n3  # >= 256 bits (N^2 of a 128-bit key may have 253)
+    bases, exps = list(range(3, 19)), list(range(1, 17))
+    want = [pow(b, e, m) for b, e in zip(bases, exps)]
+    assert tp._powmod_batch(bases, exps, m) == want and not calls  # off
+    with tp.device_modexp(True, "cpu"):
+        assert tp._powmod_batch(bases, exps, m) == want
+        assert calls == [(16, 256, "cpu")]
+        assert tp._powmod_batch(bases[:15], exps[:15], m) == want[:15]  # too few
+        assert tp._powmod_batch(bases, exps, sk_t.n) == [pow(b, e, sk_t.n)
+                                                         for b, e in zip(bases, exps)]
+        assert tp._powmod_batch(bases, exps, m + 1) == [pow(b, e, m + 1)
+                                                        for b, e in zip(bases, exps)]
+        assert tp._powmod_batch(bases, [-1] + exps[1:], m)[0] == pow(3, -1, m)
+        assert tp._powmod_batch(bases, [1 << 300] + exps[1:], m)[0] == pow(3, 1 << 300, m)
+    assert len(calls) == 2 and calls[1][1] == 512
+    tp.enable_device_modexp(True, "cpu")
+    try:
+        assert tp._powmod_batch(bases, exps, m) == want and len(calls) == 3
+    finally:
+        tp.enable_device_modexp(False)
+    assert tp._device_modexp is None
+
+
+def test_device_modexp_is_scoped_to_its_thread(keys, monkeypatch):
+    """device_modexp() routes the calling thread only: threads that enter
+    and leave it interleaved (A in, B in, A out, B out) leave the route off
+    for everyone, a thread outside sees it off meanwhile, and a scoped
+    "off" overrides a process-wide "on"."""
+    import threading
+
+    from pir_tpu_torch.crypto import mont
+
+    calls = []
+
+    def spy(bases, exps, m, e_max=None, batch_chunk=4096, device=None):
+        calls.append((threading.current_thread().name, device))
+        return [pow(b, e, m) for b, e in zip(bases, exps)]
+
+    monkeypatch.setattr(mont, "device_powmod_batch", spy)
+    m = keys[0][1].n3
+    bases, exps = list(range(3, 19)), list(range(1, 17))
+    steps = [threading.Event() for _ in range(4)]
+
+    def worker(enter, leave, device):
+        with tp.device_modexp(True, device):
+            steps[enter].set()
+            steps[leave - 1].wait(5)
+            tp._powmod_batch(bases, exps, m)
+        steps[leave].set()
+
+    a = threading.Thread(target=worker, args=(0, 2, "cpu"), name="A")
+    b = threading.Thread(target=worker, args=(1, 3, "cpu:0"), name="B")
+    a.start()
+    steps[0].wait(5)
+    b.start()
+    steps[1].wait(5)
+    tp._powmod_batch(bases, exps, m)  # this thread: off
+    a.join(5)
+    b.join(5)
+    assert sorted(calls) == [("A", "cpu"), ("B", "cpu:0")]
+    assert tp._route() is None and tp._device_modexp is None
+    tp.enable_device_modexp(True, "cpu")
+    try:
+        with tp.device_modexp(False):
+            tp._powmod_batch(bases, exps, m)
+        assert len(calls) == 2
+        tp._powmod_batch(bases, exps, m)
+        assert len(calls) == 3
+    finally:
+        tp.enable_device_modexp(False)
+
+
+def test_device_modexp_with_no_device_needs_cuda(keys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; tests/test_torch_cuda.py runs the route there")
+    pk = keys[0][1].public_key
+    with tp.device_modexp():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pk.encrypt_batch([0] * 16, tp.ENC_LEVEL_TWO)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            keys[0][1].decrypt_batch([tp.Ciphertext(3, 1)] * 8)  # the CRT halves: 16 rows

@@ -1,6 +1,7 @@
 """pir_tpu_torch.service (PirService / PirClient) against pir_tpu.service.
 
-Port services run the torch engine on the CPU (``PirConfig(device="cpu")``),
+Port services run the torch engine on the CPU (``PirConfig(device="cpu")``,
+cPIR in CPython unless a test asks for the "torch" cPIR engine),
 pir_tpu services their host engine; both serve the same tables. Over
 real sockets:
 
@@ -57,7 +58,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 HEIGHT, SLOT, KEY_BYTES = 1 << 10, 16, 8
 STREAM_HEIGHT, STREAM_SLOT = 1 << 15, 8
 TREE_KEYS = 256
-CPU = tcfg.PirConfig(device="cpu")
+CPU = tcfg.PirConfig(device="cpu", paillier_engine="python")
 
 
 class Tables:
@@ -402,7 +403,7 @@ def test_pick_engine_and_refused_engines():
     for kwargs, item in ((dict(engine="mesh"), "[14]"), (dict(engine="native"), "[18]"),
                          (dict(mesh_tp=2), "[14]"), (dict(mesh_dp=4, engine="torch"), "[14]"),
                          (dict(paillier_engine="native"), "[18]"),
-                         (dict(paillier_engine="tpu"), "[13]")):
+                         (dict(paillier_engine="tpu"), "'torch'")):
         with pytest.raises(ValueError, match=item.replace("[", r"\[").replace("]", r"\]")):
             tcfg.pick_engine(tcfg.PirConfig(**kwargs))
     for kwargs in (dict(engine="tpu"), dict(engine="bogus"), dict(paillier_engine="bogus")):
@@ -553,3 +554,70 @@ def test_trace_writes_a_chrome_trace(tmp_path):
         torch.ones(64, 64).matmul(torch.ones(64, 64))
     events = json.loads((tmp_path / "t" / "trace.json").read_text())["traceEvents"]
     assert any("matmul" in e.get("name", "") for e in events)
+
+
+# ---- the cPIR engine "torch" (the device Montgomery engine) ----
+
+def test_torch_paillier_engine_serves_as_pir_tpu_tpu_engine():
+    """A port service with PirConfig(paillier_engine="torch", device="cpu")
+    and a pir_tpu service with paillier_engine="tpu" give byte-equal
+    answers to the same encrypted, recursive, AHE ASPIR challenge and
+    proof frames (test_mont_tpu.py's keygen(128) and 64 x 3 B table); a
+    port client's encrypted round through the port service recovers its
+    row."""
+    rng = np.random.default_rng(41)
+    data = rng.integers(0, 256, size=(64, 3), dtype=np.uint8)
+    keys = rng.integers(0, 256, size=(64, KEY_BYTES), dtype=np.uint8)
+    t = Tables.__new__(Tables)
+    sk, pk = jp.keygen(128)
+    svcs = {"jax": jsvc.PirService(t.db("jax", data), key_db=t.db("jax", keys),
+                                   config=jcfg.PirConfig(paillier_engine="tpu")).start(),
+            "torch": tsvc.PirService(t.db("torch", data), key_db=t.db("torch", keys),
+                                     config=tcfg.PirConfig(paillier_engine="torch",
+                                                           device="cpu")).start()}
+    try:
+        md = svcs["jax"].db.metadata()
+        aq, ast = new_authenticated_query(md, sk, 1, 30, JSlot(keys[30].tobytes()))
+        frames = [(jsvc.OP_ENCRYPTED_QUERY,
+                   jw.serialize_encrypted_query(new_encrypted_query(md, pk, 1, 3))),
+                  (jsvc.OP_ENCRYPTED_QUERY_REC, jw.serialize_doubly_encrypted_query(
+                      new_doubly_encrypted_query(md, pk, 1, 29))),
+                  (jsvc.OP_ASPIR_CHAL, struct.pack("<I", 8) + jw.serialize_auth_query(aq))]
+        got = {pkg: _conversation(svc.address, frames) for pkg, svc in svcs.items()}
+        assert got["torch"] == got["jax"]
+        assert [op for op, _ in got["torch"]] == [op for op, _ in frames]
+        chal_resp = got["jax"][-1][1]
+        proof = auth_prove(ast, jw.deserialize_chal_token(chal_resp[8:]))
+        proof_frame = (jsvc.OP_ASPIR_PROOF, chal_resp[:8] + jw.serialize_proof_token(proof))
+        got = {pkg: _conversation(svc.address, [proof_frame])[0] for pkg, svc in svcs.items()}
+        assert got["torch"] == got["jax"] and got["jax"][1][:1] == b"\x01"
+        tsk = state.paillier_secret_key(sk.p, sk.q)
+        client = tsvc.PirClient([svcs["torch"].address])
+        try:
+            got = client.query_encrypted(2, tsk, tsk.public_key)
+            assert [bytes(s.data) for s in got] == [data[2 * len(got) + j].tobytes()
+                                                    for j in range(len(got))]
+        finally:
+            client.close()
+    finally:
+        _close_all(list(svcs.values()))
+
+
+def test_torch_paillier_engine_with_no_device_needs_the_card():
+    """paillier_engine="torch" with no device runs on the card, and so does
+    the default None: with no CUDA, a served cPIR query is refused with
+    the reason."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; tests/test_torch_cuda.py serves there")
+    db = state.database_from_numpy(np.zeros((64, 3), np.uint8), 3)
+    sk, pk = tp.keygen(128)
+    for paillier_engine in ("torch", None):
+        svc = tsvc.PirService(db, config=tcfg.PirConfig(
+            engine="host", paillier_engine=paillier_engine)).start()
+        try:
+            client = tsvc.PirClient([svc.address])
+            with pytest.raises(RuntimeError, match="CUDA"):
+                client.query_encrypted(1, sk, pk)
+            client.close()
+        finally:
+            svc.close()

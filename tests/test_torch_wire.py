@@ -94,7 +94,7 @@ def _messages(pkg: str) -> dict:
     eq = enc.new_encrypted_query(md, pk, 2, 3)
     out["encrypted_query"] = (wire.serialize_encrypted_query(eq),
                               other.deserialize_encrypted_query, other.serialize_encrypted_query)
-    er = enc.private_encrypted_query(db, eq)
+    er = enc.private_encrypted_query(db, eq, engine="python")
     out["encrypted_result"] = (wire.serialize_encrypted_result(er),
                                lambda b: other.deserialize_encrypted_result(b, opk),
                                other.serialize_encrypted_result)
@@ -102,7 +102,7 @@ def _messages(pkg: str) -> dict:
     out["doubly_encrypted_query"] = (wire.serialize_doubly_encrypted_query(dq),
                                      other.deserialize_doubly_encrypted_query,
                                      other.serialize_doubly_encrypted_query)
-    dr = enc.private_doubly_encrypted_query(db, dq)
+    dr = enc.private_doubly_encrypted_query(db, dq, engine="python")
     out["doubly_encrypted_result"] = (wire.serialize_doubly_encrypted_result(dr),
                                       lambda b: other.deserialize_doubly_encrypted_result(b, opk),
                                       other.serialize_doubly_encrypted_result)
@@ -119,7 +119,7 @@ def _messages(pkg: str) -> dict:
     aq, st_ = aspir.new_authenticated_query(md, sk, 2, 11, key_db.slot(11))
     out["auth_query"] = (wire.serialize_auth_query(aq), other.deserialize_auth_query,
                          other.serialize_auth_query)
-    chal = aspir.generate_auth_chal_for_query(SECPARAM, key_db, aq)
+    chal = aspir.generate_auth_chal_for_query(SECPARAM, key_db, aq, engine="python")
     out["chal_token"] = (wire.serialize_chal_token(chal), other.deserialize_chal_token,
                          other.serialize_chal_token)
     proof = aspir.auth_prove(st_, chal)
