@@ -14,10 +14,10 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
    tail's (--out: "fused_smem"); meanwhile builds a probe of one AES-128
    block on the per-bank table, counts its SASS by pipe, and fails if the
    AES bound (AES_BLOCK_PIPES) counts more on a pipe (--out: "aes_sass");
-   and a probe of one Montgomery product (csrc/mont.cuh), whose inner
-   loop's SASS it counts by pipe an iteration, failing if an iteration
-   does fewer wide products than kernels 9 and 10's bound counts (--out:
-   "mont_sass");
+   and a probe of one Montgomery group product (csrc/mont.cuh group_mul)
+   at each instance K, whose round's SASS it counts by pipe a lane,
+   failing if a round does fewer wide products than kernels 9 and 10's
+   bound counts (--out: "mont_sass");
 2. builds a 2^20-row x 1024-byte table (1 GiB) from --seed, in the
    storage orders of every path (stacked and classic for 1024-bit keys,
    classic for the stream's 128-bit keys, compat), and holds each kernel
@@ -109,8 +109,11 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
    bit-plane scan at Q = 64 and Q = 1024 on the natural table's bytes,
    the probe at 256 rounds and at PROBE_LONG_ITERS, kernel 9 on phase
    4d's encryption, CRT decryption and level-2 batches, kernel 10 on its
-   grid, both also at phase 4d (a)'s shapes beside their plain versions,
-   with bounds from their Montgomery products), the fused kernel's
+   grid and on a recursive query's level-2 scan (32 rows, one column,
+   exponents of bits(N^2) mod N^3), both also at phase 4d (a)'s shapes
+   beside their plain versions, each on its planner's plan, with bounds
+   from their Montgomery products and the SASS floor of the plan's
+   products, sampled rows and columns against CPython), the fused kernel's
    step against each of its halves alone (co-issue: near the larger half
    or near their sum); where Nsight Compute (ncu) is installed, reads its
    shared-memory bank conflicts, LSU instructions and ALU pipe share on
@@ -182,6 +185,7 @@ CPIR_CHECK_ROWS, CPIR_CHECK_COLS = 64, 4  # (a): a level-1 scan chunk, kernel vs
 CPIR_CHECK_MODEXPS, CPIR_CHECK_BITS = 16, 256  # (a): modexps mod N^2, kernel vs plain
 CPIR_BATCH = 1024  # (b): encryptions and decryptions against CPython pow
 CPIR_L2_MODEXPS = 64  # (b): modexps mod N^3 with exponents of bits(N^2)
+CPIR_L2_SCAN_ROWS = 32  # phase 5: a level-2 scan, the yardstick's 32 blocks of one column
 CPIR_GRID_ROWS = 1 << 20  # (d): the sqrt grid, 1024 x 1024 slots of CPIR_SLOT_BYTES
 CPIR_GRID_SAMPLES = 8  # (d): columns held against CPython
 # H100 SXM data-sheet peaks
@@ -247,29 +251,35 @@ extern "C" __global__ void aes_probe(const uint4* rk_in, uint4* io) {
 # SASS opcodes by the pipe that runs them (integer ALU, FMA, shared memory)
 AES_SASS_PIPES = {"alu": ("LOP3", "SHF", "PRMT", "IADD3", "LEA", "ISETP", "SEL", "MOV"),
                   "fma": ("IMAD",), "lds": ("LDS",)}
-# Phase 1's probe of one Montgomery product (csrc/mont.cuh) on a thread's
-# words in shared memory, as kernels 9 and 10 keep them, at a runtime L
+# Phase 1's probe of one Montgomery product (csrc/mont.cuh group_mul), as
+# kernels 9 and 10 run it: G lanes of K words a number in registers, one
+# instance for each K of crypto/mont.py's LANE_WORDS
 MONT_PROBE_CU = r"""
 #include "mont.cuh"
-extern "C" __global__ void mont_probe(const uint32_t* n, uint32_t n0inv, int L, uint32_t* io) {
-  extern __shared__ uint32_t s[];
-  const long long b = blockDim.x;
-  pir_mont::Words a{s + threadIdx.x, b}, t{s + threadIdx.x + (L + 1) * b, b};
-  for (int j = 0; j < L; ++j) a[j] = io[j * b + threadIdx.x];
-  pir_mont::mont_mul(a, a, pir_mont::CWords{n, 1}, n0inv, L, t);
-  for (int j = 0; j < L; ++j) io[j * b + threadIdx.x] = t[j];
+template <int K>
+__global__ void mont_probe(const uint32_t* n, uint32_t n0inv, int G, uint32_t* io) {
+  auto g = pir_mont::LaneGroup<K>::make(G, (int)(threadIdx.x & 31) % G, n, n0inv);
+  typename pir_mont::LaneGroup<K>::Val a;
+  uint32_t* p = io + (threadIdx.x / G) * G * K;
+  g.load(p, G * K, a);
+  g.mul(a, a, a);
+  g.store(p, G * K, a);
 }
+#define PROBE(K) template __global__ void mont_probe<K>(const uint32_t*, uint32_t, int, uint32_t*);
+PROBE(1) PROBE(2) PROBE(3) PROBE(4) PROBE(6) PROBE(8) PROBE(12) PROBE(16) PROBE(24)
 """
 # A Montgomery product of L words runs 2 L^2 + L wide (32 x 32 -> 64)
 # products, each two 32-bit integer multiply results at the INT32 rate: the
-# kernels' operations bound (mont_ms). Phase 1 counts the SASS of the
-# product's inner loop by pipe (mont_sass_counts; an IMAD.WIDE takes two
-# FMA-pipe slots) and fails if an iteration does fewer wide products than
-# the bound's 2.
+# kernels' operations bound (mont_ms). A round of the group product does
+# 2 K wide products a lane (2 L_pad a group, plus m_i's low multiply).
+# Phase 1 counts the SASS of a round by pipe for each K (mont_sass_counts:
+# a loop step holds K rounds for K <= 8, one above; an IMAD.WIDE takes two
+# FMA-pipe slots, shuffles and ballots the shared-memory pipe's) and fails
+# if a round does fewer wide products a lane than the bound's 2 K.
 MONT_SASS_PIPES = {"alu": ("IADD3", "VIADD", "LOP3", "SHF", "SEL", "ISETP", "LEA", "MOV",
-                           "IABS", "PRMT"),
+                           "IABS", "PRMT", "ISCADD"),
                    "fma": ("IMAD",), "lsu": ("LDS", "STS", "LDG", "STG", "LD", "ST", "LDL",
-                                             "STL")}
+                                             "STL", "SHFL", "VOTE")}
 MONT_PIPE_RATES = {"alu": INT32_OPS_PER_S, "fma": INT32_OPS_PER_S, "lsu": SMEM_WORDS_PER_S}
 
 T0 = time.perf_counter()
@@ -314,57 +324,78 @@ def aes_sass_counts(nvcc: str, csrc: str) -> dict:
 
 
 def mont_sass_counts(nvcc: str, csrc: str) -> dict:
-    """One iteration of the Montgomery product's inner loop (the loop over
-    j of mont_mul), by opcode and by pipe, from the SASS of MONT_PROBE_CU:
-    of the innermost loops (a backward branch with no other inside it),
-    the one whose body holds the most wide multiplies (IMAD.WIDE.U32 or
-    IMAD.HI.U32 on registers), divided by its iterations (two wide
-    multiplies each: the compiler unrolls the loop)."""
+    """One round of the group product (csrc/mont.cuh group_mul) for each
+    instance K, by opcode and by pipe a lane, from the SASS of
+    MONT_PROBE_CU: of each instance's innermost loops (a backward branch
+    with no other inside it), the one whose body holds the most wide
+    multiplies (IMAD.WIDE.U32 or IMAD.HI.U32), divided by its rounds (one
+    SHFL.DOWN a round: K rounds a loop step for K <= 8, else one).
+    {"found": any loop found, "per_k": {K: counts}}."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     with tempfile.TemporaryDirectory() as d:
         src = os.path.join(d, "mont_probe.cu")
         with open(src, "w") as f:
             f.write(MONT_PROBE_CU)
         out = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-cubin",
-                              "-I", csrc, "-o", os.path.join(d, "mont.cubin"), src],
+                              "-std=c++17", "-I", csrc, "-o", os.path.join(d, "mont.cubin"), src],
                              capture_output=True, text=True)
         if out.returncode != 0:
             fail(f"the Montgomery probe did not build:\n{out.stdout}{out.stderr}")
         sass = subprocess.run([cuobjdump, "-sass", os.path.join(d, "mont.cubin")],
                               capture_output=True, text=True, check=True).stdout
-    ins = [(int(m.group(1), 16), m.group(2)) for m in
-           re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([^;]*?)\s*;", sass)]
-    at = {a: i for i, (a, _) in enumerate(ins)}
 
-    def wide(text):
-        return bool(re.match(r"IMAD\.(WIDE\.U32|HI\.U32) R\d+, R\d+, R\d+", text))
+    def wide(text):  # a 32 x 32 -> 64 product (an address's IMAD.WIDE is signed)
+        return text.startswith(("IMAD.WIDE.U32", "IMAD.HI.U32"))
 
-    loops = []  # (first, last) instruction of each loop, by its backward branch
-    for i, (a, text) in enumerate(ins):
-        m = re.match(r"BRA .*?0x([0-9a-f]+)", text)
-        if m and int(m.group(1), 16) < a and int(m.group(1), 16) in at:
-            loops.append((at[int(m.group(1), 16)], i))
-    best = None
-    for lo, hi in loops:
-        if any(lo <= lo2 and hi2 < hi for lo2, hi2 in loops):
-            continue  # not innermost
-        body = ins[lo:hi + 1]
-        n = sum(wide(t) for _, t in body)
-        if n >= 2 and (best is None or n > best[0]):
-            best = (n, body)
-    if best is None:
-        return {"found": False}
-    iters = best[0] / 2
-    ops = {}
-    for _, text in best[1]:
-        op = text.split()[0]
-        ops[op] = ops.get(op, 0) + 1
-    pipes = {p: sum(n * (2 if op.startswith("IMAD.WIDE") else 1)
-                    for op, n in ops.items() if op.split(".")[0] in names) / iters
-             for p, names in MONT_SASS_PIPES.items()}
-    return {"found": True, "iterations_unrolled": iters,
-            "opcodes": {op: n / iters for op, n in sorted(ops.items())},
-            "wide_per_iteration": best[0] / iters, "pipes": pipes}
+    per_k = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.match(r"\S*mont_probeILi(\d+)E", part)
+        if not m:
+            continue
+        K = int(m.group(1))
+        ins = [(int(x.group(1), 16), x.group(2)) for x in
+               re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([^;]*?)\s*;", part)]
+        at = {a: i for i, (a, _) in enumerate(ins)}
+        loops = []  # (first, last) instruction of each loop, by its backward branch
+        for i, (a, text) in enumerate(ins):
+            b = re.match(r"BRA .*?0x([0-9a-f]+)", text)
+            if b and int(b.group(1), 16) < a and int(b.group(1), 16) in at:
+                loops.append((at[int(b.group(1), 16)], i))
+        best = None
+        for lo, hi in loops:
+            if any(lo <= lo2 and hi2 < hi for lo2, hi2 in loops):
+                continue  # not innermost
+            n = sum(wide(t) for _, t in ins[lo:hi + 1])
+            if n >= 2 and (best is None or n > best[0]):
+                best = (n, ins[lo:hi + 1])
+        if best is None:
+            continue
+        ops = {}
+        for _, text in best[1]:
+            op = text.split()[0]
+            ops[op] = ops.get(op, 0) + 1
+        rounds = ops.get("SHFL.DOWN", 0)  # the shift's shuffle: one a round
+        if not rounds:
+            continue
+        pipes = {p: sum(c * (2 if op.startswith("IMAD.WIDE") else 1)
+                        for op, c in ops.items() if op.split(".")[0] in names) / rounds
+                 for p, names in MONT_SASS_PIPES.items()}
+        per_k[K] = {"rounds_in_loop": rounds, "wide_per_round": best[0] / rounds,
+                    "bound_wide_per_round": 2 * K,
+                    "opcodes": {op: c / rounds for op, c in sorted(ops.items())},
+                    "pipes": pipes}
+    return {"found": bool(per_k), "per_k": per_k}
+
+
+def mont_floor_ms(plan: dict, mont_sass: dict) -> float | None:
+    """The SASS issue floor of a plan's products: each product's G K
+    rounds on each of its G lanes, at the busiest pipe's rate."""
+    counts = mont_sass["per_k"].get(plan["K"])
+    if counts is None:
+        return None
+    G, K = plan["G"], plan["K"]
+    return plan["products"] * G * G * K * max(
+        c / MONT_PIPE_RATES[p] for p, c in counts["pipes"].items()) * 1e3
 
 
 def mont_ms(products: int, L: int) -> float:
@@ -477,10 +508,10 @@ def main() -> int:
         f"the bound counts {AES_BLOCK_PIPES}; opcodes {aes_sass['opcodes']}")
     if any(aes_sass["pipes"][p] < n for p, n in AES_BLOCK_PIPES.items()):
         fail("the AES bound counts more instructions on a pipe than the SASS of a block has")
-    log(f"phase 1: SASS of one Montgomery inner-loop iteration (mont.cuh): {mont_sass}; the "
-        f"bound counts 2 wide products an iteration")
-    if mont_sass["found"] and mont_sass["wide_per_iteration"] < 2:
-        fail("the Montgomery bound counts more wide products than an iteration's SASS has")
+    log(f"phase 1: SASS of one round of the Montgomery group product (mont.cuh group_mul), "
+        f"a lane, by K: {mont_sass}; the bound counts 2 K wide products a lane a round")
+    if any(c["wide_per_round"] < 2 * K for K, c in mont_sass["per_k"].items()):
+        fail("the Montgomery bound counts more wide products than a round's SASS has")
     ptxas = {}  # kernel (mangled name) -> ptxas lines on registers, spills, wgmma serialized
     for name, text in logs.items():
         func = "?"
@@ -1767,8 +1798,9 @@ def main() -> int:
 
     # kernels 9 and 10 (crypto/mont.py) at phase 4d's shapes: kernel 9 on (b)'s
     # r^N mod N^2 of an encryption batch (and, in the log and --out, on its
-    # CRT decryption halves and its level-2 modexps), kernel 10 on (d)'s grid;
-    # each kernel and its plain version also at (a)'s shapes
+    # CRT decryption halves and its level-2 modexps), kernel 10 on (d)'s grid
+    # (and a level-2 scan); each kernel and its plain version also at (a)'s
+    # shapes. products and sass_floor_ms follow the plan each launch ran
     n = cpir.pop("n")
     n2, n3 = n * n, n ** 3
     prng = np.random.default_rng(args.seed + 8)
@@ -1796,56 +1828,74 @@ def main() -> int:
                                                for x in big(n2, CPIR_CHECK_MODEXPS)],
                   n2, CPIR_CHECK_BITS, L2),
     }
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    optin = mont._smem_optin(0)
     for name, (bs, es, mods, e_max, L) in cases.items():
         if e_max is None:  # the CRT route's bound: 256-bit steps
             e_max = -(-max(e.bit_length() for e in es) // 256) * 256
         bt, et = u32(mont.ints_to_words(bs, L)), u32(mont.pack_exponents(es, e_max))
         ms9, got = cuda_ms(lambda: mont.mont_powmod(bt, et, mods, e_max), 3)
         rows = len(bs)
+        plan = mont.powmod_plan(rows, L, e_max, sms, optin)
         # bound: the fewest products over every fixed window, not the
-        # kernel's own window
-        rec = {"ms": ms9, "rows": rows, "e_max": e_max, "words": L,
-               "products": mont.powmod_products(e_max, rows),
+        # kernel's own plan
+        rec = {"ms": ms9, "rows": rows, "e_max": e_max, "words": L, "plan": plan,
+               "products": plan["products"],
                "least_products": mont.least_powmod_products(e_max, rows),
                "bound_ms": {"operations": mont_ms(mont.least_powmod_products(e_max, rows), L),
-                            "bytes": nbytes(bt, et, got) / HBM_BYTES_PER_S * 1e3}}
-        if mont_sass["found"]:
-            rec["sass_floor_ms"] = mont.powmod_products(e_max, rows) * L * L * max(
-                c / MONT_PIPE_RATES[p] for p, c in mont_sass["pipes"].items()) * 1e3
+                            "bytes": nbytes(bt, et, got) / HBM_BYTES_PER_S * 1e3},
+               "sass_floor_ms": mont_floor_ms(plan, mont_sass)}
         if name == "check":  # phase 4d (a) timed the plain version on its operands
             rec["plain_ms"] = cpir["s"]["check_powmod_plain"] * 1e3
             rec["max_abs_err"] = cpir["max_abs_err"]["mont_powmod"]
-        if mont.words_to_ints(got[:4].cpu().numpy()) != [
-                pow(b, e, m) for b, e, m in zip(bs[:4], es[:4], mods if isinstance(mods, list)
-                                                 else [mods] * 4)]:
+        mods_l = mods if isinstance(mods, list) else [mods] * rows
+        sample = sorted(set(range(0, rows, max(1, rows // 16))) | {rows - 1})
+        if [mont.words_to_ints(got[i:i + 1].cpu().numpy())[0] for i in sample] != [
+                pow(bs[i], es[i], mods_l[i]) for i in sample]:
             fail(f"phase 5: kernel 9 differs from CPython on the {name} batch")
         mont_time[f"powmod_{name}"] = rec
         log(f"phase 5: Montgomery modexps, {name} ({rows} x {e_max}-bit exponents, {L} "
-            f"words): {json.dumps(rec)}")
-    for name, (h, w) in (("grid", (cpir["grid"]["rows"], cpir["grid"]["width"])),
-                         ("check", (CPIR_CHECK_ROWS, CPIR_CHECK_COLS))):
-        bt = u32(mont.ints_to_words(big(n2, h), L2))
-        et = u32(prng.integers(0, 1 << 24, size=(h, w, 1), dtype=np.uint32))
-        ms10, got = cuda_ms(lambda: mont.mont_scan(bt, et, n2, 24), 3)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = mont.scan_plan(h, w, L2, 24, sms, mont._smem_optin(0))
+            f"words; {len(sample)} rows equal CPython): {json.dumps(rec)}")
+    # kernel 10 at (d)'s grid, (a)'s chunk and the recursive query's level-2
+    # scan (32 blocks, one column, exponents of bits(N^2) mod N^3)
+    e_l2 = n2.bit_length()
+    for name, (h, w, mod, e_max, L) in (
+            ("grid", (cpir["grid"]["rows"], cpir["grid"]["width"], n2, 24, L2)),
+            ("check", (CPIR_CHECK_ROWS, CPIR_CHECK_COLS, n2, 24, L2)),
+            ("level2", (CPIR_L2_SCAN_ROWS, 1, n3, e_l2, L3))):
+        bs = big(mod, h)
+        bt = u32(mont.ints_to_words(bs, L))
+        if e_max == 24:
+            ev = prng.integers(0, 1 << 24, size=(h, w, 1), dtype=np.uint32)
+        else:
+            ev = mont.pack_exponents(big(n2, h * w), e_max).reshape(h, w, -1)
+        et = u32(ev)
+        ms10, got = cuda_ms(lambda: mont.mont_scan(bt, et, mod, e_max), 3)
+        plan = mont.scan_plan(h, w, L, e_max, sms, optin)
         # bound: Straus's method in one chunk at the best fixed window, each
         # row's table shared by the columns (8 bits at 1024 x 1024), not the
         # kernel's own plan
-        least = mont.least_scan_products(h, w, 24)
-        rec = {"ms": ms10, "rows": h, "cols": w, "plan": plan,
-               "products": mont.scan_products(plan, h, w, 24), "least_products": least,
-               "bound_ms": {"operations": mont_ms(least, L2),
-                            "bytes": nbytes(bt, et, got) / HBM_BYTES_PER_S * 1e3}}
-        if mont_sass["found"]:
-            rec["sass_floor_ms"] = rec["products"] * L2 * L2 * max(
-                c / MONT_PIPE_RATES[p] for p, c in mont_sass["pipes"].items()) * 1e3
+        least = mont.least_scan_products(h, w, e_max)
+        rec = {"ms": ms10, "rows": h, "cols": w, "e_max": e_max, "words": L, "plan": plan,
+               "products": plan["products"], "least_products": least,
+               "bound_ms": {"operations": mont_ms(least, L),
+                            "bytes": nbytes(bt, et, got) / HBM_BYTES_PER_S * 1e3},
+               "sass_floor_ms": mont_floor_ms(plan, mont_sass)}
         if name == "check":
             rec["plain_ms"] = cpir["s"]["check_scan_plain"] * 1e3
             rec["max_abs_err"] = cpir["max_abs_err"]["mont_scan"]
+        cols = sorted({0, w - 1, w // 2, w // 3}) if w > 4 else range(w)
+        prods = mont.words_to_ints(got.cpu().numpy())
+        for c in cols:
+            acc = 1
+            for r in range(h):
+                acc = acc * pow(bs[r], int.from_bytes(ev[r, c].tobytes(), "little"), mod) % mod
+            if acc != prods[c]:
+                fail(f"phase 5: kernel 10 differs from CPython on the {name} scan, column {c}")
         mont_time[f"scan_{name}"] = rec
-        log(f"phase 5: Montgomery scan, {name} ({h} x {w} 24-bit exponents mod a "
-            f"{n2.bit_length()}-bit N^2): {json.dumps(rec)}")
+        log(f"phase 5: Montgomery scan, {name} ({h} x {w} {e_max}-bit exponents mod a "
+            f"{mod.bit_length()}-bit modulus; {len(cols)} columns equal CPython): "
+            f"{json.dumps(rec)}")
         del bt, et, got
     if mont_time["powmod_check"]["max_abs_err"] or mont_time["scan_check"]["max_abs_err"]:
         fail("phase 5: a Montgomery kernel disagrees with its plain version")

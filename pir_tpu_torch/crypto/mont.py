@@ -6,11 +6,18 @@ column, answer = prod_row Enc(bit_row)^chunk(row, col) mod N^k (db.go:
 176-271). pir_tpu runs it, and the batched modexps of query generation,
 decryption and the DDLEQ proofs, as jitted jnp in radix-2^15 limbs. Here
 they run in two hand-written CUDA kernels (``csrc/mont_exp.cu``, on the
-per-thread arithmetic of ``csrc/mont.cuh``, 32-bit words):
+group product of ``csrc/mont.cuh``: a number's 32-bit words spread over
+G lanes of a warp, K a lane, in registers):
 
 * kernel 9, ``mont_powmod``: out[i] = base[i]^e[i] mod m[i], one modulus
-  or one a row;
-* kernel 10, ``mont_scan``: out[w] = prod_r base[r]^e[r, w] mod m.
+  or one a row, one group a modexp;
+* kernel 10, ``mont_scan``: out[w] = prod_r base[r]^e[r, w] mod m, one
+  group a (column, row chunk), then a merge.
+
+``powmod_plan`` and ``scan_plan`` choose G, the window and (kernel 10)
+the chunking from a cost model of the group product on an H100;
+``least_powmod_products`` and ``least_scan_products`` count the fewest
+products the functions need, for their bounds.
 
 Each wrapper takes tensors of 32-bit words (int32, little-endian, values
 below their modulus) and the moduli as Python ints; it launches its
@@ -155,14 +162,15 @@ def mont_ctx(m: int, L: int | None = None) -> MontCtx:
 
 @dataclass(frozen=True)
 class WordCtx:
-    """Per-modulus constants of the kernels: L words, -m^-1 mod 2^32 and
-    R^2 mod m for R = 2^(32 L)."""
+    """Per-modulus constants of the kernels: L words, -m^-1 mod 2^32, and
+    R^2 mod m and R mod m for R = 2^(32 L)."""
 
     m: int
     L: int
     n_words: np.ndarray   # (L,) uint32
     n0inv: int
     r2_words: np.ndarray  # (L,) uint32
+    one_words: np.ndarray  # (L,) uint32, the Montgomery domain's 1
 
 
 @functools.lru_cache(maxsize=64)
@@ -174,7 +182,7 @@ def word_ctx(m: int, L: int | None = None) -> WordCtx:
     if r <= m:
         raise ValueError(f"{L} words are too few for a {m.bit_length()}-bit modulus")
     return WordCtx(m, L, ints_to_words([m], L)[0], (-pow(m, -1, 1 << 32)) & 0xFFFFFFFF,
-                   ints_to_words([r * r % m], L)[0])
+                   ints_to_words([r * r % m], L)[0], ints_to_words([r % m], L)[0])
 
 
 # --------------------------------------------------------------------------
@@ -404,21 +412,33 @@ def mont_scan_plain(bases: torch.Tensor, exps: torch.Tensor, mod: int, e_max: in
 
 
 # --------------------------------------------------------------------------
-# kernel wrappers
+# kernel wrappers and their planners
 # --------------------------------------------------------------------------
 
-_POWMOD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_SCAN_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_uint] + [ctypes.c_void_p] * 2
-              + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-_MERGE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_uint, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
-    ctypes.c_void_p]
-BLOCK = 128  # threads a block (the kernels' __launch_bounds__)
+_POWMOD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_TABLES_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_uint] + [ctypes.c_void_p] * 2
+                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_SCAN_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_uint] + [ctypes.c_int] * 12
+              + [ctypes.c_void_p])
+_MERGE_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_uint] + [ctypes.c_int] * 7
+               + [ctypes.c_void_p])
+GROUP_LANES = (4, 8, 16, 32)  # lanes a number spans (G), aligned in a warp
+LANE_WORDS = (1, 2, 3, 4, 6, 8, 12, 16, 24)  # words a lane holds (K): mont_exp.cu's instances
+MAX_WINDOW = 8  # window bits the kernels take
+BLOCK = 128  # kernel 10's columns a block at most, by default (col_chunk)
+SCRATCH_BYTES = 256 << 20  # kernel 10's tables a launch, and its partials, at most
 
-
-def window_bits(e_max: int) -> int:
-    """The kernels' window: 4 bits for e_max >= 64 (as mont_tpu.mont_exp),
-    else 1 (square and multiply)."""
-    return 4 if e_max >= 64 else 1
+# The planners' cost model, in clock cycles of one warp scheduler (an SM
+# has four), from the group product's SASS (chip_smoke.py phase 1: an
+# integer instruction takes the FMA or ALU pipe two cycles a warp, an
+# IMAD.WIDE four) and fitted to forced-plan timings on an H100
+# (benchmarks_mont.py --sweep).
+ROUND_ISSUE = (12, 14)  # pipe cycles a warp a round: 12 + 14 K
+ROUND_LATENCY = (100, 10, 23)  # a round's dependent chain: 100 + 10 K, 100 + 23 K rolled (K > 8)
+SHUFFLE_LATENCY = 24  # the shift's shuffle, on that chain when K = 1
+FINISH = (80, 24, 400)  # carry and borrow resolution: 80 + 24 K pipe cycles, ~400 latency
+READ_ISSUE = (4, 6)  # a masked table read: 4 + 6 K pipe cycles an entry
+LAUNCH_CYCLES = 8000  # a launch's fixed cost, ~4 us
 
 
 def _lib(fn: str, argtypes):
@@ -436,16 +456,65 @@ def _smem_optin(index: int) -> int:
     return out.value
 
 
+@functools.lru_cache(maxsize=8)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _u32_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)).to(device)
 
 
-def powmod_products(e_max: int, rows: int = 1, wbits: int | None = None) -> int:
-    """Montgomery products of `rows` modexps at a fixed window of wbits
-    (kernel 9's window_bits by default): the table (2^wbits), the ladder
-    (wbits + 1 a window) and leaving the domain."""
-    wb = window_bits(e_max) if wbits is None else wbits
-    return rows * ((1 << wb) + -(-e_max // wb) * (wb + 1) + 1)
+def lane_words(L: int, G: int) -> int | None:
+    """K: the fewest words of LANE_WORDS a lane holds so that G lanes hold
+    L words (None past 24 a lane)."""
+    return next((k for k in LANE_WORDS if G * k >= L), None)
+
+
+def scan_threads(K: int) -> int:
+    """Threads a block of kernel 10's chunk pass holds at K words a lane
+    (mont_exp.cu scan_threads: ~6 K + 32 registers a thread)."""
+    return 1024 if K <= 4 else 512 if K <= 8 else 256 if K <= 16 else 128
+
+
+def _product_cost(G: int, K: int) -> tuple[int, int]:
+    """(issue cycles a warp, cycles of dependent latency) of one product."""
+    rounds = G * K
+    issue = rounds * (ROUND_ISSUE[0] + ROUND_ISSUE[1] * K) + FINISH[0] + FINISH[1] * K
+    per_word = ROUND_LATENCY[1] if K <= 8 else ROUND_LATENCY[2]
+    latency = rounds * (ROUND_LATENCY[0] + per_word * K + (SHUFFLE_LATENCY if K == 1 else 0))
+    latency += FINISH[2]
+    return issue, latency
+
+
+def _read_cost(wbits: int, K: int) -> tuple[int, int]:
+    issue = (READ_ISSUE[0] + READ_ISSUE[1] * K) << wbits
+    return issue, issue + 40
+
+
+def _resident_warps(threads: int, smem: int, smem_optin: int, K: int) -> int:
+    """Warps an SM holds: blocks by threads and shared memory, then registers."""
+    blocks = min(32, 2048 // threads, (smem_optin + 1024) // (smem + 1024))
+    return max(1, min(blocks * threads // 32, 65536 // (32 * min(255, 6 * K + 32))))
+
+
+def _stage_cycles(groups: int, G: int, issue: int, latency: int, warps_per_sm: int,
+                  sms: int) -> int:
+    """Cycles of a launch of `groups` groups, each a chain of `issue`
+    cycles a warp over `latency` cycles of dependences: a scheduler
+    takes its warps in waves of what it holds at once, and a wave lasts the
+    longer of one chain's latency and its warps' issue."""
+    warps = -(-groups * G // 32)
+    per = -(-warps // (4 * sms))
+    resident = max(1, warps_per_sm // 4)
+    return -(-per // resident) * max(latency, min(per, resident) * issue)
+
+
+def powmod_products(e_max: int, rows: int, wbits: int) -> int:
+    """Montgomery products of `rows` modexps at a fixed window of wbits as
+    the bound counts them: the table (2^wbits), the ladder (wbits + 1 a
+    window) and leaving the domain."""
+    return rows * ((1 << wbits) + -(-e_max // wbits) * (wbits + 1) + 1)
 
 
 def least_powmod_products(e_max: int, rows: int = 1) -> int:
@@ -454,54 +523,174 @@ def least_powmod_products(e_max: int, rows: int = 1) -> int:
     return min(powmod_products(e_max, rows, wb) for wb in range(1, 17))
 
 
+@functools.lru_cache(maxsize=256)
+def powmod_plan(b: int, L: int, e_max: int, sms: int, smem_optin: int) -> dict:
+    """Kernel 9's launch shape for b modexps of L words and e_max-bit
+    exponents: G lanes of K words a modexp, the window, warps a block (the
+    tables of a warp's groups in shared memory), the products it runs and
+    the cycles the cost model reckons. Over every G and window that fits,
+    the fewest cycles: a larger G shortens each chain (fewer rounds a lane
+    does work in), a smaller G spends fewer shuffles and masked reads a
+    product and leaves more warps for the schedulers."""
+    best = None
+    for G in GROUP_LANES:
+        K = lane_words(L, G)
+        if K is None:
+            continue
+        pi, pl = _product_cost(G, K)
+        for wb in range(1, MAX_WINDOW + 1):
+            warp_smem = 4 * K * 32 << wb
+            if warp_smem > smem_optin:
+                break
+            warps = min(4, smem_optin // warp_smem)
+            nwin = -(-e_max // wb)
+            prods = (1 << wb) - 1 + (nwin - 1) * (wb + 1) + 1
+            ri, rl = _read_cost(wb, K)
+            issue = prods * pi + nwin * ri + (K << wb)
+            cycles = LAUNCH_CYCLES + _stage_cycles(
+                b, G, issue, prods * pl + nwin * rl,
+                _resident_warps(32 * warps, warps * warp_smem, smem_optin, K), sms)
+            key = (cycles, -(-b * G // 32) * issue)
+            if best is None or key < best[0]:
+                best = (key, {"G": G, "K": K, "wbits": wb, "warps": warps,
+                              "smem": warps * warp_smem, "products": b * prods,
+                              "cycles": cycles})
+    if best is None:
+        raise ValueError(f"no group of {GROUP_LANES[-1]} lanes holds {L} words")
+    return best[1]
+
+
+def _row_counts(lo: int, hi: int, h: int) -> list[int]:
+    """Candidate rows a chunk in [lo, hi]: every count to 8, then one for
+    each of a geometric run of chunk counts."""
+    out = {lo, hi} | set(range(lo, min(hi, 8) + 1))
+    c = 1
+    while c <= h:
+        rc = -(-h // c)
+        if lo <= rc <= hi:
+            out.add(rc)
+        c = max(c + 1, c * 5 // 4)
+    return sorted(out)
+
+
+def _col_counts(G: int, K: int, w: int, col_chunk: int) -> list[int]:
+    """Candidate columns (groups) a block: whole warps, doubling, up to the
+    block's threads, col_chunk and the columns there are."""
+    warp = 32 // G
+    most = max(warp, min(scan_threads(K) // G, col_chunk // warp * warp, -(-w // warp) * warp))
+    out, cols = {most}, warp
+    while cols < most:
+        out.add(cols)
+        cols *= 2
+    return sorted(out)
+
+
+@functools.lru_cache(maxsize=256)
 def scan_plan(h: int, w: int, L: int, e_max: int, sms: int, smem_optin: int,
               row_chunk: int = ROW_CHUNK, col_chunk: int = BLOCK) -> dict:
-    """Kernel 10's launch shape: threads a block (columns), rows a chunk
-    (rc, at most row_chunk and what shared memory holds), chunks, and
-    whether the threads' state fits in shared memory. Enough (column,
-    chunk) threads to fill every SM, as few chunks as that
-    allows (each chunk repeats the squarings): a chunk for each block the
-    SMs hold at once."""
-    wb = window_bits(e_max)
-    block = min(BLOCK, col_chunk, 32 * -(-w // 32))
-    tiles = -(-w // block)
-    state = 2 * (L + 1) * block
-    table = L << wb
-    smem_state = 4 * (L + table + state) <= smem_optin
-    room = smem_optin // 4 - L - (state if smem_state else 0)
-    if room < table:
-        raise ValueError(f"a {L}-word modulus's table does not fit in shared memory")
-    # blocks an SM holds at one row a chunk (shared memory, 2048 threads)
-    per_block = 4 * (L + table + (state if smem_state else 0)) + 1024
-    resident = max(1, min(2048 // block, (smem_optin + 1024) // per_block))
-    chunks = min(h, max(1, -(-sms * resident * block // (tiles * block))))
-    rc = min(-(-h // chunks), row_chunk, room // table)
-    rc = max(rc, -(-h // 65535))
-    if rc * table > room:
-        raise ValueError(f"{h} rows need more than 65535 chunks of {room // table}")
-    return {"block": block, "rc": rc, "chunks": -(-h // rc), "smem_state": smem_state,
-            "wbits": wb}
+    """Kernel 10's launch shape for an (h, w) scan of L words and e_max-bit
+    exponents, the fewest cycles of the cost model over G (and K), the
+    window, rows a chunk (rc; at most row_chunk and what shared memory
+    holds, at most 65535 chunks), Straus or Horner chunks and columns a
+    block (at most col_chunk, a whole warp at least). It counts the table
+    pass (2^wbits - 1 products a row), each chunk's chain (its products
+    and its masked table reads; Straus repeats the squarings in every
+    chunk, Horner leaves them to the merge at one partial a window), the
+    merge, the copy of each block's tables and the lanes in flight.
+    slab_chunks: the chunks a table pass covers (SCRATCH_BYTES of tables
+    at most)."""
+    best = None
+    rc_min = -(-h // 65535)
+    for G in GROUP_LANES:
+        K = lane_words(L, G)
+        if K is None:
+            continue
+        Lp = G * K
+        pi, pl = _product_cost(G, K)
+        small = _resident_warps(128, 0, smem_optin, K)
+        for wb in range(1, MAX_WINDOW + 1):
+            count, nwin = 1 << wb, -(-e_max // wb)
+            row_bytes = 4 * Lp * count
+            rc_max = min(h, row_chunk, smem_optin // row_bytes)
+            if rc_max < rc_min:
+                break
+            ri, rl = _read_cost(wb, K)
+            tables = _stage_cycles(h, G, (count - 1) * pi + count * K, (count - 1) * pl, small,
+                                   sms)
+            for rc in _row_counts(rc_min, rc_max, h):
+                chunks = -(-h // rc)
+                for horner in (0, 1):
+                    P = nwin if horner else 1
+                    if chunks * P * w * Lp * 4 > SCRATCH_BYTES:
+                        continue
+                    chain = nwin * (rc - 1) if horner else nwin * rc - 1 + (nwin - 1) * wb
+                    m_chain = (P - 1) * wb + P * chunks
+                    merge = _stage_cycles(w, G, m_chain * pi + P * chunks * K, m_chain * pl,
+                                          small, sms)
+                    for cols in _col_counts(G, K, w, col_chunk):
+                        threads = cols * G
+                        copy = 3 * rc * Lp * count // (4 * threads)
+                        scan = _stage_cycles(
+                            -(-w // cols) * cols * chunks, G,
+                            chain * pi + nwin * rc * ri + copy,
+                            chain * pl + nwin * rc * rl + copy + 800,
+                            _resident_warps(threads, rc * row_bytes, smem_optin, K), sms)
+                        plan = {"G": G, "K": K, "wbits": wb, "rc": rc, "chunks": chunks,
+                                "horner": horner, "cols": cols, "threads": threads,
+                                "smem": rc * row_bytes,
+                                "slab_chunks": max(1, SCRATCH_BYTES // (rc * row_bytes)),
+                                "cycles": tables + scan + merge + 3 * LAUNCH_CYCLES}
+                        plan["products"] = scan_products(plan, h, w, e_max)
+                        key = (plan["cycles"], plan["products"])
+                        if best is None or key < best[0]:
+                            best = (key, plan)
+    if best is None:
+        raise ValueError(f"no plan holds a {L}-word modulus's table in shared memory")
+    return best[1]
 
 
 def scan_products(plan: dict, h: int, w: int, e_max: int) -> int:
-    """Montgomery products kernel 10 runs: the chunks' tables, Straus's
-    squarings and row products per (column, chunk), the merge."""
+    """Montgomery products kernel 10 runs on a plan: the tables (2^wbits -
+    1 a row), each (column, chunk)'s chain (a run's first multiplicand is
+    a copy), the merge (squarings between windows, leaving the domain)."""
     wb, chunks = plan["wbits"], plan["chunks"]
     nwin = -(-e_max // wb)
-    return (h * (1 << wb) + chunks * w * nwin * wb + w * nwin * h + w * chunks)
+    if plan["horner"]:
+        scan, P = nwin * (h - chunks), nwin
+    else:
+        scan, P = nwin * h - chunks + chunks * (nwin - 1) * wb, 1
+    return h * ((1 << wb) - 1) + w * scan + w * ((P - 1) * wb + P * chunks)
 
 
 def least_scan_products(h: int, w: int, e_max: int) -> int:
     """The fewest Montgomery products of the scan's function over every
     fixed window: Straus's method in one chunk, each row's table built
     once and shared by all w columns, the squarings shared by the rows."""
-    return min(scan_products({"wbits": wb, "chunks": 1}, h, w, e_max) for wb in range(1, 17))
+    return min(h * (1 << wb) + w * -(-e_max // wb) * (wb + h) + w for wb in range(1, 17))
 
 
-def mont_powmod(bases: torch.Tensor, exps: torch.Tensor, mods, e_max: int) -> torch.Tensor:
+def _consts(mods: list[int], Lp: int, dev) -> tuple:
+    """n, n0inv, R^2 and R mod m at Lp words: one row for one modulus, else
+    a row for each of mods (gathered from the distinct moduli's rows)."""
+    distinct = sorted(set(mods))
+    ctxs = [word_ctx(m, Lp) for m in distinct]
+    pos = {m: i for i, m in enumerate(distinct)}
+    rows = (np.fromiter((pos[m] for m in mods), np.int64, len(mods)) if len(distinct) > 1
+            else np.zeros(1, np.int64))
+
+    def table(field):
+        return _u32_tensor(np.stack([getattr(c, field) for c in ctxs])[rows], dev)
+
+    return (table("n_words"), _u32_tensor(np.array([c.n0inv for c in ctxs])[rows], dev),
+            table("r2_words"), table("one_words"))
+
+
+def mont_powmod(bases: torch.Tensor, exps: torch.Tensor, mods, e_max: int,
+                plan: dict | None = None) -> torch.Tensor:
     """(B, L) int32 words of bases < m, (B, EW) int32 exponent words (EW >=
     ceil(e_max / 32), e_max >= 1), one odd modulus or B of them (of at
-    most L words) -> (B, L) int32 words of bases^exps mod m."""
+    most L words) -> (B, L) int32 words of bases^exps mod m. On the card
+    one launch on powmod_plan's shape (or `plan`, one of its dicts)."""
     _check_words("bases", bases, 2)
     _check_words("exps", exps, 2)
     b, L = bases.shape
@@ -521,30 +710,18 @@ def mont_powmod(bases: torch.Tensor, exps: torch.Tensor, mods, e_max: int) -> to
     if not bases.is_contiguous() or not exps.is_contiguous():
         raise ValueError("the kernel reads bases and exponents as they lie: both contiguous")
     dev = bases.device
-    distinct = sorted(set(mods))
-    ctxs = {m: word_ctx(m, L) for m in distinct}
-    per_row = len(distinct) > 1
-    if per_row:
-        n = _u32_tensor(np.stack([ctxs[m].n_words for m in mods]).T, dev)  # (L, B)
-        n0 = _u32_tensor(np.array([ctxs[m].n0inv for m in mods]), dev)
-        r2 = _u32_tensor(np.stack([ctxs[m].r2_words for m in mods]), dev)
-    else:
-        c = ctxs[distinct[0]]
-        n, n0, r2 = (_u32_tensor(x, dev) for x in (c.n_words, np.array([c.n0inv]), c.r2_words))
-    wb = window_bits(e_max)
-    out = torch.empty_like(bases)
-    fn = _lib("pir_mont_powmod", _POWMOD_ARGS)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
     with torch.cuda.device(dev):
-        block = BLOCK
-        smem_state = 4 * 2 * (L + 1) * block <= _smem_optin(dev.index or 0)
-        nth = -(-b // block) * block
-        state = torch.empty(0 if smem_state else 2 * (L + 1) * nth, dtype=torch.int32,
-                            device=dev)
-        tables = torch.empty((L << wb) * nth, dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(bases.data_ptr(), exps.data_ptr(), out.data_ptr(), n.data_ptr(), n0.data_ptr(),
-                 r2.data_ptr(), state.data_ptr(), tables.data_ptr(), b, L, exps.shape[1], e_max,
-                 wb, int(per_row), int(smem_state), block, stream)
+        if plan is None:
+            plan = powmod_plan(b, L, e_max, _sms(index), _smem_optin(index))
+        G, K = plan["G"], plan["K"]
+        per_row = len(set(mods)) > 1
+        n, n0, r2, one = _consts(mods, G * K, dev)
+        out = torch.empty_like(bases)
+        err = _lib("pir_mont_powmod", _POWMOD_ARGS)(
+            bases.data_ptr(), exps.data_ptr(), out.data_ptr(), n.data_ptr(), n0.data_ptr(),
+            r2.data_ptr(), one.data_ptr(), b, L, exps.shape[1], e_max, plan["wbits"], G, K,
+            int(per_row), plan["warps"], torch.cuda.current_stream().cuda_stream)
         _build.check(err, "mont_powmod")
         _build.count_launch(mont_powmod)
     return out
@@ -554,10 +731,12 @@ mont_powmod.launches = 0
 
 
 def mont_scan(bases: torch.Tensor, exps: torch.Tensor, mod: int, e_max: int,
-              row_chunk: int = ROW_CHUNK, col_chunk: int = BLOCK) -> torch.Tensor:
+              row_chunk: int = ROW_CHUNK, col_chunk: int = BLOCK,
+              plan: dict | None = None) -> torch.Tensor:
     """(H, L) int32 words of bases < mod, (H, W, EW) int32 exponent words
     -> (W, L) int32 words of prod_r bases[r]^exps[r, w] mod mod. On the card
-    a launch pair: the chunks' Straus products, then their merge."""
+    on scan_plan's shape (or `plan`, one of its dicts): the rows' tables,
+    the chunks' products, then their merge."""
     _check_words("bases", bases, 2)
     _check_words("exps", exps, 3)
     h, L = bases.shape
@@ -576,29 +755,36 @@ def mont_scan(bases: torch.Tensor, exps: torch.Tensor, mod: int, e_max: int,
     if not bases.is_contiguous() or not exps.is_contiguous():
         raise ValueError("the kernel reads bases and exponents as they lie: both contiguous")
     dev = bases.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
     w, ew = exps.shape[1], exps.shape[2]
-    c = word_ctx(mod, L)
-    n, r2 = _u32_tensor(c.n_words, dev), _u32_tensor(c.r2_words, dev)
     with torch.cuda.device(dev):
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = scan_plan(h, w, L, e_max, sms, _smem_optin(dev.index or 0), row_chunk, col_chunk)
-        block, chunks = plan["block"], plan["chunks"]
-        nth = -(-w // block) * block * chunks
-        state = torch.empty(0 if plan["smem_state"] else 2 * (L + 1) * nth, dtype=torch.int32,
-                            device=dev)
-        partials = torch.empty(chunks * L * w, dtype=torch.int32, device=dev)
+        if plan is None:
+            plan = scan_plan(h, w, L, e_max, _sms(index), _smem_optin(index), row_chunk,
+                             col_chunk)
+        G, K, wb, rc, chunks = plan["G"], plan["K"], plan["wbits"], plan["rc"], plan["chunks"]
+        Lp = G * K
+        n, _, r2, one = _consts([mod], Lp, dev)
+        n0inv = word_ctx(mod, Lp).n0inv
+        P = -(-e_max // wb) if plan["horner"] else 1
+        partials = torch.empty(chunks * P * w * Lp, dtype=torch.int32, device=dev)
+        slab = plan["slab_chunks"]
+        tables = torch.empty(min(h, slab * rc) * (Lp << wb), dtype=torch.int32, device=dev)
         out = torch.empty((w, L), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib("pir_mont_scan", _SCAN_ARGS)(
-            bases.data_ptr(), exps.data_ptr(), partials.data_ptr(), n.data_ptr(), c.n0inv,
-            r2.data_ptr(), state.data_ptr(), h, w, L, ew, e_max, plan["wbits"], plan["rc"],
-            int(plan["smem_state"]), block, stream)
-        _build.check(err, "mont_scan")
-        merge_state = torch.empty(2 * (L + 1) * -(-w // BLOCK) * BLOCK, dtype=torch.int32,
-                                  device=dev)
+        for c0 in range(0, chunks, slab):
+            nc = min(slab, chunks - c0)
+            r0 = c0 * rc
+            err = _lib("pir_mont_tables", _TABLES_ARGS)(
+                bases.data_ptr() + 4 * r0 * L, tables.data_ptr(), n.data_ptr(), n0inv,
+                r2.data_ptr(), one.data_ptr(), min(h, (c0 + nc) * rc) - r0, L, wb, G, K, stream)
+            _build.check(err, "mont_scan tables")
+            err = _lib("pir_mont_scan", _SCAN_ARGS)(
+                tables.data_ptr(), exps.data_ptr(), partials.data_ptr(), n.data_ptr(), n0inv, h,
+                w, ew, e_max, wb, G, K, rc, plan["horner"], plan["cols"], c0, nc, stream)
+            _build.check(err, "mont_scan")
         err = _lib("pir_mont_merge", _MERGE_ARGS)(
-            partials.data_ptr(), out.data_ptr(), n.data_ptr(), c.n0inv, merge_state.data_ptr(),
-            chunks, w, L, BLOCK, stream)
+            partials.data_ptr(), out.data_ptr(), n.data_ptr(), n0inv, chunks, P, w, L, wb, G, K,
+            stream)
         _build.check(err, "mont_merge")
         _build.count_launch(mont_scan)
     return out
@@ -653,7 +839,7 @@ def device_paillier_scan(
     (tpu_paillier_scan's semantics: exponent 0 is the identity, the
     reference's out-of-range `continue`). `e_max`, the protocol's bound on
     exponent bits, defaults to the batch's own; row_chunk bounds the rows a
-    thread multiplies together (a plain chunk's rows on the CPU) and
+    group multiplies together (a plain chunk's rows on the CPU) and
     col_chunk the columns of a block; both powers of two as in pir_tpu."""
     height = len(ebits)
     if len(vals) != height * width_cts:

@@ -887,10 +887,9 @@ def test_mont_powmod_kernel_per_row_moduli(dev):
     (6, 2, 384, 384), (33, 3, 3072, 2048),
 ])
 def test_mont_scan_kernel_matches_plain_and_pow(dev, h, w, bits, e_max):
-    """The scan at level-1 (short exponents, square and multiply) and
-    level-2 (exponents of bits(N^2), 4-bit windows) shapes, row counts
-    that are not powers of two, exponent 0 (the identity) and the all-ones
-    exponent."""
+    """The scan at level-1 (short exponents) and level-2 (exponents of
+    bits(N^2)) shapes on scan_plan's plans, row counts that are not
+    powers of two, exponent 0 (the identity) and the all-ones exponent."""
     rnd = random.Random(h * 1000 + w)
     m = rnd.getrandbits(bits) | (1 << (bits - 1)) | 1
     L = mont.words_for_modulus(m)
@@ -917,11 +916,12 @@ def test_mont_scan_kernel_matches_plain_and_pow(dev, h, w, bits, e_max):
 
 
 def test_mont_kernels_at_the_serving_bound(dev):
-    """N^3 of an 8192-bit key (768 words): the threads' state no longer
-    fits in shared memory and lies in global scratch."""
+    """N^3 of an 8192-bit key (768 words): 32 lanes of 24 words a number,
+    the largest instance."""
     rnd = random.Random(8192)
     m = rnd.getrandbits(24576) | (1 << 24575) | 1
-    assert not mont.scan_plan(2, 1, 768, 64, 132, 232448)["smem_state"]
+    p = mont.scan_plan(2, 1, 768, 64, 132, 232448)
+    assert (p["G"], p["K"]) == (32, 24)
     bases, exps = [rnd.randrange(m), m - 1], [rnd.getrandbits(64), 3]
     assert mont.device_powmod_batch(bases, exps, m, e_max=64) == [
         pow(b, e, m) for b, e in zip(bases, exps)]
@@ -982,3 +982,110 @@ def test_mont_wrappers_reject_bad_operands(dev):
         mont.mont_powmod(b, e, m, 64)
     with pytest.raises(ValueError, match="devices"):
         mont.mont_scan(b, e.cpu().reshape(4, 1, 1), m, 24)
+
+
+# ---- kernels 9 and 10 on every group shape (plans forced) ----
+
+def _rand_mod(rnd, words):
+    bits = 32 * words - rnd.randrange(0, 20)
+    return rnd.getrandbits(bits) | (1 << (bits - 1)) | 1
+
+
+# (L, G) with an instance of K = ceil(L / G) words a lane or more
+MONT_GROUPS = [(L, G) for L in (32, 64, 96, 192) for G in (4, 8, 16, 32)
+               if mont.lane_words(L, G)]
+
+
+@pytest.mark.parametrize("L,G", MONT_GROUPS)
+def test_mont_powmod_kernel_every_group(dev, L, G):
+    """Kernel 9 at each G whose instances hold L words, 13 rows (no
+    multiple of a block's groups), zero, one, m - 1, and zero and all-ones
+    exponents of 70 bits (a window of 3 does not divide them)."""
+    K = mont.lane_words(L, G)
+    rnd = random.Random(L * 100 + G)
+    m = _rand_mod(rnd, L)
+    L = mont.words_for_modulus(m)
+    bases = [rnd.randrange(m) for _ in range(10)] + [0, 1, m - 1]
+    exps = [rnd.getrandbits(70) for _ in range(11)] + [0, (1 << 70) - 1]
+    b = _u32(mont.ints_to_words(bases, L)).to(dev)
+    e = _u32(mont.pack_exponents(exps, 70)).to(dev)
+    for wbits, warps in ((3, 2), (1, 1)):
+        got = mont.mont_powmod(b, e, m, 70, plan={"G": G, "K": K, "wbits": wbits,
+                                                  "warps": warps})
+        assert mont.words_to_ints(got.cpu().numpy()) == [pow(x, y, m)
+                                                         for x, y in zip(bases, exps)]
+    if L <= 64:
+        assert torch.equal(got, mont.mont_powmod_plain(b, e, m, 70))
+
+
+def test_mont_powmod_kernel_768_words(dev):
+    """A batch at 768 words (N^3 of the serving bound's 8192-bit key) on
+    powmod_plan's plan, against CPython pow."""
+    rnd = random.Random(768)
+    m = rnd.getrandbits(24576) | (1 << 24575) | 1
+    bases = [rnd.randrange(m) for _ in range(4)] + [m - 1]
+    exps = [rnd.getrandbits(100) for _ in range(4)] + [(1 << 100) - 1]
+    b = _u32(mont.ints_to_words(bases, 768)).to(dev)
+    e = _u32(mont.pack_exponents(exps, 100)).to(dev)
+    got = mont.mont_powmod(b, e, m, 100)
+    assert mont.words_to_ints(got.cpu().numpy()) == [pow(x, y, m) for x, y in zip(bases, exps)]
+
+
+@pytest.mark.parametrize("horner", [0, 1])
+@pytest.mark.parametrize("L,G", MONT_GROUPS)
+def test_mont_scan_kernel_every_group(dev, L, G, horner):
+    """Kernel 10 at each G whose instances hold L words, Straus and
+    Horner chunks, h not a multiple of the rows a chunk, w = 1, and
+    tables in slabs of two chunks (several table and chunk launches)."""
+    h, w, e_max, wbits, rc = {32: (11, 1, 24, 5, 3), 64: (13, 5, 24, 6, 4), 96: (7, 3, 60, 4, 2),
+                              192: (5, 2, 40, 3, 2)}[L]
+    K = mont.lane_words(L, G)
+    rnd = random.Random(h * 1000 + L * 10 + G)
+    m = _rand_mod(rnd, L)
+    L = mont.words_for_modulus(m)
+    ebits = [rnd.randrange(1, m) for _ in range(h - 1)] + [m - 1]
+    vals = [rnd.getrandbits(e_max) if rnd.random() < 0.8 else 0 for _ in range(h * w)]
+    vals[-1] = (1 << e_max) - 1
+    b = _u32(mont.ints_to_words(ebits, L)).to(dev)
+    e = _u32(mont.pack_exponents(vals, e_max).reshape(h, w, -1)).to(dev)
+    plan = {"G": G, "K": K, "wbits": wbits, "rc": rc, "chunks": -(-h // rc), "horner": horner,
+            "cols": 32 // G, "slab_chunks": 2}
+    got = mont.mont_scan(b, e, m, e_max, plan=plan)
+    want = []
+    for c in range(w):
+        acc = 1
+        for r in range(h):
+            acc = acc * pow(ebits[r], vals[r * w + c], m) % m
+        want.append(acc)
+    assert mont.words_to_ints(got.cpu().numpy()) == want
+    if L <= 64:
+        assert torch.equal(got, mont.mont_scan_plain(b, e, m, e_max))
+
+
+@pytest.mark.parametrize("shape", ["grid", "level2"])
+def test_mont_scan_kernel_at_the_served_windows(dev, shape):
+    """Kernel 10 on the window, G and chunk kind that scan_plan picks for
+    the 2^20-slot grid (24-bit exponents mod a 2048-bit N^2) and for the
+    recursive query's level-2 scan (2048-bit exponents mod a 6144-bit
+    N^3), at fewer rows and columns, against CPython pow."""
+    rnd = random.Random(2048)
+    if shape == "grid":
+        h, w, L, e_max = 40, 70, 64, 24
+        p = mont.scan_plan(1024, 1024, 64, 24, 132, 232448)
+    else:
+        h, w, L, e_max = 5, 1, 96, 2048
+        p = mont.scan_plan(32, 1, 96, 2048, 132, 232448)
+    m = _rand_mod(rnd, L)
+    L = mont.words_for_modulus(m)
+    rc = min(p["rc"], 3)
+    plan = dict(p, rc=rc, chunks=-(-h // rc))
+    ebits = [rnd.randrange(1, m) for _ in range(h)]
+    vals = [rnd.getrandbits(e_max) for _ in range(h * w)]
+    b = _u32(mont.ints_to_words(ebits, L)).to(dev)
+    e = _u32(mont.pack_exponents(vals, e_max).reshape(h, w, -1)).to(dev)
+    got = mont.words_to_ints(mont.mont_scan(b, e, m, e_max, plan=plan).cpu().numpy())
+    for c in range(w):
+        acc = 1
+        for r in range(h):
+            acc = acc * pow(ebits[r], vals[r * w + c], m) % m
+        assert got[c] == acc

@@ -332,23 +332,109 @@ def test_wrappers_check_their_operands():
 
 def test_scan_plan_covers_the_rows_and_counts_products():
     """The launch shape of the 2^20-slot grid (1024 x 1024 exponents of 24
-    bits mod a 2048-bit N^2) and of a level-2 scan on an H100 (132 SMs,
-    227 KB of shared memory a block), and the products each runs."""
+    bits mod a 2048-bit N^2) and of a level-2 scan (32 rows, one column,
+    2048-bit exponents mod a 6144-bit N^3) on an H100 (132 SMs, 227 KB of
+    shared memory a block), and the products each runs."""
     optin = 232448
     p = tm.scan_plan(1024, 1024, 64, 24, 132, optin)
-    assert p["wbits"] == 1 and p["smem_state"] and p["rc"] * p["chunks"] >= 1024
-    assert 4 * (64 + p["rc"] * (64 << 1) + 2 * 65 * p["block"]) <= optin
-    assert p["chunks"] * -(-1024 // p["block"]) >= 132  # every SM has a block
-    assert tm.scan_products(p, 1024, 1024, 24) == (
-        1024 * 2 + p["chunks"] * 1024 * 24 + 1024 * 24 * 1024 + 1024 * p["chunks"])
+    assert p["rc"] * p["chunks"] >= 1024 > (p["chunks"] - 1) * p["rc"]
+    assert p["smem"] == 4 * p["rc"] * (p["G"] * p["K"] << p["wbits"]) <= optin
+    assert p["wbits"] not in (1, 4) and p["horner"]  # the window and chunking of the model
+    assert p["products"] == tm.scan_products(p, 1024, 1024, 24) < 7_000_000
     q = tm.scan_plan(32, 1, 96, 2048, 132, optin)
-    assert q["wbits"] == 4 and q["block"] == 32 and q["rc"] == 1 and q["chunks"] == 32
+    assert q["G"] == 32 and q["rc"] == 1 and q["chunks"] == 32 and not q["horner"]
     assert tm.scan_plan(5, 3, 16, 24, 132, optin, row_chunk=2)["rc"] <= 2
-    assert tm.powmod_products(1024) == 16 + 256 * 5 + 1 and tm.powmod_products(24, 2) == 2 * 51
+    assert tm.powmod_products(1024, 1, 4) == 16 + 256 * 5 + 1
+    assert tm.powmod_products(24, 2, 1) == 2 * 51
     # the bounds' counts: the best fixed window, tables shared by a row's
     # columns in the scan (8-bit windows at 24-bit exponents)
-    assert tm.least_scan_products(1024, 1024, 24) == tm.scan_products(
-        {"wbits": 8, "chunks": 1}, 1024, 1024, 24) == 256 * 1024 + 1024 * 24 + 3 * 1024 ** 2 + 1024
-    assert tm.least_scan_products(1024, 1024, 24) < tm.scan_products(p, 1024, 1024, 24) / 7
+    assert tm.least_scan_products(1024, 1024, 24) == 256 * 1024 + 1024 * 24 + 3 * 1024 ** 2 + 1024
+    assert tm.least_scan_products(1024, 1024, 24) > p["products"] * 0.8
     assert tm.least_powmod_products(1024) == tm.powmod_products(1024, 1, 6) == 64 + 171 * 7 + 1
     assert tm.least_powmod_products(24, 2) == tm.powmod_products(24, 2, 2)
+
+
+OPTIN = 232448
+POWMOD_SHAPES = [(1024, 64, 1024), (2048, 32, 512), (64, 96, 2048), (16, 64, 256), (1, 2, 24),
+                 (13, 65, 300), (3, 768, 64), (5000, 17, 40)]
+SCAN_SHAPES = [(1024, 1024, 64, 24), (32, 1, 96, 2048), (64, 4, 64, 24), (1, 1, 2, 24),
+               (67, 1, 16, 24), (130, 33, 8, 40), (33, 3, 96, 2048), (2, 1, 768, 64),
+               (1 << 20, 1, 64, 24), (1 << 17, 2, 512, 24)]
+
+
+@pytest.mark.parametrize("sms", [132, 4])
+@pytest.mark.parametrize("b,L,e_max", POWMOD_SHAPES)
+def test_powmod_plan_covers_its_rows_and_fits(b, L, e_max, sms):
+    """Kernel 9's plan: G lanes of an instance's K words hold L words, the
+    table of each warp's groups fits in shared memory, and its products
+    are those of its window's chain."""
+    p = tm.powmod_plan(b, L, e_max, sms, OPTIN)
+    assert p["G"] in tm.GROUP_LANES and p["K"] in tm.LANE_WORDS and p["G"] * p["K"] >= L
+    assert p["K"] == tm.lane_words(L, p["G"]) and 1 <= p["wbits"] <= tm.MAX_WINDOW
+    assert 1 <= p["warps"] <= 4 and p["smem"] == p["warps"] * 4 * p["K"] * 32 << p["wbits"]
+    assert p["smem"] <= OPTIN
+    nwin = -(-e_max // p["wbits"])
+    assert p["products"] == b * ((1 << p["wbits"]) - 1 + (nwin - 1) * (p["wbits"] + 1) + 1)
+
+
+@pytest.mark.parametrize("sms", [132, 4])
+@pytest.mark.parametrize("h,w,L,e_max", SCAN_SHAPES)
+def test_scan_plan_covers_its_rows_and_fits(h, w, L, e_max, sms):
+    """Kernel 10's plan: its chunks cover the rows, at most 65535 of them,
+    a chunk's tables fit in 227 KB of shared memory, a block is whole warps
+    within the instance's thread bound, and the scratch stays bounded."""
+    p = tm.scan_plan(h, w, L, e_max, sms, OPTIN)
+    Lp = p["G"] * p["K"]
+    assert p["K"] == tm.lane_words(L, p["G"]) and 1 <= p["wbits"] <= tm.MAX_WINDOW
+    assert p["rc"] * p["chunks"] >= h > (p["chunks"] - 1) * p["rc"] and p["chunks"] <= 65535
+    assert p["smem"] == 4 * p["rc"] * Lp << p["wbits"] and p["smem"] <= OPTIN
+    assert p["threads"] == p["cols"] * p["G"] and p["threads"] % 32 == 0
+    assert p["threads"] <= tm.scan_threads(p["K"]) and p["horner"] in (0, 1)
+    windows = -(-e_max // p["wbits"]) if p["horner"] else 1
+    assert p["chunks"] * windows * w * Lp * 4 <= tm.SCRATCH_BYTES
+    assert p["slab_chunks"] * p["smem"] <= max(tm.SCRATCH_BYTES, p["smem"])
+    assert p["products"] == tm.scan_products(p, h, w, e_max)
+
+
+def test_scan_plan_bounds_rows_and_columns():
+    """row_chunk bounds the rows a chunk, col_chunk the columns a block
+    (a whole warp at least); a table that fits no block raises."""
+    for rc in (1, 2, 3):
+        assert tm.scan_plan(40, 3, 16, 24, 132, OPTIN, row_chunk=rc)["rc"] <= rc
+    p = tm.scan_plan(64, 64, 8, 24, 132, OPTIN, col_chunk=2)
+    assert p["cols"] == 32 // p["G"] or p["cols"] <= 2
+    with pytest.raises(ValueError):
+        tm.scan_plan(4, 1, 1000, 24, 132, OPTIN)
+    with pytest.raises(ValueError):
+        tm.powmod_plan(4, 1000, 24, 132, OPTIN)
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    import mont_host_lib
+    return mont_host_lib.build(tmp_path_factory.mktemp("mont_host"))
+
+
+@pytest.mark.parametrize("b,L,e_max,sms", [(3, 2, 24, 132), (5, 16, 96, 1), (2, 33, 64, 2)])
+def test_powmod_plan_counts_what_the_host_model_runs(host, b, L, e_max, sms):
+    import mont_host_lib
+    p = tm.powmod_plan(b, L, e_max, sms, OPTIN)
+    m = _odd(32 * L - 3)
+    bases = [rng.randrange(m) for _ in range(b)]
+    exps = [rng.getrandbits(e_max) for _ in range(b)]
+    got, products = mont_host_lib.powmod(host, bases, exps, [m] * b, e_max, p["G"], p["wbits"],
+                                         p["K"])
+    assert got == [pow(x, y, m) for x, y in zip(bases, exps)] and products == p["products"]
+
+
+@pytest.mark.parametrize("h,w,L,e_max,sms", [(9, 3, 4, 24, 132), (21, 2, 8, 64, 2),
+                                             (6, 1, 12, 300, 132), (40, 5, 2, 24, 1)])
+def test_scan_plan_counts_what_the_host_model_runs(host, h, w, L, e_max, sms):
+    import mont_host_lib
+    p = tm.scan_plan(h, w, L, e_max, sms, OPTIN)
+    m = _odd(32 * L - 5)
+    ebits = [rng.randrange(1, m) for _ in range(h)]
+    vals = [rng.getrandbits(e_max) for _ in range(h * w)]
+    got, products = mont_host_lib.scan(host, ebits, vals, h, w, m, e_max, p["G"], p["wbits"],
+                                       p["rc"], p["horner"])
+    assert got == _pow_scan(ebits, vals, w, m) and products == p["products"]
