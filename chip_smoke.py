@@ -56,9 +56,10 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
    for both key styles; each answer equals the host golden model and
    recovers its row, the masked-XOR scan is launched on every such path
    and the packed scan on none of the fast singles; per-query latency
-   and a split of one single of each kind. Then the tiny-table fallbacks
-   on small tables: a fast batch of depth < 5 and a compat batch of 12
-   on a table of 5 device levels. Then, with 2^20 distinct keywords on
+   and a split of one single of each kind. Then the tiny tables: a fast
+   batch of depth < 5 (per query), and a compat batch of 8 on a 32-row
+   table of 5 device levels (the preplane route: one bit-plane scan
+   launch a share). Then, with 2^20 distinct keywords on
    the rows, a keyword batch of 64 (both shares, and a split of one),
    keyword singles (one absent), 3-party index and keyword singles,
    their device bits against the host golden, and lookups in both
@@ -104,6 +105,18 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
    wrong key), and a PirService with paillier_engine="torch" whose
    answers equal a CPython service's bytes; every row recovered, both
    kernels launched;
+   4e. the mesh engine (mesh_phase): MeshPirServer over ["cuda:0"] * 8,
+   4 row shards by 2 batch slices on the one card, on the 1 GiB table:
+   both shares of 4096 shared-key fast queries on the stacked and the
+   per-query tail root steps, 1024 compat queries (compat root step), 64
+   distinct-key fast queries and 64 compat queries on a 3-shard grid
+   (host-prefix steps), a keyword batch of 8 and a 3-party index batch of
+   4 (point steps), 4096 row updates and a fast batch, and two
+   PirServices with PirConfig(engine="mesh") (1 x 1) serving a fast and
+   a compat batch; every answer equals the single-card server's bytes
+   and recovers its row, each route launches exactly its kernels
+   (counts set to 0 just before, read just after), seconds per batch
+   beside the single card's;
 5. times each kernel, its plain version and its PyTorch yardstick at the
    main paths' shapes (the masked-XOR scan at Q = 1 and Q = 8, the
    bit-plane scan at Q = 64 and Q = 1024 on the natural table's bytes,
@@ -155,7 +168,8 @@ STREAM_LEAF_BITS = 128  # the fused stream's 128-bit leaves: depth 13 here
 TAIL_CHECK_Q = 64  # per-query tail: queries of the 4096-batch checked in phase 2
 FUSED_CHECK_Q = 256  # fused kernel: queries checked in phase 2 (plain scan ~0.5 s)
 SMALL_BATCH = 3  # small batches of both key styles on the single-query paths
-TINY_COMPAT_ROWS = 20  # a compat table of 5 device levels, every level on the host
+PREPLANE_ROWS = 32  # a compat table of 5 device levels (one dead level): the preplane route
+PREPLANE_BATCH = 8
 TINY_FAST_ROWS = 1024  # fast keys of depth 3 (128-bit leaves)
 TINY_BATCH = 12  # scanned as 8 + 4
 PLANES_CHECK_ROWS = 1 << 16  # bit-plane scan: rows of the 1 GiB table checked in phase 2
@@ -176,6 +190,15 @@ SVC_KW_BATCH = 8  # a keyword batch of 64 would spend ~53 s in the plain-torch p
 SVC_ASPIR_BATCH = 64
 SVC_UPDATES = 4096
 SVC_KEY_BYTES = 32  # the auth-key table: one 32-byte key a row
+# phase 4e: the mesh engine over one card named MESH_TP * MESH_DP times
+MESH_TP, MESH_DP = 4, 2
+MESH_TP_ODD = 3  # compat batches take the host-prefix step off a power of two
+MESH_FAST_BATCH = 4096
+MESH_COMPAT_BATCH = 1024
+MESH_PREFIX_BATCH = 64  # distinct-key fast and tp-3 compat batches
+MESH_KW_BATCH = 8
+MESH_MP_BATCH = 4
+MESH_UPDATES = 4096
 # the cPIR yardstick (benchmarks_paillier_tpu.py's shape) and its key size
 CPIR_ROWS = 1 << 10
 CPIR_SLOT_BYTES = 3
@@ -1141,25 +1164,30 @@ def main() -> int:
     split_single("fast single, per-query tail", fast_pertail_single)
     split_single("compat single", compat_single)
 
-    # the tiny-table fallbacks: fast keys of depth < 5 and a compat table of
-    # 5 device levels (every level walked on the host) run per query
-    for path, style, rows in ((f"fast batch of {TINY_BATCH}, depth < 5", "fast", TINY_FAST_ROWS),
-                             (f"compat batch of {TINY_BATCH}, 5 device levels", "compat",
-                              TINY_COMPAT_ROWS)):
+    # the tiny tables: fast keys of depth < 5 run per query (the masked-XOR
+    # scan); a compat batch on 5 device levels takes the preplane route,
+    # its whole walk in plain torch and one bit-plane scan launch a share
+    for path, style, rows, n, needs in (
+            (f"fast batch of {TINY_BATCH}, depth < 5", "fast", TINY_FAST_ROWS, TINY_BATCH,
+             ("masked_xor_scan",)),
+            (f"compat batch of {PREPLANE_BATCH}, 5 device levels (preplane route)", "compat",
+             PREPLANE_ROWS, PREPLANE_BATCH, ("planes_scan",))):
         tiny = database_from_numpy(data[:rows], SLOT_BYTES)
         tiny_srv = TorchPirServer(tiny)
-        idx = [0, rows - 1] + [int(i) for i in rng.integers(0, rows, TINY_BATCH - 2)]
+        idx = [0, rows - 1] + [int(i) for i in rng.integers(0, rows, n - 2)]
         pairs = new_index_query_shares_batch(tiny.metadata(), idx, 1, fast=style == "fast",
                                              leaf_bits=128 if style == "fast" else None,
                                              rand_bytes=keygen_rng.bytes)
         if style == "fast" and pairs[0][0].key_fast.depth >= 5:
             fail(f"the tiny fast table has depth {pairs[0][0].key_fast.depth}")
-        if style == "compat" and tiny_srv._compat_device_bits(1) > 5:
-            fail("the tiny compat table has more than 5 device levels")
+        if style == "compat" and tiny_srv._compat_device_bits(1) != 5:
+            fail("the tiny compat table does not have 5 device levels")
         reset_counts()
         ans = [rows_of(tiny_srv.private_secret_shared_query_batch([p[part] for p in pairs]))
                for part in (0, 1)]
-        read_counts(path, ("masked_xor_scan",))
+        got = read_counts(path, needs, tuple(set(counted) - set(needs)))
+        if style == "compat" and got != {"planes_scan": 2}:
+            fail(f"{path}: {got} launches, not one bit-plane scan a share")
         for i, pair in enumerate(pairs):
             for part in (0, 1):
                 want = bytes(server_mod.private_secret_shared_query(tiny, pair[part])
@@ -1499,7 +1527,21 @@ def main() -> int:
     cpir["phase_s"] = time.perf_counter() - t
     log(f"phase 4d: done in {cpir['phase_s']:.2f} s; max_memory_allocated "
         f"{cpir['max_memory_allocated'] / 2**30:.3f} GiB")
-    gc.collect()  # phase 4d's services and references: no collection inside phase 5's timings
+    gc.collect()  # phase 4d's services and references
+    torch.cuda.empty_cache()
+
+    # ---- phase 4e: the mesh engine over one card -------------------------------
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mesh_start = torch.cuda.memory_allocated()
+    mesh = mesh_phase(db, args.seed, (counted, reset_counts, read_counts), rows_of, srv,
+                      torch.cuda.synchronize, depth, n_blk)
+    mesh["phase_s"] = time.perf_counter() - t
+    mesh["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"phase 4e: done in {mesh['phase_s']:.2f} s; memory_allocated at its start "
+        f"{mesh_start / 2**30:.2f} GiB, max_memory_allocated "
+        f"{mesh['max_memory_allocated'] / 2**30:.2f} GiB")
+    gc.collect()  # phase 4e's engines: no collection inside phase 5's timings
     torch.cuda.empty_cache()
 
     # ---- phase 5: kernel times ----------------------------------------------
@@ -1984,7 +2026,7 @@ def main() -> int:
                        overlap_probe={str(k): v for k, v in probe_time.items()},
                        updates_s=upd_s, updates_split_s=split_u, permutations_s=perms_s,
                        after_updates_s=upd_serve, persistence_s=persist, service=svc,
-                       cpir=cpir, mont_time=mont_time, mont_sass=mont_sass,
+                       cpir=cpir, mesh=mesh, mont_time=mont_time, mont_sass=mont_sass,
                        elapsed_s=time.perf_counter() - T0)
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)
@@ -2447,6 +2489,251 @@ def service_phase(db, keywords, seed, config, counting, rows_of, sync) -> dict:
     if torch.cuda.is_available():
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     return out
+
+
+def mesh_phase(db, seed, counting, rows_of, single, sync, depth, n_blk) -> dict:
+    """Phase 4e: the mesh engine (parallel/mesh.py) on the card, every
+    shard on the one card: MeshPirServer over ["cuda:0"] * 8, a grid of
+    MESH_TP row shards by MESH_DP batch slices, on the 1 GiB table (its
+    keywords set). Both (or all three) shares of: fast batches of 4096
+    shared-key queries on the stacked and on the per-query tail root step,
+    a compat batch of 1024 (compat root step), 64 distinct-key fast
+    queries (host-prefix step), 64 compat queries on a tp-3 grid
+    (host-prefix step), a keyword batch of 8 and a 3-party index batch of
+    4 (point steps); then 4096 row updates through apply_updates (and the
+    single-card server's) and a fast batch; then two PirServices with
+    PirConfig(engine="mesh") (1 x 1) serve a client's fast and compat
+    batches. Each answer equals the single-card server's bytes (`single`,
+    TorchPirServer) and recovers its row (depth, n_blk: the fast keys'
+    tree); the launch counts of each route
+    are set to 0 just before it and read just after; seconds per batch
+    beside the single card's on the same shares. Returns the summary."""
+    import numpy as np
+    import torch
+
+    from pir_tpu_torch.config import PirConfig
+    from pir_tpu_torch.database import DBMetadata
+    from pir_tpu_torch.parallel.mesh import MeshPirServer, make_mesh
+    from pir_tpu_torch.query import (
+        new_fast_index_query_shares,
+        new_index_query_shares,
+        new_index_query_shares_batch,
+        new_keyword_query_shares_batch,
+    )
+    from pir_tpu_torch.service import PirClient, PirService
+    from pir_tpu_torch.state import database_from_numpy
+
+    counted, reset_counts, read_counts = counting
+    rng = np.random.default_rng(seed + 9)
+    keygen_rng = np.random.default_rng(seed + 10)
+    height, slot = db.db_size, db.slot_bytes
+    md = DBMetadata(slot, height)
+    every = set(counted)
+    out = {"grid": {"tp": MESH_TP, "dp": MESH_DP}, "tables_s": {}, "s": {}, "single_s": {},
+           "launches": {}}
+    t = time.perf_counter()
+    grid = make_mesh(devices=["cuda:0"] * (MESH_TP * MESH_DP), dp=MESH_DP)
+    engines = {"stacked": MeshPirServer(db, mesh=grid),
+               "per-query tail": MeshPirServer(db, mesh=grid, fast_stacked=False),
+               "tp 3": MeshPirServer(db, mesh=make_mesh(devices=["cuda:0"] * MESH_TP_ODD))}
+    nbd = single._compat_device_bits(1)
+    # the tables of the root steps, built here (1 GiB each, a quarter a
+    # shard), so that no batch below holds a build
+    for label, build in (
+            ("stacked root", lambda: engines["stacked"]._root_table(1, depth, n_blk)),
+            ("classic root", lambda: engines["per-query tail"]._root_table(1, depth, n_blk)),
+            ("compat root", lambda: engines["stacked"]._compat_root_table(1, nbd))):
+        t0 = time.perf_counter()
+        build()
+        sync()
+        out["tables_s"][label] = time.perf_counter() - t0
+    log(f"phase 4e: grid {MESH_DP} x {MESH_TP} over cuda:0, tables (s) {out['tables_s']}; "
+        f"each shard {depth - 2} fast levels and {nbd - 2} compat device levels "
+        f"(stacked tail {engines['stacked']._stacked_tail_for(depth, n_blk)}, compat stages "
+        f"{engines['stacked']._compat_root_table(1, nbd)[1]})")
+
+    def one_card(shares):
+        if shares[0].is_two_party:
+            return single.private_secret_shared_query_batch(shares)
+        return [single.private_secret_shared_query(s) for s in shares]
+
+    def route(label, eng, idx, pairs, needs):
+        """Every share of `pairs` through eng, counted and timed; then the
+        single card on the same shares, timed; equal bytes, recovered."""
+        n_sh = len(pairs[0])
+        reset_counts()
+        answers, secs = [], []
+        for part in range(n_sh):
+            sync()
+            t0 = time.perf_counter()
+            answers.append(rows_of(eng.private_secret_shared_query_batch(
+                [p[part] for p in pairs])))
+            secs.append(time.perf_counter() - t0)
+        out["launches"][label] = read_counts(f"mesh {label}", needs,
+                                             tuple(every - set(needs)))
+        one_s = []
+        for part in range(n_sh):
+            sync()
+            t0 = time.perf_counter()
+            want = rows_of(one_card([p[part] for p in pairs]))
+            one_s.append(time.perf_counter() - t0)
+            if not np.array_equal(answers[part], want):
+                fail(f"mesh {label}: share {part} differs from the single card's bytes")
+        rec = np.bitwise_xor.reduce(np.stack(answers), axis=0)
+        bad = np.flatnonzero((rec != db.data[np.asarray(idx)]).any(axis=1))
+        if bad.size:
+            fail(f"mesh {label}: {bad.size} of {len(idx)} answers do not recover")
+        out["s"][label], out["single_s"][label] = secs, one_s
+        log(f"phase 4e: {label} ({len(idx)} queries): mesh {[round(x, 4) for x in secs]} s "
+            f"a share, single card {[round(x, 4) for x in one_s]} s; equal bytes, all "
+            f"recovered")
+        return answers
+
+    def rows(n):
+        idx = [int(i) for i in rng.integers(0, height, n)]
+        idx[0], idx[-1] = 0, height - 1
+        return idx
+
+    idx = rows(MESH_FAST_BATCH)
+    pairs = new_index_query_shares_batch(md, idx, 1, fast=True, rand_bytes=keygen_rng.bytes)
+    stacked = route("fast root, stacked", engines["stacked"], idx, pairs,
+                    ("stacked_tail", "packed_scan"))
+    out["split_s"] = stacked_split(engines["stacked"], [p[0] for p in pairs], stacked[0],
+                                   depth, n_blk, sync)
+    log("phase 4e: split of one stacked root share batch, summed over the 8 shards (s): " +
+        ", ".join(f"{name} {sec:.4f}" for name, sec in out["split_s"].items()) +
+        f"; sum {sum(out['split_s'].values()):.4f}; equal to the batch API's bytes")
+    route("fast root, per-query tail", engines["per-query tail"], idx, pairs,
+          ("fast_tail", "packed_scan"))
+    idx = rows(MESH_COMPAT_BATCH)
+    route("compat root", engines["stacked"], idx,
+          new_index_query_shares_batch(md, idx, 1, rand_bytes=keygen_rng.bytes),
+          ("compat_stage", "packed_scan"))
+    idx = rows(MESH_PREFIX_BATCH)
+    route("fast distinct-key (host prefix)", engines["stacked"], idx,
+          [new_fast_index_query_shares(md, i, 1, rand_bytes=keygen_rng.bytes) for i in idx],
+          ("masked_xor_scan",))
+    idx = rows(MESH_PREFIX_BATCH)
+    route(f"compat on tp {MESH_TP_ODD} (host prefix)", engines["tp 3"], idx,
+          new_index_query_shares_batch(md, idx, 1, rand_bytes=keygen_rng.bytes),
+          ("masked_xor_scan",))
+    idx = rows(MESH_KW_BATCH)
+    route("keyword", engines["stacked"], idx, new_keyword_query_shares_batch(
+        md, [int(db.keywords[i]) for i in idx], 1, rand_bytes=keygen_rng.bytes),
+          ("planes_scan",))
+    idx = rows(MESH_MP_BATCH)
+    route(f"{MP_PARTIES}-party index", engines["stacked"], idx,
+          [new_index_query_shares(md, i, 1, num_shares=MP_PARTIES, rand_bytes=keygen_rng.bytes)
+           for i in idx], ("planes_scan",))
+
+    # live updates: every engine's shard tables and the single card's
+    upd_rows = rng.choice(height, size=MESH_UPDATES, replace=False)
+    upd_rows[:2] = 0, height - 1
+    updates = {int(r): rng.bytes(slot) for r in upd_rows}
+    sync()
+    t0 = time.perf_counter()
+    for eng in engines.values():
+        eng.apply_updates(updates)
+    sync()
+    out["updates_s"] = time.perf_counter() - t0
+    single.apply_updates(updates)
+    idx = rows(MESH_FAST_BATCH)
+    idx[1: MESH_FAST_BATCH // 2] = [int(r) for r in rng.choice(upd_rows, MESH_FAST_BATCH // 2 - 1)]
+    route("fast root after updates", engines["stacked"], idx,
+          new_index_query_shares_batch(md, idx, 1, fast=True, rand_bytes=keygen_rng.bytes),
+          ("stacked_tail", "packed_scan"))
+    log(f"phase 4e: {MESH_UPDATES} row updates on the three engines in "
+        f"{out['updates_s']:.4f} s; a fast batch after them (half on updated rows) recovers "
+        f"the new rows")
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the service shell on the mesh engine: PirConfig(engine="mesh"), 1 x 1
+    cfg = PirConfig(engine="mesh")
+    t0 = time.perf_counter()
+    svcs = [PirService(database_from_numpy(db.data, slot, keywords=db.keywords),
+                       config=cfg).start() for _ in range(2)]
+    client = PirClient([s.address for s in svcs])
+    try:
+        for s in svcs:
+            if s.engine_name != "mesh" or s._engine.mesh.shape != {"dp": 1, "tp": 1}:
+                fail(f"PirConfig(engine='mesh') gave engine {s.engine_name}")
+        svc_s = {}
+        for label, n, fast, needs in (
+                ("fast batch", MESH_FAST_BATCH, True, ("stacked_tail", "packed_scan")),
+                ("compat batch", MESH_COMPAT_BATCH, False, ("compat_stage", "packed_scan"))):
+            idx = rows(n)
+            reset_counts()
+            t1 = time.perf_counter()
+            got = client.query_index_batch(idx, fast=fast)
+            svc_s[label] = time.perf_counter() - t1
+            out["launches"][f"service {label}"] = read_counts(
+                f"mesh service {label}", needs, tuple(every - set(needs)))
+            rec = np.stack([np.frombuffer(bytes(r[0].data), np.uint8) for r in got])
+            if not np.array_equal(rec, db.data[np.asarray(idx)]):
+                fail(f"mesh service {label}: answers do not recover their rows")
+        out["service_s"] = dict(svc_s, total=time.perf_counter() - t0)
+        log(f"phase 4e: two PirServices with PirConfig(engine='mesh') (grid 1 x 1 on "
+            f"{svcs[0]._engine.mesh.devices[0, 0]}): round trips (s, first use and table "
+            f"builds included) {svc_s}; all recovered")
+    finally:
+        client.close()
+        for s in svcs:
+            s.close()
+    return out
+
+
+def stacked_split(eng, shares, want, depth, n_blk, sync) -> dict:
+    """One share batch through eng's stacked root step, stage by stage,
+    each stage synchronised and summed over the grid's shards; fails
+    unless the folded answers equal `want` (the batch API's)."""
+    import numpy as np
+    import torch
+
+    from pir_tpu_torch.dpf.device import make_fast_payload_batch, u32_tensor
+    from pir_tpu_torch.models.pipeline import stacked_fast_geometry, stacked_head, stacked_words_t
+    from pir_tpu_torch.ops.expand import fast_tail_expand_stacked
+    from pir_tpu_torch.ops.packed_scan import packed_scan
+
+    split = {}
+    t = [time.perf_counter()]
+
+    def mark(stage):
+        sync()
+        now = time.perf_counter()
+        split[stage] = split.get(stage, 0.0) + now - t[0]
+        t[0] = now
+
+    levels = eng._shard_levels()
+    k, tail = stacked_fast_geometry(depth - levels, n_blk)
+    tables = eng._root_table(1, depth, n_blk)
+    pay, layout = make_fast_payload_batch(shares, shared_rk=True)
+    mark("payload build")
+    per = len(shares) // eng.dp
+    rows = []
+    for r in range(eng.dp):
+        p = u32_tensor(pay[r * per:(r + 1) * per], eng.mesh.devices[r, 0])
+        mark("upload")
+        acc = None
+        for s, dev in enumerate(eng.mesh.devices[r]):
+            table = tables[(s, dev)]
+            ops = stacked_head(p, layout, (s, levels))
+            mark("head walks")
+            packed = fast_tail_expand_stacked(*ops, tail=tail, n_blk=n_blk)
+            mark("tail kernels")
+            words = stacked_words_t(packed, k, table.shape[0])
+            mark("words regroup")
+            part = packed_scan(table, words)
+            mark("scan kernels")
+            acc = part if acc is None else acc ^ part
+            mark("XOR fold")
+        rows.append(acc.cpu().numpy())
+        mark("download")
+    got = np.concatenate(rows)[:, :want.shape[1]]
+    if not np.array_equal(got, want):
+        fail("phase 4e: the stacked root split differs from the batch API's bytes")
+    return split
 
 
 def cpir_phase(cdb, ckeys, seed, counting, device) -> dict:

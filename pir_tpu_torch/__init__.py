@@ -10,7 +10,10 @@ one kernel. Single queries and small batches expand per query and scan
 with the masked-XOR scan kernel. Keyword queries (2-party, and with
 multi-party shares for >= 3 servers) and multi-party index queries
 evaluate on the device too; keyword batches scan with the bit-plane
-scan kernel. ``TorchPirServer.apply_updates`` changes rows live and
+scan kernel. ``MeshPirServer`` (``parallel/mesh.py``) answers the same
+batches over a grid of devices: row shards (tp) by batch slices (dp),
+the shards' partial answers folded with XOR.
+``TorchPirServer.apply_updates`` changes rows live and
 ``Database.save`` / ``load`` checkpoint a table; ``benchmarks_overlap``
 ports the TPU overlap probe. The kernels are hand-written CUDA
 (``csrc/``).
@@ -45,6 +48,7 @@ from .query import (
     new_keyword_query_shares_batch,
     recover,
 )
+from .parallel.mesh import MeshPirServer, make_mesh
 from .server import FastServingStream, TorchPirServer
 from .slot import (
     Slot,
@@ -60,6 +64,7 @@ __all__ = [
     "Database",
     "DBMetadata",
     "FastServingStream",
+    "MeshPirServer",
     "QueryShare",
     "SecretSharedQueryResult",
     "Slot",
@@ -69,6 +74,7 @@ __all__ = [
     "get_optimal_db_dimensions",
     "get_optimal_weighted_db_dimensions",
     "get_required_slot_size",
+    "make_mesh",
     "new_database",
     "new_empty_slot",
     "new_fast_index_query_shares",

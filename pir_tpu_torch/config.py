@@ -3,18 +3,21 @@ dataclass gathers the deployment knobs, and ``pick_engine`` resolves the
 answer engine.
 
 Engines: ``"torch"`` answers on a ``TorchPirServer`` (the card unless
-``device="cpu"``), ``"host"`` on the numpy golden model, which the
-caller asks for by name; ``"auto"`` resolves to ``"torch"``, so a
-service with no GPU and no device given fails instead of answering on
-the host. The cPIR engine ``paillier_engine`` is ``"torch"``, the
+``device="cpu"``), ``"mesh"`` on a ``parallel.mesh.MeshPirServer`` over
+a grid of ``mesh_tp`` row shards by ``mesh_dp`` batch slices (the cards
+of the process, or with ``device="cpu"`` CPU shards), ``"host"`` on the
+numpy golden model, which the caller asks for by name; ``"auto"``
+resolves to ``"torch"``, or to ``"mesh"`` when ``mesh_tp * mesh_dp > 1``
+(so does ``"torch"``, as pir_tpu promotes its ``"tpu"``), so a service
+with no GPU and no device given fails instead of answering on the host. The cPIR engine ``paillier_engine`` is ``"torch"``, the
 batched Montgomery engine on ``device`` (pir_tpu's ``"tpu"``, under the
 port's engine name), or ``"python"``, the CPython loop, which the caller
 asks for by name; None resolves to ``"torch"``, so the cPIR scans and
 the AHE ASPIR proof checks of a config with no device run on the card
 and fail without one, as ``"auto"`` does. pir_tpu's other
-engines are refused by name: its mesh engine (ROADMAP queue 1 [14]), its
-native C++ engine and native cPIR scan (queue 1 [18]), and its ``"tpu"``
-names, which point to ``"torch"``. Its ``use_pallas`` and JAX
+engines are refused by name: its native C++ engine and native cPIR scan
+(ROADMAP queue 1 [18]), and its ``"tpu"`` names, which point to
+``"torch"``. Its ``use_pallas`` and JAX
 compile-cache knobs have no counterpart: the port compiles nothing per
 shape, and its kernels build at first use.
 """
@@ -24,7 +27,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 _REFUSED_ENGINES = {
-    "mesh": "the mesh engine is not ported (ROADMAP queue 1 [14])",
     "native": "the native C++ engine is not ported (ROADMAP queue 1 [18])",
     "tpu": "the TPU engine has no port; use engine='torch'",
 }
@@ -40,7 +42,7 @@ PAILLIER_BITS = 1024
 
 @dataclass
 class PirConfig:
-    engine: str = "auto"  # auto | host | torch
+    engine: str = "auto"  # auto | host | torch | mesh
     # cPIR engine (encrypted.scan_engine): None or "torch", the scans and
     # the AHE ASPIR proof checks on `device`; "python", the CPython loop
     paillier_engine: str | None = None
@@ -49,14 +51,18 @@ class PirConfig:
     # plain versions
     device: str | None = None
 
-    # pir_tpu's multi-chip mesh (rows 'tp', queries 'dp'): only 1 x 1
+    # the mesh engine's grid (rows 'tp', queries 'dp'; parallel/mesh.py):
+    # mesh_tp * mesh_dp > 1 with engine auto or torch selects it
     mesh_tp: int = 1
     mesh_dp: int = 1
+    # lane words of the mesh's compat cascade head: the compat root step
+    # takes device_bits - log2(tp) > 5 + log2(w) (pir_tpu's knob)
+    mesh_compat_w: int = 128
 
     def validate(self) -> "PirConfig":
         if self.engine in _REFUSED_ENGINES:
             raise ValueError(_REFUSED_ENGINES[self.engine])
-        if self.engine not in ("auto", "host", "torch"):
+        if self.engine not in ("auto", "host", "torch", "mesh"):
             raise ValueError(f"unknown engine {self.engine}")
         if self.paillier_engine in _REFUSED_PAILLIER:
             raise ValueError(_REFUSED_PAILLIER[self.paillier_engine])
@@ -64,13 +70,16 @@ class PirConfig:
             raise ValueError(f"unknown paillier engine {self.paillier_engine}")
         if self.mesh_tp < 1 or self.mesh_dp < 1:
             raise ValueError("mesh_tp/mesh_dp must be >= 1")
-        if self.mesh_tp * self.mesh_dp > 1:
-            raise ValueError(_REFUSED_ENGINES["mesh"])
+        if self.mesh_compat_w < 1 or self.mesh_compat_w & (self.mesh_compat_w - 1):
+            raise ValueError("mesh_compat_w must be a power of two")
         return self
 
 
 def pick_engine(cfg: PirConfig) -> str:
-    """The engine `cfg` names, "auto" resolved to "torch"; refused engines
-    raise ValueError (PirConfig.validate)."""
+    """The engine `cfg` names, "auto" resolved to "torch", and "auto" or
+    "torch" promoted to "mesh" when mesh_tp * mesh_dp > 1 (pir_tpu's
+    pick_engine); refused engines raise ValueError (PirConfig.validate)."""
     cfg.validate()
-    return "torch" if cfg.engine == "auto" else cfg.engine
+    if cfg.engine in ("auto", "torch"):
+        return "mesh" if cfg.mesh_tp * cfg.mesh_dp > 1 else "torch"
+    return cfg.engine

@@ -370,13 +370,42 @@ def regroup_head_stacked(seeds, t, cw_s_tail, cw_tl_tail, cw_tr_tail, fcw,
         seeds, t, cw_t, _tbits(cw_tl_tail), _tbits(cw_tr_tail), fg))
 
 
+def shard_prefix_walk(seeds, t_plane, cws, rk_masks, shard: int, low_bit: bool):
+    """Walk from the root down to the subtree of row shard `shard` of
+    2^len(cws) (pir_tpu/parallel/mesh.py's static subtree-prefix walk):
+    level l takes the right child when bit len(cws)-1-l of `shard` is set
+    (MSB first, the tree's bit order). cws holds one (cw_seed_mask,
+    cw_tl, cw_tr) a level, in the layout ``_children`` takes for these
+    seeds. low_bit masks seeds and t back to lane bit 0 after each level,
+    as the fast root steps do (the correction smears mask-word t bits
+    into the upper lanes); the compat step keeps the upper lanes, which
+    the first in-word level of ``expand_planes_from_root`` masks away."""
+    levels = len(cws)
+    for lvl, (cw_s, cw_tl, cw_tr) in enumerate(cws):
+        s_l, t_l, s_r, t_r = _children(_prf_triple(seeds, rk_masks), t_plane, cw_s, cw_tl,
+                                       cw_tr)
+        seeds, t_plane = (s_r, t_r) if (shard >> (levels - 1 - lvl)) & 1 else (s_l, t_l)
+        if low_bit:
+            seeds, t_plane = seeds & 1, t_plane & 1
+    return seeds, t_plane
+
+
 def _walk_head_lanes(payloads: torch.Tensor, layout: FastRootLayout,
-                     rk_masks: torch.Tensor, head_levels: int):
+                     rk_masks: torch.Tensor, head_levels: int, shard=None):
     """Unpack with Q in lanes and walk the top `head_levels` levels ->
     seeds (8,16,NW0*Q) / t (NW0*Q,) word-major, and the unpacked cw_s
     (d,8,16,Q), cw_tl / cw_tr (d,Q), fcw. rk_masks is the (11,8,3,16,1)
-    shared or (11,8,3,16,Q) per-query round-key masks."""
+    shared or (11,8,3,16,Q) per-query round-key masks. With shard =
+    (index, levels) the walk first descends `levels` levels to that row
+    shard's subtree (shard_prefix_walk), and the head and the returned
+    correction words start below it."""
     seeds, t, cw_s, cw_tl, cw_tr, fcw = unpack_fast_root_payload_lanes(payloads, layout)
+    if shard is not None:
+        index, levels = shard
+        seeds, t = shard_prefix_walk(seeds, t, [(cw_s[i], cw_tl[i], cw_tr[i])
+                                                for i in range(levels)],
+                                     rk_masks, index, low_bit=True)
+        cw_s, cw_tl, cw_tr = cw_s[levels:], cw_tl[levels:], cw_tr[levels:]
     for i in range(head_levels):
         w = max(1, (1 << i) // 32)
         seeds, t = _expand_root_level_lanes(
@@ -385,12 +414,13 @@ def _walk_head_lanes(payloads: torch.Tensor, layout: FastRootLayout,
 
 
 def expand_root_head_grouped(payloads: torch.Tensor, layout: FastRootLayout,
-                             rk_masks: torch.Tensor, head_levels: int, k: int):
+                             rk_masks: torch.Tensor, head_levels: int, k: int, shard=None):
     """Root head walk with Q in lanes, regrouped for the stacked tail
     kernel (regroup_head_stacked). rk_masks is the head's (11,8,3,16,1)
-    shared or (11,8,3,16,Q) per-query round-key masks."""
+    shared or (11,8,3,16,Q) per-query round-key masks; shard as in
+    _walk_head_lanes."""
     seeds, t, cw_s, cw_tl, cw_tr, fcw = _walk_head_lanes(payloads, layout, rk_masks,
-                                                         head_levels)
+                                                         head_levels, shard)
     nw0 = max(1, (1 << head_levels) // 32)
     return regroup_head_stacked(
         seeds, t, cw_s[head_levels:], cw_tl[head_levels:],
@@ -398,17 +428,18 @@ def expand_root_head_grouped(payloads: torch.Tensor, layout: FastRootLayout,
 
 
 def expand_root_head_lanes(payloads: torch.Tensor, layout: FastRootLayout,
-                           rk_masks: torch.Tensor, head_levels: int):
+                           rk_masks: torch.Tensor, head_levels: int, shard=None):
     """Root head walk with Q in lanes, returning the per-query tail
     kernel's operands (ops/fast_tail.py): seeds (Q,8,16,NW0), t (Q,1,NW0),
     cw_s (Q,tail,8,16,1), cw_tl / cw_tr (Q,tail), fcw (Q,8,16,1) or
     (Q,8,n_blk,16,1), with NW0 = max(1, 2^head_levels // 32) and tail =
-    depth - head_levels. rk_masks is the (11,8,3,16,1) batch-shared or
+    depth - head_levels (less the shard levels, with shard as in
+    _walk_head_lanes). rk_masks is the (11,8,3,16,1) batch-shared or
     the (11,8,3,16,Q) per-query round-key masks: the same walk serves
     distinct-key batches, batched over Q."""
     q_n = payloads.shape[0]
     seeds, t, cw_s, cw_tl, cw_tr, fcw = _walk_head_lanes(payloads, layout, rk_masks,
-                                                         head_levels)
+                                                         head_levels, shard)
     nw0 = max(1, (1 << head_levels) // 32)
     seeds = seeds.reshape(8, 16, nw0, q_n).permute(3, 0, 1, 2)
     t = t.reshape(nw0, q_n).t()[:, None, :]
@@ -518,6 +549,14 @@ def unpack_compat_root_payload(payloads: torch.Tensor, layout: CompatRootLayout)
     rk_tree = _unpack_block_masks(seg[6].reshape(q_n, 3, 11, 4))  # (Q,3,11,8,16)
     rk = rk_tree.permute(0, 2, 3, 1, 4)[..., None].contiguous()
     return seeds, seg[1], cw_s, cw_tl, cw_tr, seg[5][:, 0], rk
+
+
+@functools.lru_cache(maxsize=64)
+def _compat_leaf_perm_root(num_bits: int, height: int) -> np.ndarray:
+    """Natural row -> flat bit index (= bit_reverse(row)) for the compat
+    preplane route: the order ``expand_planes_from_root`` leaves the
+    leaves of `num_bits` device levels in."""
+    return _bit_reverse(np.arange(height, dtype=np.int64), num_bits)
 
 
 def compat_skip_levels(num_bits: int, height: int) -> int:
@@ -947,6 +986,25 @@ def make_device_fast_key(server, fkey, min_device_nodes: int = 32) -> DeviceFast
     )
 
 
+def fast_leaf_bits_flat_batch(seeds, t_plane, fcw_masks, rk_leaf) -> torch.Tensor:
+    """Leaf stage of Q queries without reordering: seeds (8,Q,16,NW), t
+    (Q,NW), fcw_masks (Q,8,16,1) or (Q,8,n_blk,16,1), rk_leaf
+    (Q,11,8,16,1) -> (Q, flat) uint8 bits, each row fast_leaf_bits_flat's."""
+    rkl = rk_leaf.permute(1, 2, 0, 3, 4)  # (11, 8, Q, 16, 1)
+    f = fcw_masks.transpose(0, 1)  # (8, Q, 16, 1) or (8, Q, n_blk, 16, 1)
+    if f.dim() == 5:  # wide leaf
+        n_blk = f.shape[2]
+        nw = seeds.shape[-1]
+        ctr = u32_tensor(_leaf_ctr_masks(n_blk), seeds.device)
+        x = torch.cat([seeds ^ ctr[:, b, None] for b in range(n_blk)], dim=-1)
+        tt = t_plane.repeat(1, n_blk)
+        fcw = torch.cat([f[:, :, b].expand(-1, -1, -1, nw) for b in range(n_blk)], dim=-1)
+    else:
+        x, tt, fcw = seeds, t_plane, f
+    out = (aes_encrypt_planes(x, rkl) ^ x) ^ (tt[None, :, None, :] & fcw)
+    return _unpack_bits(out).transpose(0, 1).reshape(seeds.shape[1], -1)
+
+
 def fast_leaf_bits_flat(seeds, t_plane, fcw_masks, rk_leaf) -> torch.Tensor:
     """Leaf stage without reordering: seeds (8,16,NW) -> flat uint8 bits.
 
@@ -955,17 +1013,8 @@ def fast_leaf_bits_flat(seeds, t_plane, fcw_masks, rk_leaf) -> torch.Tensor:
     CTR-extends into n_blk MMO blocks, block-major along lanes (one
     bitsliced AES over an (8, 16, n_blk*NW) state); index ((bit*16 +
     byte)*n_blk + blk)*NW*32 + leafpos, as _fast_leaf_perm expects."""
-    if fcw_masks.dim() == 4:  # wide leaf
-        n_blk = fcw_masks.shape[1]
-        nw = seeds.shape[-1]
-        ctr = u32_tensor(_leaf_ctr_masks(n_blk), seeds.device)
-        x = torch.cat([seeds ^ ctr[:, b] for b in range(n_blk)], dim=-1)
-        tt = t_plane.repeat(n_blk)
-        fcw = torch.cat([fcw_masks[:, b].expand(8, 16, nw) for b in range(n_blk)], dim=-1)
-    else:
-        x, tt, fcw = seeds, t_plane, fcw_masks
-    out = (aes_encrypt_planes(x, rk_leaf) ^ x) ^ (tt[None, None, :] & fcw)
-    return _unpack_bits(out).reshape(-1)
+    return fast_leaf_bits_flat_batch(seeds[:, None], t_plane[None], fcw_masks[None],
+                                     rk_leaf[None])[0]
 
 
 def fast_leaf_bits(seeds, t_plane, fcw_masks, rk_leaf, perm: torch.Tensor) -> torch.Tensor:
@@ -1146,8 +1195,8 @@ def point_eval_packed_core(s_masks, t_mask, cw_seed_masks, cw_tl, cw_tr, rk_mask
     (Q,8,16,1), t_mask (Q,), cw_seed_masks (Q,>=num_bits,8,16,1), cw_tl /
     cw_tr (Q,>=num_bits), rk_masks (Q,11,8,3,16,1), fcw_mask (Q,), xbits
     (num_bits, NW) -> (Q, NW) packed selection words, 32 points a word.
-    A pure function of its tensors (the mesh step will call it on a
-    shard's slice of the planes)."""
+    A pure function of its tensors: the mesh's keyword step
+    (parallel/mesh.py) calls it on a shard's slice of the planes."""
     seeds = s_masks.transpose(0, 1)  # (8, Q, 16, 1): lanes broadcast at level 0
     t_plane = t_mask[:, None]
     rk = _rk_bit_first(rk_masks)
@@ -1324,7 +1373,8 @@ def mp_point_packed_core(xp, rk4, ksel, bytesel, present, cwm, p2: int) -> torch
     keys are the fixed-key schedule its one-hot ksel mask selects (the
     masks are disjoint, so OR composes them); the parity of its word
     (delta & 3) is bit 0 of byte 4 * (delta & 3), chosen by bytesel. A
-    pure function of its tensors (the mesh step will reuse it)."""
+    pure function of its tensors: the mesh's multi-party step
+    (parallel/mesh.py) calls it on a shard's slice of the operands."""
     rk = rk4[0] & ksel[0]
     for k in range(1, 4):
         rk = rk | (rk4[k] & ksel[k])

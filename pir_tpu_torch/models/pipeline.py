@@ -24,7 +24,15 @@ ahead in the serving stream, the fused scan + tail kernel
 
 Reference-exact (compat) keys, against the cascade's storage table:
 batched head walk (plain torch) -> compat-stage kernel once per stage
-(``ops/compat_stage.py``) -> the same packed scan kernel.
+(``ops/compat_stage.py``) -> the same packed scan kernel. On a table of
+5 device levels, too shallow for a stage (pir_tpu's
+``fused_compat_root_batch_fn``): the whole walk in plain torch -> the
+bit-plane scan kernel (``ops/planes_scan.py``) against the bit-reversed
+raw table.
+
+Each root-start head also starts at a row shard's subtree root
+(``shard=(index, levels)``): the mesh engine (``parallel/mesh.py``) runs
+these pipelines shard by shard.
 """
 
 from __future__ import annotations
@@ -39,15 +47,18 @@ from ..dpf.device import (
     FastRootLayout,
     PayloadLayout,
     _children,
+    _leaf_select_bits,
     _leaf_stage,
     _level_step,
     _prf_triple,
     _rk_bit_first,
+    _unpack_bits,
     fast_leaf_bits,
     expand_planes_from_root,
     expand_root_head_grouped,
     expand_root_head_lanes,
     regroup_rk_stacked,
+    shard_prefix_walk,
     unpack_compat_root_payload,
     unpack_fast_payload,
     unpack_fast_root_payload,
@@ -59,6 +70,7 @@ from ..ops.expand import fast_tail_expand_stacked
 from ..ops.fast_tail import fast_tail_expand
 from ..ops.fused import fused_scan_expand
 from ..ops.packed_scan import packed_scan, unpack_words_t
+from ..ops.planes_scan import planes_scan
 from ..ops.xor_scan import masked_xor_scan
 
 # queries per stacked step at most; the table's storage order follows
@@ -174,11 +186,15 @@ def stacked_fast_geometry(depth: int, n_blk: int) -> tuple[int, int]:
     return k, depth - head
 
 
-def stacked_head(payloads: torch.Tensor, layout: FastRootLayout):
+def stacked_head(payloads: torch.Tensor, layout: FastRootLayout, shard=None):
     """Head walk + regroup: (Q, total) int32 payloads, Q a multiple of k ->
-    the stacked tail operands (seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, rk_leaf)."""
-    k, tail = stacked_fast_geometry(layout.depth, layout.leaf_blocks)
-    head_levels = layout.depth - tail
+    the stacked tail operands (seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, rk_leaf).
+    With shard = (index, levels) the walk starts at that row shard's
+    subtree root (dpf.device.shard_prefix_walk) and the geometry is the
+    subtree's: stacked_fast_geometry(depth - levels, n_blk)."""
+    depth = layout.depth - (shard[1] if shard else 0)
+    k, tail = stacked_fast_geometry(depth, layout.leaf_blocks)
+    head_levels = depth - tail
     nw0 = max(1, (1 << head_levels) // 32)
     if layout.shared_rk:
         rk, rk_leaf = unpack_fast_root_payload(payloads[0], layout)[6:]
@@ -188,7 +204,7 @@ def stacked_head(payloads: torch.Tensor, layout: FastRootLayout):
         rk = regroup_rk_stacked(rk_head, k, nw0)
         rk_leaf = regroup_rk_stacked(rkl_lanes, k, nw0)
     seeds, t, cw_s, cw_tl, cw_tr, fcw = expand_root_head_grouped(
-        payloads, layout, rk_head, head_levels, k)
+        payloads, layout, rk_head, head_levels, k, shard)
     return seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, rk_leaf
 
 
@@ -206,21 +222,24 @@ def stacked_words_t(packed: torch.Tensor, k: int, rows: int) -> torch.Tensor:
 
 
 def fused_fast_root_batch_stacked(table_u8: torch.Tensor, payloads: torch.Tensor,
-                                  layout: FastRootLayout) -> torch.Tensor:
+                                  layout: FastRootLayout, shard=None) -> torch.Tensor:
     """Root-start batched fast answers through the stacked tail kernel:
     table (flat_pad, B) uint8 in the stacked storage order, payloads
     (Q, total) int32 -> (Q, B) uint8 answer shares.
 
     Serves both key styles against the same table: batch-shared keys
     (layout.shared_rk, one round-key mask set) and distinct-key batches
-    (per-query keys regrouped per step and lane word).
+    (per-query keys regrouped per step and lane word). With shard =
+    (index, levels), the partial answers of that row shard's subtree
+    against its slice of the table (stacked_head).
     """
-    k, tail = stacked_fast_geometry(layout.depth, layout.leaf_blocks)
+    k, tail = stacked_fast_geometry(layout.depth - (shard[1] if shard else 0),
+                                    layout.leaf_blocks)
     q = payloads.shape[0]
     qp = -(-q // k) * k
     if qp != q:  # pad to the step group; sliced back before return
         payloads = torch.cat([payloads, payloads[:1].expand(qp - q, -1)])
-    ops = stacked_head(payloads, layout)
+    ops = stacked_head(payloads, layout, shard)
     packed = fast_tail_expand_stacked(*ops, tail=tail, n_blk=layout.leaf_blocks)
     words_t = stacked_words_t(packed, k, table_u8.shape[0])
     if q <= MIN_BATCH:
@@ -228,14 +247,18 @@ def fused_fast_root_batch_stacked(table_u8: torch.Tensor, payloads: torch.Tensor
     return packed_scan(table_u8, words_t)[:q]
 
 
-def pertail_head(payloads: torch.Tensor, layout: FastRootLayout, tail_levels: int):
+def pertail_head(payloads: torch.Tensor, layout: FastRootLayout, tail_levels: int,
+                 shard=None):
     """Head walk with Q in lanes for the per-query tail: (Q, total) int32
     payloads -> the tail operands (seeds, t, cw_s, cw_tl, cw_tr, rk, fcw,
     rk_leaf) and the tail's level count, max(0, min(tail_levels, depth -
     5)). Batch-shared keys give one round-key mask set (from payload row
     0); distinct keys per-query masks, and the head walks every query's
-    own keys in one batched pass."""
-    tail = max(0, min(tail_levels, layout.depth - 5))
+    own keys in one batched pass. With shard = (index, levels) the walk
+    starts at that row shard's subtree root and depth is the subtree's,
+    depth - levels (dpf.device.shard_prefix_walk)."""
+    depth = layout.depth - (shard[1] if shard else 0)
+    tail = max(0, min(tail_levels, depth - 5))
     if layout.shared_rk:
         rk, rk_leaf = unpack_fast_root_payload(payloads[0], layout)[6:]
         rk_head = rk
@@ -244,7 +267,7 @@ def pertail_head(payloads: torch.Tensor, layout: FastRootLayout, tail_levels: in
         rk = rk_head.permute(4, 0, 1, 2, 3)[..., None].contiguous()
         rk_leaf = rkl.permute(3, 0, 1, 2)[..., None].contiguous()
     seeds, t, cw_s, cw_tl, cw_tr, fcw = expand_root_head_lanes(
-        payloads, layout, rk_head, layout.depth - tail)
+        payloads, layout, rk_head, depth - tail, shard)
     return (seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, rk_leaf), tail
 
 
@@ -260,14 +283,15 @@ def pertail_words_t(packed: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 def fused_fast_root_batch_pertail(table_u8: torch.Tensor, payloads: torch.Tensor,
-                                  layout: FastRootLayout, tail_levels: int) -> torch.Tensor:
+                                  layout: FastRootLayout, tail_levels: int,
+                                  shard=None) -> torch.Tensor:
     """Root-start batched fast answers through the per-query tail kernel:
     table (flat_pad, B) uint8 in the classic storage order
     (dpf.device._fast_leaf_perm_root), payloads (Q, total) int32 -> (Q, B)
     uint8 answer shares. Serves both key styles and every leaf width. The
     scan takes the whole batch in one launch (the JAX package slices Q for
-    the TPU's VMEM; the bytes are the same)."""
-    ops, tail = pertail_head(payloads, layout, tail_levels)
+    the TPU's VMEM; the bytes are the same). shard as in pertail_head."""
+    ops, tail = pertail_head(payloads, layout, tail_levels, shard)
     packed = fast_tail_expand(*ops, levels=tail)
     words_t = pertail_words_t(packed, table_u8.shape[0])
     if payloads.shape[0] <= MIN_BATCH:
@@ -322,15 +346,26 @@ def _compat_skip_walk(seeds, t, cw_s, cw_tl, cw_tr, rk, skip: int):
     return x.transpose(0, 1), t
 
 
-def compat_head(payloads: torch.Tensor, layout: CompatRootLayout, w: int):
+def compat_head(payloads: torch.Tensor, layout: CompatRootLayout, w: int, shard=None):
     """Unpack, skip walk and root-start head of 5 + log2(w) levels for a
     batch of compat payloads (Q, total) -> the first stage's operands and
     the rest: seeds (Q,8,1,16,w), t (Q,1,1,w), then cw_s (Q,d',8,16,1),
-    cw_tl / cw_tr (Q,d') for the stage levels, rk (Q,11,8,3,16,1), fcw (Q,)."""
+    cw_tl / cw_tr (Q,d') for the stage levels, rk (Q,11,8,3,16,1), fcw (Q,).
+    With shard = (index, levels) the skip walk is followed by the walk
+    down to that row shard's subtree (dpf.device.shard_prefix_walk,
+    upper lanes kept), and the head starts there."""
     split = 5 + w.bit_length() - 1
     sk = layout.skip
     seeds, t, cw_s, cw_tl, cw_tr, fcw, rk = unpack_compat_root_payload(payloads, layout)
     seeds, t = _compat_skip_walk(seeds, t, cw_s, cw_tl, cw_tr, rk, sk)
+    if shard is not None:
+        index, levels = shard
+        x, t = shard_prefix_walk(
+            seeds.transpose(0, 1), t,
+            [(cw_s[:, i].transpose(0, 1), cw_tl[:, i:i + 1], cw_tr[:, i:i + 1])
+             for i in range(sk, sk + levels)], _rk_bit_first(rk), index, low_bit=False)
+        seeds = x.transpose(0, 1)
+        sk += levels
     seeds, t = expand_planes_from_root(seeds, t, cw_s[:, sk:], cw_tl[:, sk:], cw_tr[:, sk:],
                                        rk, split)
     q = payloads.shape[0]
@@ -358,7 +393,7 @@ def compat_stages(seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, tails) -> torch.Tensor:
 
 def fused_compat_root_batch(table_u8: torch.Tensor, payloads: torch.Tensor,
                             layout: CompatRootLayout, w: int, tails: tuple[int, ...],
-                            q_chunk: int) -> torch.Tensor:
+                            q_chunk: int, shard=None) -> torch.Tensor:
     """Root-start batched compat answers: table (flat_pad, B) uint8 in the
     cascade's storage order (dpf.device._compat_perm for `w`, `tails`),
     payloads (Q, total) int32 -> (Q, B) uint8 answer shares.
@@ -366,13 +401,35 @@ def fused_compat_root_batch(table_u8: torch.Tensor, payloads: torch.Tensor,
     The head walks the whole batch at once (its launch count does not
     grow with Q); the stage cascade runs in slices of at most `q_chunk`
     queries, which bounds its seed planes (4 MiB a query after the
-    second stage on the 1 GiB table) and changes no output byte.
+    second stage on the 1 GiB table) and changes no output byte. With
+    shard = (index, levels), the partial answers of that row shard's
+    subtree (compat_head) against its slice of the table.
     """
     q = payloads.shape[0]
-    ops = compat_head(payloads, layout, w)
+    ops = compat_head(payloads, layout, w, shard)
     words = torch.cat([compat_stages(*(x[q0:q0 + q_chunk] for x in ops), tails)
                        for q0 in range(0, q, q_chunk)])
     rows = table_u8.shape[0]
     if rows // 32 > words.shape[1]:  # zero bits for the XOR-neutral padded rows
         words = torch.cat([words, words.new_zeros(q, rows // 32 - words.shape[1])], dim=1)
     return packed_scan(table_u8, words.t().contiguous())
+
+
+def fused_compat_preplane_batch(table_u8: torch.Tensor, payloads: torch.Tensor,
+                                layout: CompatRootLayout) -> torch.Tensor:
+    """Root-start batched compat answers on a table too shallow for the
+    stage cascade (pir_tpu's fused_compat_root_batch_fn): the skip walk,
+    then every device level from the root in plain torch, leaf i at bit i
+    (the bit-reversed row order), then the bit-plane scan kernel
+    (ops/planes_scan.py) in place of pir_tpu's plane-table product.
+    table (2^device_bits, B) uint8 with row r at bit_reverse(r)
+    (dpf.device._compat_leaf_perm_root), payloads (Q, total) int32 ->
+    (Q, B) uint8."""
+    nbd, sk = layout.device_bits, layout.skip
+    seeds, t, cw_s, cw_tl, cw_tr, fcw, rk = unpack_compat_root_payload(payloads, layout)
+    seeds, t = _compat_skip_walk(seeds, t, cw_s, cw_tl, cw_tr, rk, sk)
+    seeds, t = expand_planes_from_root(seeds, t, cw_s[:, sk:], cw_tl[:, sk:], cw_tr[:, sk:],
+                                       rk, nbd)
+    packed = _leaf_select_bits(seeds.transpose(0, 1), t, fcw[:, None])  # (Q, NW)
+    # below 5 levels the leaves are one word's low lanes
+    return planes_scan(table_u8, _unpack_bits(packed)[:, :1 << nbd].contiguous())

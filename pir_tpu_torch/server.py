@@ -14,7 +14,10 @@ storage order of its path:
   order of the per-query tail kernel (``fast_stacked=False``);
   batch-shared and distinct PRF keys both go either way;
 * reference-exact (compat) keys: the order of the compat-stage cascade,
-  in slices of at most ``COMPAT_BATCH_CAP`` queries.
+  in slices of at most ``COMPAT_BATCH_CAP`` queries; on a table of 5
+  device levels, too shallow for a stage, the bit-reversed row order of
+  the preplane route, whose whole walk runs in plain torch and whose
+  scan is the bit-plane scan kernel.
 
 Every storage table pads its rows with zero bytes to a multiple of 4,
 the width the kernels read; answers are sliced back to the row's bytes.
@@ -24,8 +27,8 @@ kernel instead of the packed scan.
 Single queries (``private_secret_shared_query``,
 ``expand_shared_query`` + ``private_secret_shared_query_with_expanded_bits``)
 and the batches the root-start paths do not take (compat batches below
-MIN_BATCH, compat tables of at most 5 device levels, fast keys of depth
-< 5) run per query: the host walks the first levels, the device the rest,
+MIN_BATCH, compat tables of fewer than 5 device levels, fast keys of
+depth < 5) run per query: the host walks the first levels, the device the rest,
 and the masked-XOR scan kernel reads the natural-order word table
 (``_table``). ``fast_serving_stream()`` serves fast batches with a
 one-batch lag, in the stacked mode or through the fused scan + tail
@@ -53,6 +56,7 @@ import torch
 from .database import Database
 from .dpf import host as dpf_host
 from .dpf.device import (
+    _compat_leaf_perm_root,
     _compat_perm,
     _fast_leaf_perm,
     _fast_leaf_perm_root,
@@ -81,6 +85,7 @@ from .models.pipeline import (
     check_overlap_layout,
     fused_answer,
     fused_answer_batch,
+    fused_compat_preplane_batch,
     fused_compat_root_batch,
     fused_fast_bits,
     fused_fast_overlap_step,
@@ -233,7 +238,8 @@ class TorchPirServer:
 
     Compat batches of at least MIN_BATCH queries run the stage cascade of
     ``dpf.device.compat_stage_plan`` at the geometry of
-    ``_compat_geometry`` (see the COMPAT_* constants).
+    ``_compat_geometry`` (see the COMPAT_* constants), or on 5 device
+    levels the preplane route (``_compat_preplane_applicable``).
 
     min_device_nodes: per-query expansion walks levels on the host until
     this many nodes are live (``dpf.device.make_plan``), as TpuPirServer.
@@ -366,6 +372,16 @@ class TorchPirServer:
                                    lambda: _compat_perm(device_bits, h, w, tails), flat,
                                    min(2048, flat))
 
+    def _compat_preplane_table_u8(self, group_size: int, device_bits: int) -> torch.Tensor:
+        """Raw u8 table of the compat preplane route: row r at
+        bit_reverse(r) of the 2^device_bits leaves, zero rows elsewhere
+        (pir_tpu's _compat_root_plane_table, as bytes: the port keeps no
+        plane table)."""
+        h = self.db.db_size // group_size
+        flat = 1 << device_bits
+        return self._storage_table(("preplane", group_size, device_bits), group_size,
+                                   lambda: _compat_leaf_perm_root(device_bits, h), flat, flat)
+
     def apply_updates(self, updates: dict[int, bytes]) -> None:
         """Apply slot updates ``{index: new_bytes}`` to the database and to
         every cached table (counterpart of pir_tpu/server.py:apply_updates).
@@ -380,7 +396,8 @@ class TorchPirServer:
         table at its next dispatch. The database swaps its rows copy-on-write
         for the same reason. Keyword planes and permutations derive from no
         row and stay as they are. (pir_tpu also patches its bit-plane tables
-        of the root and compat-root routes, which the port does not build.)
+        of the root and compat-root routes, which the port does not build:
+        its preplane route reads the raw u8 table, patched like the others.)
         """
         with self._lock:
             self.db.update_slots(updates, copy_on_write=True)
@@ -512,7 +529,7 @@ class TorchPirServer:
     def _dispatch_per_query(self, queries: list[QueryShare]) -> torch.Tensor:
         """The per-query batch path (pir_tpu/server.py:1085-1108) for what
         the root-start paths do not take: compat batches below MIN_BATCH,
-        compat tables of at most 5 device levels, fast keys of depth < 5.
+        compat tables of fewer than 5 device levels, fast keys of depth < 5.
         Returns the (Q, G * words) int32 answer words (not yet fetched)."""
         g = queries[0].group_size
         h = self.db.db_size // g
@@ -563,15 +580,32 @@ class TorchPirServer:
         w = min(COMPAT_MAX_W, 1 << max(0, nbd - 6))
         return nbd, w, compat_stage_plan(nbd, w, COMPAT_MAX_TAIL)[1]
 
+    def _compat_batch(self, queries: list[QueryShare]) -> bool:
+        q0 = queries[0]
+        return q0.key_fast is None and not q0.is_keyword_based and len(queries) >= MIN_BATCH
+
     def _compat_applicable(self, queries: list[QueryShare]) -> bool:
         """The compat stage cascade needs a batch of at least MIN_BATCH
-        and a head of >= 5 levels followed by a stage: device_bits >= 6.
-        Other compat batches run per query (pir_tpu sends device_bits == 5
-        through its preplane route, not yet ported; the bytes are equal)."""
-        q0 = queries[0]
-        if q0.key_fast is not None or q0.is_keyword_based or len(queries) < MIN_BATCH:
-            return False
-        return self._compat_device_bits(q0.group_size) >= 6
+        and a head of >= 5 levels followed by a stage: device_bits >= 6."""
+        return self._compat_batch(queries) and self._compat_device_bits(
+            queries[0].group_size) >= 6
+
+    def _compat_preplane_applicable(self, queries: list[QueryShare]) -> bool:
+        """A compat batch of at least MIN_BATCH on exactly 5 device levels
+        takes the preplane route, as in pir_tpu/server.py:1046-1071 (there
+        every level count from 5 up that its stage cascade does not take;
+        here the cascade takes 6 and up). Shallower tables run per query."""
+        return self._compat_batch(queries) and self._compat_device_bits(
+            queries[0].group_size) == 5
+
+    def _dispatch_compat_preplane(self, queries: list[QueryShare]) -> torch.Tensor:
+        """Dispatch a uniform compat batch through the preplane route;
+        returns the (Q, row_bytes) uint8 device tensor (not yet fetched)."""
+        g = queries[0].group_size
+        h = self.db.db_size // g
+        pay, layout = make_compat_payload_batch(queries, height=h)
+        return fused_compat_preplane_batch(self._compat_preplane_table_u8(g, layout.device_bits),
+                                           u32_tensor(pay, self.device), layout)
 
     def _keyword_query_batch(self, queries: list[QueryShare]) -> torch.Tensor:
         """A keyword batch (pir_tpu/server.py:735-766): one point walk for
@@ -677,6 +711,8 @@ class TorchPirServer:
             out_dev = self._dispatch_fast_root(queries)
         elif self._compat_applicable(queries):
             out_dev = self._dispatch_compat(queries)
+        elif self._compat_preplane_applicable(queries):
+            out_dev = self._dispatch_compat_preplane(queries)
         else:
             words = self._dispatch_per_query(queries)
             return lambda: [self._result_from_words(w, g) for w in words.cpu()]

@@ -21,7 +21,10 @@ Frame format: u32 little-endian length ‖ u8 opcode ‖ payload.
 The engine comes from ``config.PirConfig`` / ``pick_engine``: with no
 config a service answers on a ``TorchPirServer`` on the card (and raises
 when there is none); ``PirConfig(device="cpu")`` runs the same engine on
-the CPU, ``PirConfig(engine="host")`` the numpy golden model. The cPIR
+the CPU, ``PirConfig(engine="mesh", mesh_tp=, mesh_dp=)`` (or mesh_tp *
+mesh_dp > 1) a ``MeshPirServer`` over a grid of devices (its serving
+stream emulated by the shell, as in pir_tpu), ``PirConfig(engine="host")``
+the numpy golden model. The cPIR
 scans and the AHE ASPIR proof checks' modexp batches run on the config's
 device too (the card unless ``device="cpu"``), or with
 ``PirConfig(paillier_engine="python")`` in CPython on the host.
@@ -36,6 +39,9 @@ import socketserver
 import struct
 import threading
 import time
+
+import numpy as np
+import torch
 
 from . import encrypted as enc
 from . import server as srv
@@ -62,6 +68,7 @@ from .query import (
     new_keyword_query_shares_batch,
     recover,
 )
+from .parallel.mesh import MeshPirServer
 from .server import TorchPirServer
 from .slot import new_slot_from_string
 from .utils.metrics import ServerMetrics
@@ -210,11 +217,16 @@ class PirService:
         self._audit_dead: dict[int, float] = {}  # timed-out nonce -> expiry
         self.config = (config or PirConfig()).validate()
         self.engine_name = pick_engine(self.config)
-        self._engine: TorchPirServer | None = None
+        self._engine: TorchPirServer | MeshPirServer | None = None
         if self.engine_name == "torch":
             self._engine = TorchPirServer(
                 db, device=self.config.device,
                 min_device_nodes=self.config.min_device_nodes,
+            )
+        elif self.engine_name == "mesh":
+            self._engine = MeshPirServer(
+                db, tp=self.config.mesh_tp, dp=self.config.mesh_dp,
+                compat_w=self.config.mesh_compat_w, device=self.config.device,
             )
         # the BST's level databases, each answered by an engine of its own
         self._bst_engines: dict[int, TorchPirServer] = {}
@@ -276,13 +288,31 @@ class PirService:
             for s in shares
         )
 
+    @staticmethod
+    def _batch_uniform_mp(shares: list[QueryShare]) -> bool:
+        """A uniform multi-party (>= 3 server) batch of one kind."""
+        s0 = shares[0]
+        return all(
+            not s.is_two_party
+            and s.key_multi_party is not None
+            and s.group_size == s0.group_size
+            and s.is_keyword_based == s0.is_keyword_based
+            and s.key_multi_party.num_parties == s0.key_multi_party.num_parties
+            for s in shares
+        )
+
     def _answer_batch(self, shares: list[QueryShare]) -> list[SecretSharedQueryResult]:
-        """A uniform 2-party batch goes to the engine's batch API; anything
-        else (multi-party, mixed kinds, the host engine) per share, so
+        """A uniform 2-party batch goes to the engine's batch API, and so
+        does a uniform multi-party batch on an engine that takes one whole
+        (``batch_accepts_multi_party``: the mesh's sharded point step);
+        anything else (mixed kinds, the host engine) per share, so
         OP_QUERY_BATCH accepts everything OP_QUERY does."""
         if not shares:
             return []
-        if self._engine is not None and self._batch_uniform(shares):
+        if self._engine is not None and (
+                self._batch_uniform(shares)
+                or (getattr(self._engine, "batch_accepts_multi_party", False)
+                    and self._batch_uniform_mp(shares))):
             return self._engine.private_secret_shared_query_batch(shares)
         return [self._answer(s) for s in shares]
 
@@ -330,7 +360,9 @@ class PirService:
             res = self._engine.private_secret_shared_query_with_expanded_bits(
                 qs, bits
             )
-            bits_np = bits.cpu().numpy().astype(bool)
+            # the torch engine's bits are a device tensor, the mesh's numpy
+            bits_np = np.asarray(bits.cpu() if isinstance(bits, torch.Tensor)
+                                 else bits).astype(bool)
         else:
             bits_np = srv.expand_shared_query(self.db, qs)
             res = srv.private_secret_shared_query_with_expanded_bits(
@@ -448,7 +480,7 @@ class PirService:
         in-process operator call, deliberately not a wire opcode: the
         query protocol must not let clients mutate the table). Engines
         holding device-resident tables patch them in place
-        (TorchPirServer.apply_updates); the host engine reads db.data at
+        (TorchPirServer.apply_updates, MeshPirServer.apply_updates); the host engine reads db.data at
         scan time, so the rows swap copy-on-write —
         in-flight scans finish on the old buffer and never see a torn
         row."""
@@ -481,8 +513,9 @@ class PirService:
             # the batch, else shell emulation. Only the stream's refusal
             # of the batch (ValueError: compat, keyword, mixed or shallow
             # shares) falls through; a kernel that fails to build or
-            # launch raises on to the client as OP_ERROR.
-            if self._engine is not None:
+            # launch raises on to the client as OP_ERROR. The mesh engine
+            # has no stream (as in pir_tpu): emulated.
+            if isinstance(self._engine, TorchPirServer):
                 stream = self._engine.fast_serving_stream()
                 try:
                     stream.submit(shares)  # validates, dispatches, drains nothing

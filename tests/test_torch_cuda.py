@@ -1089,3 +1089,116 @@ def test_mont_scan_kernel_at_the_served_windows(dev, shape):
         for r in range(h):
             acc = acc * pow(ebits[r], vals[r * w + c], m) % m
         assert got[c] == acc
+
+
+# ---- the mesh engine over one card named several times ----------------------
+
+MESH_ROWS = (1 << 14) + 700  # depth 8 at 128-bit leaves, 15 compat device levels
+MESH_KERNELS = {"stacked_tail": fast_tail_expand_stacked, "packed_scan": packed_scan,
+                "compat_stage": compat_stage, "fast_tail": fast_tail_expand,
+                "fused_scan_expand": fused_scan_expand, "masked_xor_scan": masked_xor_scan,
+                "planes_scan": planes_scan}
+
+
+def _mesh_db():
+    db = generate_random_db(MESH_ROWS, 12)
+    rng = np.random.default_rng(50)
+    db.set_keywords(rng.choice(1 << 32, size=MESH_ROWS, replace=False).astype(np.uint64))
+    return db, rng
+
+
+def _mesh_routes(db, rng, tp):
+    """(route, rows, share lists, fast_stacked, kernels its batches launch)
+    of every route a tp-way grid takes on the mesh table."""
+    md = db.metadata()
+    rows = [0, MESH_ROWS - 1] + [int(i) for i in rng.integers(0, MESH_ROWS, 38)]
+    kw = db.keywords
+
+    def fast(n):
+        return tq.new_index_query_shares_batch(md, rows[:n], 1, fast=True, leaf_bits=128,
+                                               rand_bytes=rng.bytes)
+
+    routes = [
+        ("fast distinct-key (host prefix)", rows[:12],
+         [tq.new_index_query_shares(md, r, 1, fast=True, leaf_bits=128, rand_bytes=rng.bytes)
+          for r in rows[:12]], True, {"masked_xor_scan"}),
+        ("keyword", rows[:6], tq.new_keyword_query_shares_batch(
+            md, [int(kw[r]) for r in rows[:6]], 1, rand_bytes=rng.bytes), True, {"planes_scan"}),
+        ("3-party index", rows[:3], [tq.new_index_query_shares(md, r, 1, num_shares=3,
+                                                               rand_bytes=rng.bytes)
+                                     for r in rows[:3]], True, {"planes_scan"})]
+    compat = tq.new_index_query_shares_batch(md, rows, 1, rand_bytes=rng.bytes)
+    if tp & (tp - 1):
+        return routes + [("compat (host prefix)", rows, compat, True, {"masked_xor_scan"}),
+                          ("fast shared-key (host prefix)", rows[:12], fast(12), True,
+                           {"masked_xor_scan"})]
+    return routes + [
+        ("fast root, stacked", rows, fast(40), True, {"stacked_tail", "packed_scan"}),
+        ("fast root, per-query tail", rows, fast(40), False, {"fast_tail", "packed_scan"}),
+        ("compat root", rows, compat, True, {"compat_stage", "packed_scan"})]
+
+
+def _one_card_rows(single, shares):
+    if shares[0].is_two_party:
+        return _rows_of(single.private_secret_shared_query_batch(shares))
+    return _rows_of([single.private_secret_shared_query(s) for s in shares])
+
+
+def _rows_of(results):
+    return [bytes(r.shares[0].data) for r in results]
+
+
+@pytest.mark.parametrize("tp,dp", [(1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (4, 1), (4, 2)])
+def test_cuda_mesh_routes_match_one_card(dev, tp, dp):
+    """MeshPirServer over ["cuda:0"] * (tp * dp): every route's answers
+    equal TorchPirServer's on the card, share by share, recover every row,
+    and launch exactly the route's kernels; each shard's table is held
+    once on the card however often the grid names it."""
+    from pir_tpu_torch.parallel.mesh import MeshPirServer, make_mesh
+
+    db, rng = _mesh_db()
+    single = TorchPirServer(db)
+    engines = {stacked: MeshPirServer(db, mesh=make_mesh(devices=["cuda:0"] * (tp * dp), dp=dp),
+                                      fast_stacked=stacked) for stacked in (True, False)}
+    for route, rows, pairs, stacked, kernels in _mesh_routes(db, rng, tp):
+        answers = []
+        for part in range(len(pairs[0])):
+            shares = [p[part] for p in pairs]
+            before = {k: f.launches for k, f in MESH_KERNELS.items()}
+            got = _rows_of(engines[stacked].private_secret_shared_query_batch(shares))
+            torch.cuda.synchronize()
+            launched = {k for k, f in MESH_KERNELS.items() if f.launches > before[k]}
+            assert launched == kernels, (route, launched)
+            assert got == _one_card_rows(single, shares), route
+            answers.append([np.frombuffer(a, np.uint8) for a in got])
+        for i, r in enumerate(rows):
+            rec = np.bitwise_xor.reduce([a[i] for a in answers])
+            assert rec.tobytes() == db.data[r].tobytes(), (route, i)
+    for eng in engines.values():
+        for key, placed in eng._tables.items():
+            assert sorted(s for s, _ in placed) == list(range(tp)), key
+            assert all(t.device == torch.device("cuda", 0) for t in placed.values())
+
+
+def test_cuda_mesh_after_updates_matches_one_card(dev):
+    """apply_updates on a tp 4 x dp 2 grid over one card patches every
+    shard table: the root, compat root, distinct-key and keyword batches
+    then equal TorchPirServer's after the same updates."""
+    from pir_tpu_torch.parallel.mesh import MeshPirServer, make_mesh
+
+    db, rng = _mesh_db()
+    single = TorchPirServer(db)
+    eng = MeshPirServer(db, mesh=make_mesh(devices=["cuda:0"] * 8, dp=2))
+    for _, _, pairs, stacked, _ in _mesh_routes(db, rng, 4):
+        if stacked:
+            eng.private_secret_shared_query_batch([p[0] for p in pairs])
+    updates = {int(r): rng.bytes(12) for r in rng.integers(0, MESH_ROWS, 300)}
+    updates[0] = bytes(range(12))
+    eng.apply_updates(updates)
+    single.apply_updates(updates)
+    for route, _, pairs, stacked, _ in _mesh_routes(db, rng, 4):
+        if stacked:
+            for part in range(len(pairs[0])):
+                shares = [p[part] for p in pairs]
+                assert _rows_of(eng.private_secret_shared_query_batch(shares)) == \
+                    _one_card_rows(single, shares), route

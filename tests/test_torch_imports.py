@@ -27,7 +27,8 @@ SLICE_MODULES = [
     "pir_tpu_torch/encrypted.py", "pir_tpu_torch/config.py", "pir_tpu_torch/service.py",
     "pir_tpu_torch/demo.py", "pir_tpu_torch/crypto/paillier.py",
     "pir_tpu_torch/utils/metrics.py", "pir_tpu_torch/crypto/mont.py",
-    "pir_tpu_torch/benchmarks_paillier.py",
+    "pir_tpu_torch/benchmarks_paillier.py", "pir_tpu_torch/parallel/__init__.py",
+    "pir_tpu_torch/parallel/mesh.py",
 ]
 
 

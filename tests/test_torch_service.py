@@ -13,8 +13,9 @@ real sockets:
 * raw frames made by pir_tpu get byte-equal response frames from both
   packages' services, for every opcode whose answer is deterministic;
 * the port's engine choice: ``PirService()`` with no config and no GPU
-  raises, ``pick_engine`` resolves "auto" to "torch", pir_tpu's engines
-  with no port are refused, a failure in the stream's kernel path
+  raises, ``pick_engine`` resolves "auto" to "torch" and the mesh
+  configs to "mesh" (a mesh service on 2 x 2 CPU shards answers every
+  batch kind), pir_tpu's engines with no port are refused, a failure in the stream's kernel path
   reaches the client as OP_ERROR (only the stream's refusal of a batch
   falls back to emulation), and concurrent first queries on one service
   are answered right.
@@ -394,24 +395,64 @@ def test_no_config_means_the_card():
         host.close()
 
 
-def test_pick_engine_and_refused_engines():
+def test_pick_engine_and_refused_engines(tables):
+    """pick_engine: "auto" is "torch"; the mesh configs resolve to "mesh"
+    as pir_tpu's do (its "tpu" is the port's "torch"); pir_tpu's engines
+    with no port are refused. A PirService over PirConfig(engine="mesh",
+    mesh_tp=2, mesh_dp=2, device="cpu") answers a client's fast, compat,
+    keyword and 3-party batches and a stream, every row recovered."""
+    from pir_tpu_torch.parallel.mesh import MeshPirServer
+
     assert tcfg.pick_engine(tcfg.PirConfig()) == "torch"
     assert tcfg.pick_engine(tcfg.PirConfig(engine="torch")) == "torch"
     assert tcfg.pick_engine(tcfg.PirConfig(engine="host")) == "host"
     # pir_tpu resolves the same config to its host or native engine on a CPU
     assert jcfg.pick_engine(jcfg.PirConfig(engine="host")) == "host"
-    for kwargs, item in ((dict(engine="mesh"), "[14]"), (dict(engine="native"), "[18]"),
-                         (dict(mesh_tp=2), "[14]"), (dict(mesh_dp=4, engine="torch"), "[14]"),
+    for kwargs in (dict(engine="mesh"), dict(mesh_tp=2), dict(mesh_dp=4, engine="torch"),
+                   dict(mesh_tp=2, mesh_dp=2, engine="mesh")):
+        assert tcfg.pick_engine(tcfg.PirConfig(**kwargs)) == "mesh"
+        jkw = dict(kwargs, engine="tpu") if kwargs.get("engine") == "torch" else kwargs
+        assert jcfg.pick_engine(jcfg.PirConfig(**jkw)) == "mesh"
+    for kwargs, item in ((dict(engine="native"), "[18]"),
                          (dict(paillier_engine="native"), "[18]"),
                          (dict(paillier_engine="tpu"), "'torch'")):
         with pytest.raises(ValueError, match=item.replace("[", r"\[").replace("]", r"\]")):
             tcfg.pick_engine(tcfg.PirConfig(**kwargs))
-    for kwargs in (dict(engine="tpu"), dict(engine="bogus"), dict(paillier_engine="bogus")):
+    for kwargs in (dict(engine="tpu"), dict(engine="bogus"), dict(paillier_engine="bogus"),
+                   dict(mesh_compat_w=48), dict(mesh_tp=0)):
         with pytest.raises(ValueError):
             tcfg.PirConfig(**kwargs).validate()
-    db = state.database_from_numpy(np.zeros((64, 4), np.uint8), 4)
-    with pytest.raises(ValueError, match="mesh"):
-        tsvc.PirService(db, config=tcfg.PirConfig(engine="mesh"))
+    cfg = tcfg.PirConfig(engine="mesh", mesh_tp=2, mesh_dp=2, device="cpu",
+                         paillier_engine="python")
+    svcs = [tsvc.PirService(tables.db("torch", tables.data, tables.keywords),
+                            config=cfg).start() for _ in range(3)]
+    try:
+        for s in svcs:
+            assert s.engine_name == "mesh" and isinstance(s._engine, MeshPirServer)
+            assert s._engine.mesh.shape == {"dp": 2, "tp": 2}
+        client = tsvc.PirClient([s.address for s in svcs[:2]])
+        client3 = tsvc.PirClient([s.address for s in svcs])
+        rows = [0, HEIGHT - 1, 77, 512, 300]
+
+        def check(got, want_rows):
+            assert [bytes(r[0].data) for r in got] == [tables.data[i].tobytes()
+                                                       for i in want_rows]
+
+        check(client.query_index_batch(rows, fast=True), rows)
+        check(client.query_index_batch(rows, fast=False), rows)
+        check(client.query_keyword_dpf_batch([int(tables.keywords[i]) for i in rows]), rows)
+        check(client3.query_index_batch(rows[:3], fast=False), rows[:3])
+        stream = client.open_stream()
+        assert stream.submit(rows[:2]) is None
+        check(stream.submit(rows[2:4]), rows[:2])
+        check(stream.flush(), rows[2:4])
+        eng = svcs[0]._engine
+        assert {key[0] for key in eng._tables} == {"words"}  # compat host prefix, points
+        assert eng._kw_planes
+        client.close()
+        client3.close()
+    finally:
+        _close_all(svcs)
 
 
 def test_stream_kernel_failure_reaches_the_client(services, tables, monkeypatch):
