@@ -117,6 +117,26 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
    and recovers its row, each route launches exactly its kernels
    (counts set to 0 just before, read just after), seconds per batch
    beside the single card's;
+   4f. the last modules (rest_phase): (a) both shares of a 4096-batch of
+   shared-key fast queries through the per-query tail route with
+   all_xla_expand (the whole walk and leaf PRG in plain torch) on a fresh
+   classic table, equal to the tail-kernel route's bytes, every row
+   recovered, one packed scan launch a share and no tail kernel, seconds
+   and max_memory_allocated; a distinct-key batch raises ValueError; (b)
+   8 fast queries with per-query payloads through each of the six
+   fused_fast_answer* functions (the natural word table, its bytes, or the
+   storage-order word table scattered once), equal to the host golden
+   model, the masked-XOR scan or the bit-plane scan launched as the
+   function says; (c) the native C++ engine: the host CPU and its AES-NI
+   and AVX2 flags, the g++ build, NativePirServer answering the card's
+   shares on the 1 GiB table (fast and compat batches of 16, fast and
+   compat singles, a keyword single, a 3-party index single) with equal
+   bytes and no kernel launched, a PirService pair with
+   PirConfig(engine="native", paillier_engine="native") on the cPIR
+   yardstick table equal to a default pair's response bytes, an encrypted
+   query's ints equal through the "native", "torch" and "python" scan
+   engines, and native.powmod_batch equal to kernel 9 on phase 4d's 1024
+   encryptions; seconds beside the card's;
 5. times each kernel, its plain version and its PyTorch yardstick at the
    main paths' shapes (the masked-XOR scan at Q = 1 and Q = 8, the
    bit-plane scan at Q = 64 and Q = 1024 on the natural table's bytes,
@@ -199,6 +219,11 @@ MESH_PREFIX_BATCH = 64  # distinct-key fast and tp-3 compat batches
 MESH_KW_BATCH = 8
 MESH_MP_BATCH = 4
 MESH_UPDATES = 4096
+# phase 4f: the all-torch fast expansion, the per-query fast answers, the
+# native C++ engine
+REST_XLA_BATCH = 4096
+REST_ANSWER_Q = 8
+REST_NATIVE_BATCH = 16
 # the cPIR yardstick (benchmarks_paillier_tpu.py's shape) and its key size
 CPIR_ROWS = 1 << 10
 CPIR_SLOT_BYTES = 3
@@ -1541,7 +1566,19 @@ def main() -> int:
     log(f"phase 4e: done in {mesh['phase_s']:.2f} s; memory_allocated at its start "
         f"{mesh_start / 2**30:.2f} GiB, max_memory_allocated "
         f"{mesh['max_memory_allocated'] / 2**30:.2f} GiB")
-    gc.collect()  # phase 4e's engines: no collection inside phase 5's timings
+    gc.collect()  # phase 4e's engines
+    torch.cuda.empty_cache()
+
+    # ---- phase 4f: the all-torch fast expansion, the per-query fast answers,
+    # ---- the native C++ engine ------------------------------------------------
+    t = time.perf_counter()
+    rest = rest_phase(db, args.seed, (counted, reset_counts, read_counts), rows_of, srv,
+                      depth, n_blk, {k: cpir.pop(k) for k in ("key", "encrypt_rs",
+                                                             "encrypt_kernel9")} | cpir,
+                      cpir_tables[0])
+    rest["phase_s"] = time.perf_counter() - t
+    log(f"phase 4f: done in {rest['phase_s']:.2f} s")
+    gc.collect()  # phase 4f's engines: no collection inside phase 5's timings
     torch.cuda.empty_cache()
 
     # ---- phase 5: kernel times ----------------------------------------------
@@ -2026,7 +2063,8 @@ def main() -> int:
                        overlap_probe={str(k): v for k, v in probe_time.items()},
                        updates_s=upd_s, updates_split_s=split_u, permutations_s=perms_s,
                        after_updates_s=upd_serve, persistence_s=persist, service=svc,
-                       cpir=cpir, mesh=mesh, mont_time=mont_time, mont_sass=mont_sass,
+                       cpir=cpir, mesh=mesh, rest=rest, mont_time=mont_time,
+                       mont_sass=mont_sass,
                        elapsed_s=time.perf_counter() - T0)
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)
@@ -2684,6 +2722,361 @@ def mesh_phase(db, seed, counting, rows_of, single, sync, depth, n_blk) -> dict:
     return out
 
 
+def rest_phase(db, seed, counting, rows_of, srv, depth, n_blk, cpir, cdb) -> dict:
+    """Phase 4f: the last modules of the port, on the 1 GiB table (its
+    keywords set). (a) The per-query tail route with all_xla_expand (the
+    whole fast walk in plain torch with Q in lanes) on both shares of one
+    batch of REST_XLA_BATCH batch-shared fast queries at the serving
+    geometry, on a fresh classic table: equal bytes to the tail-kernel
+    route on the same shares, every row recovered, the packed scan once a
+    share and no tail kernel, seconds a share beside the tail-kernel
+    route's and max_memory_allocated before and at peak; a distinct-key
+    batch raises ValueError. (b) REST_ANSWER_Q fast queries with per-query
+    payloads at the default min_device_nodes through each of the six
+    fused_fast_answer* functions, on the table it takes (the natural word
+    table, its bytes, or the storage-order word table scattered once and
+    its bytes): every answer equal to the host golden model, rows
+    recovered, the masked-XOR scan or the bit-plane scan launched as the
+    function says, seconds a call. (c) The native C++ engine: the host's
+    CPU and flags, the libraries' build time; NativePirServer on the same
+    database answers the shares TorchPirServer (srv) answers on the card
+    (a fast and a compat batch of REST_NATIVE_BATCH, a fast and a compat
+    single, a keyword single, a 3-party index single) with equal bytes,
+    every row recovered, no kernel launched, seconds beside the card's; a
+    PirService pair with PirConfig(engine="native",
+    paillier_engine="native") on the cPIR yardstick table (cdb) answers
+    the frames of a fast batch, a compat single and an encrypted query
+    with the bytes of a pair on the default config; the encrypted query's
+    ints through encrypted's engines "native", "torch" and "python" are
+    equal; native.powmod_batch on phase 4d's encryption batch equals
+    kernel 9's ints (cpir: its stash). Returns what it measured."""
+    import platform
+    import socket
+
+    import numpy as np
+    import torch
+
+    from pir_tpu_torch import _build, native
+    from pir_tpu_torch import encrypted as enc
+    from pir_tpu_torch import server as server_mod
+    from pir_tpu_torch import wire
+    from pir_tpu_torch.config import PirConfig
+    from pir_tpu_torch.database import DBMetadata
+    from pir_tpu_torch.dpf import host as dpf_host
+    from pir_tpu_torch.dpf.device import (
+        make_device_fast_key,
+        make_fast_payload_batch,
+        pack_fast_payload,
+        u32_tensor,
+    )
+    from pir_tpu_torch.models import pipeline
+    from pir_tpu_torch.query import (
+        new_fast_index_query_shares,
+        new_index_query_shares,
+        new_index_query_shares_batch,
+        new_keyword_query_shares,
+    )
+    from pir_tpu_torch.server import NativePirServer, TorchPirServer
+    from pir_tpu_torch.service import (
+        OP_ENCRYPTED_QUERY,
+        OP_QUERY,
+        OP_QUERY_BATCH,
+        PirClient,
+        PirService,
+        _pack_blobs,
+        _recv_frame,
+        _send_frame,
+    )
+    from pir_tpu_torch.state import database_from_numpy
+
+    counted, reset_counts, read_counts = counting
+    every = set(counted)
+    rng = np.random.default_rng(seed + 11)
+    keygen_rng = np.random.default_rng(seed + 12)
+    height, slot = db.db_size, db.slot_bytes
+    md = DBMetadata(slot, height)
+    sync = torch.cuda.synchronize
+    out = {"s": {}, "launches": {}}
+
+    def rows(n):
+        return [int(i) for i in rng.integers(0, height, n)]
+
+    def check_rows(label, idx, answers):
+        rec = np.bitwise_xor.reduce(np.stack(answers), axis=0)
+        if not np.array_equal(rec[:, :slot], db.data[np.asarray(idx)]):
+            fail(f"phase 4f: {label}: answers do not recover their rows")
+
+    # (a) the [19] route: all_xla_expand against the tail-kernel route
+    t = time.perf_counter()
+    srv_x = TorchPirServer(db, fast_stacked=False)
+    table = srv_x._root_table_u8(1, depth, n_blk, stacked=False)
+    sync()
+    out["s"]["classic_table"] = time.perf_counter() - t
+    idx = rows(REST_XLA_BATCH)
+    pairs = new_index_query_shares_batch(md, idx, 1, fast=True, rand_bytes=keygen_rng.bytes)
+    xla = {"xla_s": [], "tail_s": [], "memory": []}
+    answers = []
+    for part in (0, 1):
+        pay, layout = make_fast_payload_batch([p[part] for p in pairs])
+        if not layout.shared_rk or (layout.depth, layout.leaf_blocks) != (depth, n_blk):
+            fail(f"phase 4f: the batch's layout is {layout}")
+        pay = u32_tensor(pay, "cuda")
+        torch.cuda.empty_cache()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_counts()
+        t = time.perf_counter()
+        got = pipeline.fused_fast_root_batch_pertail(table, pay, layout, srv_x.tail_levels,
+                                                     all_xla_expand=True)
+        sync()
+        xla["xla_s"].append(time.perf_counter() - t)
+        xla["memory"].append((before, torch.cuda.max_memory_allocated()))
+        out["launches"][f"all_xla_expand {part}"] = read_counts(
+            f"all_xla_expand route, share {part}", ("packed_scan",),
+            tuple(every - {"packed_scan"}))
+        if out["launches"][f"all_xla_expand {part}"]["packed_scan"] != 1:
+            fail("phase 4f: the all_xla_expand route launched the packed scan more than once")
+        t = time.perf_counter()
+        want = pipeline.fused_fast_root_batch_pertail(table, pay, layout, srv_x.tail_levels)
+        sync()
+        xla["tail_s"].append(time.perf_counter() - t)
+        if not torch.equal(got, want):
+            fail("phase 4f: the all_xla_expand route differs from the tail-kernel route")
+        answers.append(got.cpu().numpy())
+        del got, want
+    check_rows("all_xla_expand route", idx, answers)
+    dshares = [new_fast_index_query_shares(md, i, 1, rand_bytes=keygen_rng.bytes)[0]
+               for i in rows(4)]
+    dpay, dlayout = make_fast_payload_batch(dshares)
+    try:
+        pipeline.fused_fast_root_batch_pertail(table, u32_tensor(dpay, "cuda"), dlayout,
+                                               srv_x.tail_levels, all_xla_expand=True)
+        fail("phase 4f: the all_xla_expand route took a distinct-key batch")
+    except ValueError:
+        pass
+    out["all_xla_expand"] = xla
+    log(f"phase 4f: (a) all_xla_expand route, {REST_XLA_BATCH} shared-key queries (depth "
+        f"{depth}, {n_blk} leaf blocks): {[round(x, 4) for x in xla['xla_s']]} s a share "
+        f"against the tail-kernel route's {[round(x, 4) for x in xla['tail_s']]}; equal bytes, "
+        f"all recovered; memory_allocated before / max (GiB) "
+        f"{[(round(a / 2**30, 3), round(b / 2**30, 3)) for a, b in xla['memory']]}; the packed "
+        f"scan once a share, no tail kernel; a distinct-key batch raises ValueError; the "
+        f"classic table {out['s']['classic_table']:.2f} s")
+    del srv_x, table, pay, answers
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the [20] functions: per-query payloads, each on the table it takes
+    idx = rows(REST_ANSWER_Q)
+    pairs = new_index_query_shares_batch(md, idx, 1, fast=True, rand_bytes=keygen_rng.bytes)
+    t = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=min(2 * REST_ANSWER_Q, os.cpu_count() or 1)) as pool:
+        golden = list(pool.map(
+            lambda s: np.frombuffer(bytes(server_mod.private_secret_shared_query(db, s)
+                                          .shares[0].data), np.uint8),
+            [p[part] for part in (0, 1) for p in pairs]))
+    out["s"]["host_golden"] = time.perf_counter() - t
+    golden = [np.stack(golden[:REST_ANSWER_Q]), np.stack(golden[REST_ANSWER_Q:])]
+    check_rows("host golden", idx, golden)
+    keyed = []
+    for part in (0, 1):
+        dkeys = [make_device_fast_key(dpf_host.server_initialize(p[part].prf_keys, depth),
+                                      p[part].key_fast) for p in pairs]
+        packed = [pack_fast_payload(k) for k in dkeys]
+        keyed.append((u32_tensor(np.stack([x for x, _ in packed]), "cuda"), packed[0][1],
+                      dkeys[0]))
+    dkey = keyed[0][2]
+    t = time.perf_counter()
+    words = srv._table(1)
+    swords = srv._fast_storage_words(1, dkey)
+    sync()
+    out["s"]["storage_words_table"] = time.perf_counter() - t
+    tables = {"words": words, "u8": words.view(torch.uint8), "swords": swords,
+              "su8": swords.view(torch.uint8)}
+    perm = srv._fast_perm(dkey)
+    funcs = (  # name, table, natural order, batch, its kernel
+        ("fused_fast_answer", "words", True, False, "masked_xor_scan"),
+        ("fused_fast_answer_batch", "words", True, True, "masked_xor_scan"),
+        ("fused_fast_answer_batch_mxu", "u8", True, True, "planes_scan"),
+        ("fused_fast_answer_batch_preplane", "u8", True, True, "planes_scan"),
+        ("fused_fast_answer_batch_storage", "su8", False, True, "planes_scan"),
+        ("fused_fast_answer_storage", "swords", False, False, "masked_xor_scan"))
+    per_call = {}
+    for name, tab, natural, batch, kernel in funcs:
+        fn = getattr(pipeline, name)
+        tbl = tables[tab]
+        got = []
+        reset_counts()
+        t = time.perf_counter()
+        for pays, layout, _ in keyed:
+            if batch:
+                res = fn(tbl, pays, perm, layout) if natural else fn(tbl, pays, layout)
+            else:
+                res = torch.stack([fn(tbl, p, perm, layout) if natural else fn(tbl, p, layout)
+                                   for p in pays])
+            got.append(res)
+        sync()
+        calls = 2 if batch else 2 * REST_ANSWER_Q
+        per_call[name] = (time.perf_counter() - t) / calls
+        launched = read_counts(name, (kernel,), tuple(every - {kernel}))
+        out["launches"][name] = launched
+        if launched[kernel] != calls:
+            fail(f"phase 4f: {name} launched {kernel} {launched[kernel]} times, not {calls}")
+        for part in (0, 1):
+            ans = got[part].cpu().numpy().view(np.uint8).reshape(REST_ANSWER_Q, -1)[:, :slot]
+            if not np.array_equal(ans, golden[part]):
+                fail(f"phase 4f: {name} share {part} differs from the host golden")
+    out["answers_s_per_call"] = per_call
+    log(f"phase 4f: (b) {REST_ANSWER_Q} fast queries, per-query payloads ({dkey.plan.host_levels}"
+        f" host levels, {dkey.plan.device_levels} device levels): the six fused_fast_answer* "
+        f"equal the host golden (built in {out['s']['host_golden']:.2f} s), all recovered; "
+        f"the storage word table {out['s']['storage_words_table']:.2f} s; s a call "
+        f"{json.dumps({k: round(v, 5) for k, v in per_call.items()})}")
+    with srv._lock:  # the storage word table served only this check
+        srv._tables.pop(("storage words", 1, dkey.plan.device_levels, dkey.plan.m_padded,
+                         n_blk), None)
+    del tables, swords, keyed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the native C++ engine
+    cpuinfo = open("/proc/cpuinfo").read()
+    fields = dict(ln.split(":", 1) for ln in cpuinfo.splitlines() if ":" in ln)
+    fields = {k.strip(): v.strip() for k, v in fields.items()}
+    flags = set(fields.get("flags", "").split())
+    host = {"machine": platform.machine(), "model": fields.get("model name", "?"),
+            "vendor": fields.get("vendor_id", "?"), "family": fields.get("cpu family", "?"),
+            "model_number": fields.get("model", "?"), "cores": os.cpu_count(),
+            "affinity": len(os.sched_getaffinity(0)), "aes": "aes" in flags,
+            "avx2": "avx2" in flags}
+    out["host"] = host
+    if not (host["aes"] and host["avx2"]):
+        fail(f"phase 4f: the host CPU lacks AES-NI or AVX2: {host}")
+    t = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(_build.build_host, _build.HOST_SOURCES))
+    out["s"]["native_build"] = time.perf_counter() - t
+    log(f"phase 4f: (c) host {json.dumps(host)}; native libraries built in "
+        f"{out['s']['native_build']:.2f} s")
+    nat = NativePirServer(db)
+    fidx, cidx = rows(REST_NATIVE_BATCH), rows(REST_NATIVE_BATCH)
+    one = rows(2)
+    kw_row = int(rng.integers(height))
+    cases = (
+        ("fast batch", fidx, new_index_query_shares_batch(md, fidx, 1, fast=True,
+                                                          rand_bytes=keygen_rng.bytes), True),
+        ("compat batch", cidx, new_index_query_shares_batch(md, cidx, 1,
+                                                            rand_bytes=keygen_rng.bytes), True),
+        ("fast single", one[:1], [new_index_query_shares(md, one[0], 1, fast=True,
+                                                         rand_bytes=keygen_rng.bytes)], False),
+        ("compat single", one[1:], [new_index_query_shares(md, one[1], 1,
+                                                           rand_bytes=keygen_rng.bytes)], False),
+        ("keyword single", [kw_row], [new_keyword_query_shares(
+            md, int(db.keywords[kw_row]), 1, rand_bytes=keygen_rng.bytes)], False),
+        (f"{MP_PARTIES}-party index single", one[:1], [new_index_query_shares(
+            md, one[0], 1, num_shares=MP_PARTIES, rand_bytes=keygen_rng.bytes)], False))
+    native_s = {}
+    for label, idx, pairs, batch in cases:
+        n_parts = len(pairs[0])
+        secs = {"native": [], "card": []}
+        answers = []
+        for part in range(n_parts):
+            shares = [p[part] for p in pairs]
+            res = {}
+            for eng, engine in (("native", nat), ("card", srv)):
+                if eng == "native":
+                    reset_counts()
+                t = time.perf_counter()
+                if batch:
+                    r = engine.private_secret_shared_query_batch(shares)
+                else:
+                    r = [engine.private_secret_shared_query(shares[0])]
+                res[eng] = rows_of(r)
+                secs[eng].append(time.perf_counter() - t)
+                if eng == "native":
+                    read_counts(f"native {label}", (), tuple(every))
+            if not np.array_equal(res["native"], res["card"]):
+                fail(f"phase 4f: NativePirServer's {label} share {part} differs from the card's")
+            answers.append(res["native"])
+        check_rows(f"native {label}", idx, answers)
+        native_s[label] = secs
+    out["native_s"] = native_s
+    log(f"phase 4f: (c) NativePirServer on the {height} x {slot} B table equals the card's "
+        f"bytes, all recovered, no kernel launched; seconds a share, native / card: " +
+        "; ".join(f"{k} {[round(x, 4) for x in v['native']]} / "
+                  f"{[round(x, 4) for x in v['card']]}" for k, v in native_s.items()))
+
+    # the services on the cPIR yardstick table: native engines against the default
+    cmd = cdb.metadata()
+    sk, pk = cpir["key"]
+    cfgs = {"native": PirConfig(engine="native", paillier_engine="native"),
+            "default": PirConfig()}
+    svcs = {k: [PirService(database_from_numpy(cdb.data, cdb.slot_bytes), config=c).start()
+                for _ in range(2)] for k, c in cfgs.items()}
+    try:
+        if any(s.engine_name != "native" for s in svcs["native"]):
+            fail("phase 4f: PirConfig(engine='native') did not give the native engine")
+        cpairs = new_index_query_shares_batch(
+            cmd, [int(i) for i in rng.integers(0, cdb.db_size, REST_NATIVE_BATCH)], 1,
+            fast=True, rand_bytes=keygen_rng.bytes)
+        csingle = new_index_query_shares(cmd, 5, 1, rand_bytes=keygen_rng.bytes)
+        q = enc.new_encrypted_query(cmd, pk, 1, 7)
+        svc_s, got = {}, {}
+        for k, pair in svcs.items():
+            got[k] = []
+            t = time.perf_counter()
+            for part, s in enumerate(pair):
+                frames = [(OP_QUERY_BATCH, _pack_blobs([wire.serialize_query_share(p[part])
+                                                        for p in cpairs])),
+                          (OP_QUERY, wire.serialize_query_share(csingle[part]))]
+                if part == 0:
+                    frames.append((OP_ENCRYPTED_QUERY, wire.serialize_encrypted_query(q)))
+                with socket.create_connection(s.address) as sock:
+                    for op, payload in frames:
+                        _send_frame(sock, op, payload)
+                        got[k].append(_recv_frame(sock))
+            svc_s[k] = time.perf_counter() - t
+        if got["native"] != got["default"]:
+            fail("phase 4f: the native services' answers differ from the default services'")
+        client = PirClient([s.address for s in svcs["native"]])
+        try:
+            res = client.query_index_batch([0, cdb.db_size - 1, 300])
+        finally:
+            client.close()
+        if [bytes(r[0].data) for r in res] != [cdb.data[i].tobytes()
+                                               for i in (0, cdb.db_size - 1, 300)]:
+            fail("phase 4f: a client of the native services does not recover its rows")
+    finally:
+        for pair in svcs.values():
+            for s in pair:
+                s.close()
+    ints, scan_s = {}, {}
+    for engine in ("native", "torch", "python"):
+        t = time.perf_counter()
+        r = enc.private_encrypted_query(cdb, q, engine=engine)
+        scan_s[engine] = time.perf_counter() - t
+        ints[engine] = [[c.c for c in sl.cts] for sl in r.slots]
+    if not ints["native"] == ints["torch"] == ints["python"]:
+        fail("phase 4f: the encrypted query's ints differ between engines")
+    rs, k9 = cpir["encrypt_rs"], cpir["encrypt_kernel9"]
+    t = time.perf_counter()
+    nat_ints = native.powmod_batch(rs, [pk.n] * len(rs), pk.n2)
+    out["s"]["native_powmod_batch"] = time.perf_counter() - t
+    if nat_ints != k9:
+        fail("phase 4f: native.powmod_batch differs from kernel 9 on phase 4d's encryptions")
+    out["services_s"], out["encrypted_scan_s"] = svc_s, scan_s
+    log(f"phase 4f: (c) services on the {cdb.db_size} x {cdb.slot_bytes} B yardstick: "
+        f"PirConfig(engine='native', paillier_engine='native') equals the default config's "
+        f"bytes (a fast batch of {REST_NATIVE_BATCH}, a compat single, an encrypted query), "
+        f"s {json.dumps({k: round(v, 4) for k, v in svc_s.items()})}; the encrypted query's "
+        f"scan, engines native / torch / python: {json.dumps({k: round(v, 4) for k, v in scan_s.items()})}"
+        f" s, equal ints; native.powmod_batch of phase 4d's {len(rs)} r^N mod N^2 "
+        f"{out['s']['native_powmod_batch']:.4f} s (kernel 9's route in phase 4d "
+        f"{cpir['s']['encrypt_modexps']:.4f} s), equal ints")
+    return out
+
+
 def stacked_split(eng, shares, want, depth, n_blk, sync) -> dict:
     """One share batch through eng's stacked root step, stage by stage,
     each stage synchronised and summed over the grid's shards; fails
@@ -2844,6 +3237,7 @@ def cpir_phase(cdb, ckeys, seed, counting, device) -> dict:
     out["s"]["encrypt_modexps_cpython"] = time.perf_counter() - t
     if got != want:
         fail("phase 4d: r^N mod N^2 of the encryption batch differs from CPython")
+    out["encrypt_rs"], out["encrypt_kernel9"] = rs, got  # phase 4f's native check
     ms = [rnd.randrange(n) for _ in range(CPIR_BATCH)]
     with paillier.device_modexp(True, device):
         cts = timed("encrypt_batch", lambda: pk.encrypt_batch(ms))
@@ -3035,6 +3429,7 @@ def cpir_phase(cdb, ckeys, seed, counting, device) -> dict:
         f"is refused")
     out["launches"] = read_counts("cpir", ("mont_powmod", "mont_scan"))
     out["n"], out["crt_moduli"] = n, (sk.p ** 2, sk.q ** 2)  # phase 5's operands
+    out["key"] = (sk, pk)  # phase 4f's encrypted query
     out["max_memory_allocated"] = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
                                    else 0)
     log(f"phase 4d: seconds {json.dumps({k: round(v, 4) for k, v in out['s'].items()})}")

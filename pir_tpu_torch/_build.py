@@ -1,11 +1,16 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its native host libraries.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` on its own into a shared
 library with a plain C interface, loaded with ``ctypes``. Libraries go
 to ``_build/`` beside this file, named by a hash of the source and the
 flags, so a changed source rebuilds and an unchanged one loads at once.
 ``build()`` starts one ``nvcc`` per source, all at the same time.
-Nothing here runs at import.
+
+The native host engine's C++ sources (``native/*.cpp``, ``HOST_SOURCES``)
+build the same way with the host C++ compiler (``build_host``,
+``load_host``). Every library is written to a temporary file of its own
+process and thread, then renamed into place, so processes building the
+same library at once each load a whole one. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -24,6 +29,14 @@ SOURCES = ("stacked_tail", "packed_scan", "compat_stage", "fast_tail", "fused_sc
            "masked_xor_scan", "planes_scan", "overlap_probe", "mont_exp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+NATIVE = Path(__file__).parent / "native"
+# the native host engine's libraries: name -> (source, g++ flags), the
+# flags of pir_tpu/native/__init__.py
+HOST_SOURCES = {
+    "pirnative": (NATIVE / "pir_native.cpp", ("-O3", "-maes", "-mavx2", "-shared", "-fPIC")),
+    "bigmod": (NATIVE / "bigmod.cpp", ("-O3", "-shared", "-fPIC", "-pthread")),
+}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -89,6 +102,58 @@ def load(name: str) -> ctypes.CDLL:
                 if not path.exists():
                     build((name,))
                 lib = _libs[name] = ctypes.CDLL(str(path))
+    return lib
+
+
+def cxx_path() -> str:
+    found = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if found is None:
+        raise RuntimeError("no host C++ compiler: install g++ or set CXX")
+    return found
+
+
+def host_lib_path(name: str) -> Path:
+    src, flags = HOST_SOURCES[name]
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def host_command(name: str, out: Path) -> list[str]:
+    """The compiler command that builds HOST_SOURCES[name] into `out`."""
+    src, flags = HOST_SOURCES[name]
+    return [cxx_path(), *flags, str(src), "-o", str(out)]
+
+
+def build_host(name: str) -> str:
+    """Compile a native host library if it is stale; returns the compiler's
+    log ("" when the library was already built). A failed build raises
+    with the log."""
+    out = host_lib_path(name)
+    if out.exists():
+        return ""
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run(host_command(name, tmp), stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"native build of {name} failed (exit {proc.returncode}):\n"
+                           f"{proc.stdout}")
+    os.replace(tmp, out)
+    return proc.stdout
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded native host library `name`, built first if needed."""
+    key = "host:" + name
+    lib = _libs.get(key)
+    if lib is None:
+        with _lock:
+            lib = _libs.get(key)
+            if lib is None:
+                build_host(name)
+                lib = _libs[key] = ctypes.CDLL(str(host_lib_path(name)))
     return lib
 
 

@@ -5,19 +5,26 @@ answer engine.
 Engines: ``"torch"`` answers on a ``TorchPirServer`` (the card unless
 ``device="cpu"``), ``"mesh"`` on a ``parallel.mesh.MeshPirServer`` over
 a grid of ``mesh_tp`` row shards by ``mesh_dp`` batch slices (the cards
-of the process, or with ``device="cpu"`` CPU shards), ``"host"`` on the
-numpy golden model, which the caller asks for by name; ``"auto"``
-resolves to ``"torch"``, or to ``"mesh"`` when ``mesh_tp * mesh_dp > 1``
-(so does ``"torch"``, as pir_tpu promotes its ``"tpu"``), so a service
-with no GPU and no device given fails instead of answering on the host. The cPIR engine ``paillier_engine`` is ``"torch"``, the
-batched Montgomery engine on ``device`` (pir_tpu's ``"tpu"``, under the
-port's engine name), or ``"python"``, the CPython loop, which the caller
-asks for by name; None resolves to ``"torch"``, so the cPIR scans and
-the AHE ASPIR proof checks of a config with no device run on the card
-and fail without one, as ``"auto"`` does. pir_tpu's other
-engines are refused by name: its native C++ engine and native cPIR scan
-(ROADMAP queue 1 [18]), and its ``"tpu"`` names, which point to
-``"torch"``. Its ``use_pallas`` and JAX
+of the process, or with ``device="cpu"`` CPU shards), ``"native"`` on a
+``server.NativePirServer`` (the C++/AES-NI host engine, ``native/``),
+``"host"`` on the numpy golden model; the caller asks for the host
+engines by name. ``"auto"`` resolves to ``"torch"``, or to ``"mesh"``
+when ``mesh_tp * mesh_dp > 1`` (so does ``"torch"``, as pir_tpu promotes
+its ``"tpu"``), so a service with no GPU and no device given fails
+instead of answering on the host. That is a deliberate difference from
+pir_tpu's ``pick_engine`` (``pir_tpu/config.py:175-178``), whose
+``"auto"`` falls back to its native engine, then to the host, where no
+accelerator is attached: the port never moves a service to the host
+unasked, even where the native library builds.
+
+The cPIR engine ``paillier_engine`` is ``"torch"``, the batched
+Montgomery engine on ``device`` (pir_tpu's ``"tpu"``, under the port's
+engine name), ``"native"``, the threaded C++ scan and modexps on the
+host, or ``"python"``, the CPython loop; the caller asks for the host
+ones by name. None resolves to ``"torch"``, so the cPIR scans and the
+AHE ASPIR proof checks of a config with no device run on the card and
+fail without one, as ``"auto"`` does. pir_tpu's ``"tpu"`` names are
+refused: they point to ``"torch"``. Its ``use_pallas`` and JAX
 compile-cache knobs have no counterpart: the port compiles nothing per
 shape, and its kernels build at first use.
 """
@@ -27,11 +34,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 _REFUSED_ENGINES = {
-    "native": "the native C++ engine is not ported (ROADMAP queue 1 [18])",
     "tpu": "the TPU engine has no port; use engine='torch'",
 }
 _REFUSED_PAILLIER = {
-    "native": "the native cPIR scan engine is not ported (ROADMAP queue 1 [18])",
     "tpu": "the TPU cPIR scan engine has no port; use paillier_engine='torch'",
 }
 
@@ -42,9 +47,10 @@ PAILLIER_BITS = 1024
 
 @dataclass
 class PirConfig:
-    engine: str = "auto"  # auto | host | torch | mesh
+    engine: str = "auto"  # auto | host | native | torch | mesh
     # cPIR engine (encrypted.scan_engine): None or "torch", the scans and
-    # the AHE ASPIR proof checks on `device`; "python", the CPython loop
+    # the AHE ASPIR proof checks on `device`; "native", the C++ engine on
+    # the host; "python", the CPython loop
     paillier_engine: str | None = None
     min_device_nodes: int = 32  # host-prefix cutoff of per-query expansion
     # the torch engines' device: None is the card, "cpu" runs the kernels'
@@ -62,11 +68,11 @@ class PirConfig:
     def validate(self) -> "PirConfig":
         if self.engine in _REFUSED_ENGINES:
             raise ValueError(_REFUSED_ENGINES[self.engine])
-        if self.engine not in ("auto", "host", "torch", "mesh"):
+        if self.engine not in ("auto", "host", "native", "torch", "mesh"):
             raise ValueError(f"unknown engine {self.engine}")
         if self.paillier_engine in _REFUSED_PAILLIER:
             raise ValueError(_REFUSED_PAILLIER[self.paillier_engine])
-        if self.paillier_engine not in (None, "python", "torch"):
+        if self.paillier_engine not in (None, "python", "native", "torch"):
             raise ValueError(f"unknown paillier engine {self.paillier_engine}")
         if self.mesh_tp < 1 or self.mesh_dp < 1:
             raise ValueError("mesh_tp/mesh_dp must be >= 1")

@@ -16,11 +16,17 @@ decryption batches, the DDLEQ repetitions) run on the card's Montgomery
 engine (``crypto/mont.py``, kernel 9) when ``enable_device_modexp()``
 (process-wide) or the scoped ``device_modexp()`` (the calling thread,
 until it exits) turns the route on, under pir_tpu's
-conditions for its TPU route (``enable_tpu_modexp`` / ``tpu_modexp``);
-else CPython ``pow``. Both give equal ints. The secret-key side keeps its
-CRT fast path (``SecretKey._powmod_batch_sk``), whose two halves ride one
-launch with a modulus per row on the device route. pir_tpu's native C++
-engine is not ported (ROADMAP queue 1 [18]).
+conditions for its TPU route (``enable_tpu_modexp`` / ``tpu_modexp``).
+The native route (the scoped ``native_modexp()``, which a service with
+``PirConfig(paillier_engine="native")`` applies to its DDLEQ checks) runs single and batched modexps of odd moduli of >= 256 bits
+on the threaded C++ Montgomery engine (``native.powmod``,
+``native.powmod_batch``) where the device route does not take them: the
+device route keeps precedence. Else CPython ``pow``. Every route gives
+equal ints. pir_tpu takes its native route implicitly whenever its
+library builds; the port takes it only where the caller names it, as it
+takes no host engine unasked. The secret-key side keeps its CRT fast
+path (``SecretKey._powmod_batch_sk``), whose two halves ride one launch
+with a modulus per row on the device route.
 """
 
 from __future__ import annotations
@@ -43,6 +49,9 @@ _UNSET = object()
 _scoped_modexp: contextvars.ContextVar = contextvars.ContextVar("device_modexp",
                                                                default=_UNSET)
 _DEVICE_MODEXP_MIN_BATCH = 16
+# the native route: on in the calling thread's context under native_modexp()
+_scoped_native: contextvars.ContextVar = contextvars.ContextVar("native_modexp",
+                                                               default=False)
 
 
 def enable_device_modexp(enabled: bool = True, device=None) -> None:
@@ -70,7 +79,30 @@ def _route() -> tuple | None:
     return _device_modexp if route is _UNSET else route
 
 
+@contextlib.contextmanager
+def native_modexp(enabled: bool = True):
+    """Route modexps through the native C++ Montgomery engine (native/) in
+    the calling thread until exit (on or off); other threads keep theirs.
+    The library builds at the first modexp and raises if it cannot."""
+    token = _scoped_native.set(enabled)
+    try:
+        yield
+    finally:
+        _scoped_native.reset(token)
+
+
+def _native_route(m: int, exps) -> bool:
+    """The native route takes odd moduli of >= 256 bits and no negative
+    exponent (pir_tpu's conditions), where the caller turned it on."""
+    return (_scoped_native.get() and bool(m & 1) and m.bit_length() >= 256
+            and all(e >= 0 for e in exps))
+
+
 def _powmod(b: int, e: int, m: int) -> int:
+    if _native_route(m, (e,)):
+        from .. import native
+
+        return native.powmod(b, e, m)
     return pow(b, e, m)
 
 
@@ -78,7 +110,8 @@ def _powmod_batch(bases, exps, m: int, common_base: bool = False) -> list[int]:
     """Modexps over one modulus; common_base=True takes one base (an int)
     for every exponent. On the device route (an odd modulus of >= 256
     bits, no negative exponent, a batch of >= 16) kernel 9 runs them, the
-    exponent bound rounded up to a power of two of >= 256 bits."""
+    exponent bound rounded up to a power of two of >= 256 bits; else on
+    the native route the C++ engine, threaded over the host's cores."""
     route = _route()
     if (route is not None and (m & 1) and m.bit_length() >= 256
             and len(exps) >= _DEVICE_MODEXP_MIN_BATCH and all(e >= 0 for e in exps)):
@@ -88,6 +121,10 @@ def _powmod_batch(bases, exps, m: int, common_base: bool = False) -> list[int]:
         e_max = max(256, 1 << (e_max - 1).bit_length())
         bs = [bases] * len(exps) if common_base else list(bases)
         return device_powmod_batch(bs, exps, m, e_max=e_max, device=route[0])
+    if _native_route(m, exps):
+        from .. import native
+
+        return native.powmod_batch(bases, exps, m, common_base)
     if common_base:
         return [pow(bases, e, m) for e in exps]
     return [pow(b, e, m) for b, e in zip(bases, exps)]

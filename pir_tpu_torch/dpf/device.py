@@ -322,6 +322,40 @@ def _expand_root_level_lanes(seeds, t_plane, cw_seed_mask, cw_tl, cw_tr,
     return torch.cat([s_l, s_r], dim=-1), torch.cat([t_l, t_r], dim=-1)
 
 
+def expand_fast_root_lanes_full(payloads: torch.Tensor, layout: FastRootLayout,
+                                rk_masks: torch.Tensor, rk_leaf: torch.Tensor) -> torch.Tensor:
+    """The whole fast expansion, tree walk and leaf PRG, in plain torch
+    with Q in lanes (pir_tpu's all-XLA expansion, ``all_xla_expand``):
+    (Q, total) payloads of batch-shared keys, rk_masks (11,8,3,16,1) and
+    rk_leaf (11,8,16,1) from payload row 0 -> (Q, 8, 16, NWf) packed
+    leaf-output words, NWf = n_blk * max(1, 2^depth / 32), in the per-query
+    tail kernel's output order (ops/fast_tail.py): every level and the leaf
+    AES run on (8, 16, W*Q) planes, one permute at the end."""
+    q_n = payloads.shape[0]
+    seeds, t, cw_s, cw_tl, cw_tr, fcw = unpack_fast_root_payload_lanes(payloads, layout)
+    for i in range(layout.depth):
+        w = max(1, (1 << i) // 32)
+        seeds, t = _expand_root_level_lanes(seeds, t, cw_s[i], cw_tl[i], cw_tr[i], rk_masks, i, w)
+    nwf = max(1, (1 << layout.depth) // 32)
+    if layout.leaf_blocks > 1:  # wide leaf: block-major lanes, blk*(NWf*Q) + word*Q + q
+        n_blk = layout.leaf_blocks
+        ctr = u32_tensor(_leaf_ctr_masks(n_blk), seeds.device)  # (8,n_blk,16,1)
+        x = torch.cat([seeds ^ ctr[:, b] for b in range(n_blk)], dim=-1)
+        del seeds
+        fcw_t = fcw.permute(2, 1, 3, 0).repeat(1, 1, 1, nwf)  # (n_blk,8,16,NWf*Q)
+        fcw_w = torch.cat(list(fcw_t), dim=-1)
+        t = t.repeat(n_blk)
+    else:
+        x, fcw_w = seeds, fcw.permute(1, 2, 0).repeat(1, 1, nwf)  # (8,16,NWf*Q)
+        n_blk = 1
+    out = aes_encrypt_planes(x, rk_leaf)
+    out ^= x
+    del x
+    fcw_w &= t
+    out ^= fcw_w
+    return out.reshape(8, 16, n_blk * nwf, q_n).permute(3, 0, 1, 2)
+
+
 def regroup_rk_stacked(rk: torch.Tensor, k: int, nw0: int) -> torch.Tensor:
     """Per-query lane-major masks (..., Q) -> per-step (S, ..., W) for the
     stacked tail kernel, W = k * nw0, lane = j*NW0 + w (each query's
@@ -1117,13 +1151,16 @@ def pack_fast_payload(dk: DeviceFastKey2P) -> tuple[np.ndarray, FastPayloadLayou
 def unpack_fast_payload(payload: torch.Tensor, layout: FastPayloadLayout):
     """Device-side inverse of pack_fast_payload: (total,) int32 -> seeds
     (8,16,NW0), t (NW0,), cw_s (d,8,16,1), cw_tl / cw_tr (d,), fcw
-    (8,16,1) or (8,n_blk,16,1), rk (11,8,3,16,1), rk_leaf (11,8,16,1)."""
+    (8,16,1) or (8,n_blk,16,1), rk (11,8,3,16,1), rk_leaf (11,8,16,1),
+    each with the leading Q axis of a batch of payload rows (Q, total)."""
     nw0, d = layout.nw0, layout.d_levels
+    lead = payload.shape[:-1]
     seg = _segments(payload, layout.sizes)
-    fcw = (seg[5].reshape(8, 16, 1) if layout.leaf_blocks == 1
-           else seg[5].reshape(8, layout.leaf_blocks, 16, 1))
-    return (seg[0].reshape(8, 16, nw0), seg[1], seg[2].reshape(d, 8, 16, 1), seg[3], seg[4],
-            fcw, seg[6].reshape(11, 8, 3, 16, 1), seg[7].reshape(11, 8, 16, 1))
+    fcw = (seg[5].reshape(*lead, 8, 16, 1) if layout.leaf_blocks == 1
+           else seg[5].reshape(*lead, 8, layout.leaf_blocks, 16, 1))
+    return (seg[0].reshape(*lead, 8, 16, nw0), seg[1], seg[2].reshape(*lead, d, 8, 16, 1),
+            seg[3], seg[4], fcw, seg[6].reshape(*lead, 11, 8, 3, 16, 1),
+            seg[7].reshape(*lead, 11, 8, 16, 1))
 
 
 # --------------------------------------------------------------------------

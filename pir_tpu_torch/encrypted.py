@@ -8,15 +8,17 @@ an encrypted selection, sum_row Enc(bit_row) * slot_chunk, per column and
 chunk; the recursive variant re-selects over the level-1 ciphertexts with
 level-2 ConstMult/Add.
 
-Two scan engines (``scan_engine``): None and ``"torch"`` run the batched
-Montgomery multi-exponentiation of ``crypto/mont.py`` (kernel 10) on
-``device=`` (None is the card, and raises with no CUDA; ``"cpu"`` the
+Three scan engines (``scan_engine``): None and ``"torch"`` run the
+batched Montgomery multi-exponentiation of ``crypto/mont.py`` (kernel 10)
+on ``device=`` (None is the card, and raises with no CUDA; ``"cpu"`` the
 plain version), as pir_tpu's ``"tpu"`` engine runs
-``tpu_paillier_scan``; ``"python"`` runs the CPython loop, pir_tpu's
-golden engine, which the caller asks for by name. Both give the same
-ciphertext ints as every pir_tpu engine. pir_tpu's ``"tpu"`` engine is
-refused by name in favour of ``"torch"``, its native C++ engine as not
-ported (ROADMAP queue 1 [18]).
+``tpu_paillier_scan``; ``"native"`` runs the threaded C++ scan on the
+host (``native.paillier_scan``, ``nprocs`` threads, all cores by
+default), as pir_tpu's ``"native"`` engine does, and raises if its
+library does not build; ``"python"`` runs the CPython loop, pir_tpu's
+golden engine. The caller asks for the host engines by name. Every
+engine gives the same ciphertext ints as every pir_tpu engine. pir_tpu's
+``"tpu"`` engine is refused by name in favour of ``"torch"``.
 """
 
 from __future__ import annotations
@@ -156,16 +158,13 @@ def new_doubly_encrypted_null_query(
 
 def scan_engine(engine: str | None) -> str:
     """Resolve a cPIR scan engine (pir_tpu/encrypted.py:_scan_fn): None and
-    "torch" are the device Montgomery engine ("torch"), "python" the
-    CPython loop; pir_tpu's "native" and "tpu" engines raise, never
-    falling back to the loop."""
+    "torch" are the device Montgomery engine ("torch"), "native" the C++
+    engine on the host, "python" the CPython loop; pir_tpu's "tpu" engine
+    raises, never falling back to the loop."""
     if engine in (None, "torch"):
         return "torch"
-    if engine == "python":
-        return "python"
-    if engine == "native":
-        raise ValueError("the native cPIR scan engine is not ported (ROADMAP queue 1 [18]); "
-                         "use engine='torch' or 'python'")
+    if engine in ("python", "native"):
+        return engine
     if engine == "tpu":
         raise ValueError("the TPU cPIR scan engine is not ported: use engine='torch', the "
                          "batched Montgomery engine on the card")
@@ -204,8 +203,9 @@ def private_encrypted_query(
 
     `engine` is resolved by scan_engine; "torch" (and None) scans the
     exponent matrix on `device` (None: the card) with the layout's bound of 8 bits a chunk
-    byte. `nprocs` (the reference's goroutine fan-out, db.go:193-261) is
-    accepted and unused.
+    byte. `nprocs` is the reference's goroutine fan-out (db.go:193-261):
+    the "native" engine's thread count (None: all cores); the others
+    accept it unused.
     """
     pk = query.pk
     dim_width, dim_height = query.db_width, query.db_height
@@ -235,6 +235,18 @@ def private_encrypted_query(
 
         emat, e_max, per = _level1_exponents(db, dim_width, dim_height, num_cts)
         out = paillier_scan_words([ct.c for ct in query.ebits], emat, pk.n2, e_max, device)
+        slots = [EncryptedSlot([Ciphertext(out[col * num_cts + j], ENC_LEVEL_ONE)
+                                for j in range(num_cts)]) for col in range(dim_width)]
+        return EncryptedQueryResult(slots, pk, db.slot_bytes, per)
+    if scan_engine(engine) == "native":
+        from . import native
+
+        emat, _, per = _level1_exponents(db, dim_width, dim_height, num_cts)
+        width_cts = dim_width * num_cts
+        vals = [int.from_bytes(v.tobytes(), "little")
+                for v in emat.reshape(dim_height * width_cts, -1)]
+        out = native.paillier_scan([ct.c for ct in query.ebits], vals, width_cts, pk.n2,
+                                   nprocs or 0)
         slots = [EncryptedSlot([Ciphertext(out[col * num_cts + j], ENC_LEVEL_ONE)
                                 for j in range(num_cts)]) for col in range(dim_width)]
         return EncryptedQueryResult(slots, pk, db.slot_bytes, per)
@@ -299,6 +311,18 @@ def private_encrypted_query_over_encrypted_result(
     if len(query.ebits) != len(result.slots) // g:
         raise ValueError("column query does not match the row result geometry")
 
+    if scan_engine(engine) == "native":
+        from . import native
+
+        num_blocks = len(result.slots) // g
+        vals = [result.slots[blk * g + member].cts[j].c for blk in range(num_blocks)
+                for member in range(g) for j in range(num_cts)]
+        out = native.paillier_scan([query.ebits[blk].c for blk in range(num_blocks)], vals,
+                                   g * num_cts, pk.n3, nprocs or 0)
+        res = [[Ciphertext(out[member * num_cts + j], ENC_LEVEL_TWO) for j in range(num_cts)]
+               for member in range(g)]
+        return DoublyEncryptedQueryResult([DoublyEncryptedSlot(cts) for cts in res], pk,
+                                          db.slot_bytes, result.num_bytes_per_ciphertext)
     if scan_engine(engine) == "torch":
         from .crypto.mont import ints_to_words, paillier_scan_words
 

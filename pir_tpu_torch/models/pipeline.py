@@ -1,15 +1,20 @@
 """The answer pipelines (counterpart of the per-query functions
 ``expand_bits_planes`` ... ``fused_answer_batch_fn``,
-``_expand_planes_loop`` and ``fused_fast_bits_fn``, and of the root-start
-batch paths ``stacked_fast_geometry``, ``fused_fast_root_batch_stacked_fn``,
-``fused_fast_root_batch_pallas_fn``, ``fused_fast_overlap_step_fn``,
-``_compat_skip_walk`` and ``fused_compat_root_batch_pallas_fn`` in
-``pir_tpu/models/pipeline.py``).
+``_expand_planes_loop``, ``fused_fast_bits_fn`` and the six
+``fused_fast_answer*_fn``, and of the root-start batch paths
+``stacked_fast_geometry``, ``fused_fast_root_batch_stacked_fn``,
+``fused_fast_root_batch_pallas_fn`` (its ``all_xla_expand`` switch too),
+``fused_fast_overlap_step_fn``, ``_compat_skip_walk`` and
+``fused_compat_root_batch_pallas_fn`` in ``pir_tpu/models/pipeline.py``).
 
 Single queries and small batches (per-query key payloads): breadth-first
 expansion from the host prefix (plain torch, ``dpf/device.py``) -> leaf
 bits gathered into natural row order -> masked-XOR scan kernel
-(``ops/xor_scan.py``) against the natural-order word table.
+(``ops/xor_scan.py``) against the natural-order word table. The fast
+answers (``fused_fast_answer*``) scan the natural table's words or bytes,
+or, with no gather, a table whose rows were scattered once into the
+expansion's storage order, with the masked-XOR scan kernel or the
+bit-plane scan kernel (``ops/planes_scan.py``).
 
 Fast keys, against the chunk-major storage table: head walk (plain
 torch, ``dpf/device.py``) -> stacked tail kernel (``ops/expand.py``) ->
@@ -20,7 +25,9 @@ Fast keys, against the classic bit-reversed storage table (the server's
 ``fast_stacked=False``): head walk with Q in lanes -> per-query tail
 kernel (``ops/fast_tail.py``) -> the same packed scan; or, one batch
 ahead in the serving stream, the fused scan + tail kernel
-(``ops/fused.py``) that scans batch i while expanding batch i+1.
+(``ops/fused.py``) that scans batch i while expanding batch i+1. With
+``all_xla_expand`` the whole walk and leaf PRG run in plain torch with Q
+in lanes instead of the head walk and the tail kernel (batch-shared keys).
 
 Reference-exact (compat) keys, against the cascade's storage table:
 batched head walk (plain torch) -> compat-stage kernel once per stage
@@ -53,7 +60,9 @@ from ..dpf.device import (
     _prf_triple,
     _rk_bit_first,
     _unpack_bits,
-    fast_leaf_bits,
+    expand_fast_root_lanes_full,
+    fast_leaf_bits_flat,
+    fast_leaf_bits_flat_batch,
     expand_planes_from_root,
     expand_root_head_grouped,
     expand_root_head_lanes,
@@ -154,13 +163,100 @@ def _expand_planes_loop(seeds, t_plane, cw_s, cw_tl, cw_tr, rk, d_levels: int):
     return seeds, t_plane
 
 
+def _fast_bits_flat(payload: torch.Tensor, layout: FastPayloadLayout) -> torch.Tensor:
+    """Fast-mode expansion from one payload (total,) -> (flat,) uint8 bits
+    in storage order (dpf.device.fast_leaf_bits_flat)."""
+    seeds, t, cw_s, cw_tl, cw_tr, fcw, rk, rk_leaf = unpack_fast_payload(payload, layout)
+    seeds, t = _expand_planes_loop(seeds, t, cw_s, cw_tl, cw_tr, rk, layout.d_levels)
+    return fast_leaf_bits_flat(seeds, t, fcw, rk_leaf)
+
+
 def fused_fast_bits(payload: torch.Tensor, perm: torch.Tensor,
                     layout: FastPayloadLayout) -> torch.Tensor:
     """Fast-mode expansion from one payload (pir_tpu's
     fused_fast_bits_fn(layout), with no jit cache) -> (height,) uint8 bits."""
-    seeds, t, cw_s, cw_tl, cw_tr, fcw, rk, rk_leaf = unpack_fast_payload(payload, layout)
-    seeds, t = _expand_planes_loop(seeds, t, cw_s, cw_tl, cw_tr, rk, layout.d_levels)
-    return fast_leaf_bits(seeds, t, fcw, rk_leaf, perm)
+    return _fast_bits_flat(payload, layout)[perm]
+
+
+def _fast_bits_flat_batch(payloads: torch.Tensor, layout: FastPayloadLayout) -> torch.Tensor:
+    """Fast-mode expansion of a batch of per-query payloads (Q, total) ->
+    (Q, flat) uint8 bits in storage order, each row fast_leaf_bits_flat's
+    (pir_tpu vmaps the per-query walk; here the queries ride the walk's
+    second axis, as in fused_answer_batch)."""
+    seeds, t, cw_s, cw_tl, cw_tr, fcw, rk, rk_leaf = unpack_fast_payload(payloads, layout)
+    seeds, t = _expand_planes_loop(seeds.transpose(0, 1), t, cw_s.permute(1, 2, 0, 3, 4),
+                                   cw_tl.t()[..., None], cw_tr.t()[..., None],
+                                   _rk_bit_first(rk), layout.d_levels)
+    return fast_leaf_bits_flat_batch(seeds, t, fcw, rk_leaf)
+
+
+def _pad_bits(bits: torch.Tensor, rows: int) -> torch.Tensor:
+    """(Q, n) bits -> (Q, rows) with zero bits for the XOR-neutral padded
+    table rows past n."""
+    if rows > bits.shape[1]:
+        bits = torch.cat([bits, bits.new_zeros(bits.shape[0], rows - bits.shape[1])], dim=1)
+    return bits.contiguous()
+
+
+def fused_fast_answer(table: torch.Tensor, payload: torch.Tensor, perm: torch.Tensor,
+                      layout: FastPayloadLayout) -> torch.Tensor:
+    """One fast answer from one payload (pir_tpu's fused_fast_answer_fn):
+    the natural-order word table (H, C) int32, payload (total,) int32, perm
+    (H,) int64 -> (C,) int32 through the masked-XOR scan kernel."""
+    return masked_xor_scan(table, fused_fast_bits(payload, perm, layout))
+
+
+def fused_fast_answer_batch(table: torch.Tensor, payloads: torch.Tensor, perm: torch.Tensor,
+                            layout: FastPayloadLayout) -> torch.Tensor:
+    """Fast answers of a batch of payloads (pir_tpu's
+    fused_fast_answer_batch_fn): the natural-order word table (H, C)
+    int32, payloads (Q, total) -> (Q, C) int32; one expansion walks every
+    query, one masked-XOR scan launch reads the table for each 8 queries."""
+    return masked_xor_scan(table, _fast_bits_flat_batch(payloads, layout)[:, perm])
+
+
+def fused_fast_answer_batch_mxu(table_u8: torch.Tensor, payloads: torch.Tensor,
+                                perm: torch.Tensor, layout: FastPayloadLayout) -> torch.Tensor:
+    """Fast answers of a batch through the bit-plane scan kernel (pir_tpu's
+    fused_fast_answer_batch_mxu_fn): the natural-order table (H_pad, B)
+    uint8, B % 4 == 0 (the word table's bytes), payloads (Q, total) ->
+    (Q, B) uint8; bits of the padded rows are zero."""
+    bits = _fast_bits_flat_batch(payloads, layout)[:, perm]
+    return planes_scan(table_u8, _pad_bits(bits, table_u8.shape[0]))
+
+
+def fused_fast_answer_batch_preplane(table_u8: torch.Tensor, payloads: torch.Tensor,
+                                     perm: torch.Tensor,
+                                     layout: FastPayloadLayout) -> torch.Tensor:
+    """pir_tpu's fused_fast_answer_batch_preplane_fn, which takes a bit-plane
+    table built once (ops.matmul_scan.make_plane_table, 8x the table's
+    bytes). The bit-plane scan kernel packs its planes itself in its
+    pre-pass, so the port keeps no plane table on the card: this takes the
+    natural-order uint8 table, as fused_fast_answer_batch_mxu, whose
+    bytes it returns."""
+    return fused_fast_answer_batch_mxu(table_u8, payloads, perm, layout)
+
+
+def fused_fast_answer_batch_storage(table_u8: torch.Tensor, payloads: torch.Tensor,
+                                    layout: FastPayloadLayout) -> torch.Tensor:
+    """Fast answers of a batch with no gather (pir_tpu's
+    fused_fast_answer_batch_storage_fn): the table's rows scattered once into
+    the expansion's storage order (dpf.device.scatter_rows_to_storage_order
+    with dpf.device._fast_leaf_perm), payloads (Q, total) -> (Q, B) uint8
+    through the bit-plane scan kernel. pir_tpu takes that table as bit
+    planes; the kernel packs its own, so this takes the (flat_pad, B)
+    uint8 table, B % 4 == 0."""
+    bits = _fast_bits_flat_batch(payloads, layout)
+    return planes_scan(table_u8, _pad_bits(bits, table_u8.shape[0]))
+
+
+def fused_fast_answer_storage(table: torch.Tensor, payload: torch.Tensor,
+                              layout: FastPayloadLayout) -> torch.Tensor:
+    """One fast answer with no gather (pir_tpu's fused_fast_answer_storage_fn):
+    the (flat, C) int32 word table in the expansion's storage order
+    (dpf.device._fast_leaf_perm), payload (total,) -> (C,) int32 through
+    the masked-XOR scan kernel."""
+    return masked_xor_scan(table, _fast_bits_flat(payload, layout))
 
 
 def small_batch_scan(table_u8: torch.Tensor, words_t: torch.Tensor) -> torch.Tensor:
@@ -284,15 +380,29 @@ def pertail_words_t(packed: torch.Tensor, rows: int) -> torch.Tensor:
 
 def fused_fast_root_batch_pertail(table_u8: torch.Tensor, payloads: torch.Tensor,
                                   layout: FastRootLayout, tail_levels: int,
-                                  shard=None) -> torch.Tensor:
+                                  shard=None, all_xla_expand: bool = False) -> torch.Tensor:
     """Root-start batched fast answers through the per-query tail kernel:
     table (flat_pad, B) uint8 in the classic storage order
     (dpf.device._fast_leaf_perm_root), payloads (Q, total) int32 -> (Q, B)
     uint8 answer shares. Serves both key styles and every leaf width. The
     scan takes the whole batch in one launch (the JAX package slices Q for
-    the TPU's VMEM; the bytes are the same). shard as in pertail_head."""
-    ops, tail = pertail_head(payloads, layout, tail_levels, shard)
-    packed = fast_tail_expand(*ops, levels=tail)
+    the TPU's VMEM; the bytes are the same). shard as in pertail_head.
+
+    all_xla_expand (batch-shared keys of the whole table only; pir_tpu's
+    switch of that name): the whole expansion, tree walk and leaf PRG, runs
+    in plain torch with Q in lanes (dpf.device.expand_fast_root_lanes_full)
+    in place of the head walk and the tail kernel; the same words, the
+    same scan. No server path sets it."""
+    if all_xla_expand:
+        if not layout.shared_rk:
+            raise ValueError("all_xla_expand needs the batch-shared key layout")
+        if shard is not None:
+            raise ValueError("all_xla_expand walks the whole tree: no shard")
+        rk, rk_leaf = unpack_fast_root_payload(payloads[0], layout)[6:]
+        packed = expand_fast_root_lanes_full(payloads, layout, rk, rk_leaf)
+    else:
+        ops, tail = pertail_head(payloads, layout, tail_levels, shard)
+        packed = fast_tail_expand(*ops, levels=tail)
     words_t = pertail_words_t(packed, table_u8.shape[0])
     if payloads.shape[0] <= MIN_BATCH:
         return small_batch_scan(table_u8, words_t)

@@ -35,6 +35,20 @@ def _check_exact_fp32(device: torch.device) -> None:
                            "torch.backends.cuda.matmul.allow_tf32 must be off")
 
 
+def _recombine(parity: torch.Tensor) -> torch.Tensor:
+    """(Q, 8B) plane parities, column byte * 8 + bit -> (Q, B) uint8."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=parity.device)
+    q, b8 = parity.shape
+    return (parity.reshape(q, b8 // 8, 8) << shifts).sum(-1, dtype=torch.uint8)
+
+
+def _block_parity(bits: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """One float32 product of a block's bits (Q, rows) and its planes
+    (rows, 8B) -> (Q, 8B) uint8 parities."""
+    acc = bits.to(torch.float32) @ planes.to(torch.float32)
+    return (acc.to(torch.int32) & 1).to(torch.uint8)
+
+
 def mxu_batched_scan(table_u8: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """table (H, B) uint8, bits (Q, H) {0, 1} -> (Q, B) uint8 XOR scan.
 
@@ -44,13 +58,23 @@ def mxu_batched_scan(table_u8: torch.Tensor, bits: torch.Tensor) -> torch.Tensor
     XOR together, and the 8 plane bits of each byte recombine into the
     answer. Any H."""
     _check_exact_fp32(table_u8.device)
-    block = BLOCK_ROWS
     h, b = table_u8.shape
-    q = bits.shape[0]
-    parity = torch.zeros((q, 8 * b), dtype=torch.uint8, device=table_u8.device)
-    for r0 in range(0, h, block):
-        planes = make_plane_table(table_u8[r0:r0 + block]).to(torch.float32)
-        acc = bits[:, r0:r0 + block].to(torch.float32) @ planes  # (Q, 8B)
-        parity ^= (acc.to(torch.int32) & 1).to(torch.uint8)
-    shifts = torch.arange(8, dtype=torch.uint8, device=table_u8.device)
-    return (parity.reshape(q, b, 8) << shifts).sum(-1, dtype=torch.uint8)
+    parity = torch.zeros((bits.shape[0], 8 * b), dtype=torch.uint8, device=table_u8.device)
+    for r0 in range(0, h, BLOCK_ROWS):
+        parity ^= _block_parity(bits[:, r0:r0 + BLOCK_ROWS],
+                                make_plane_table(table_u8[r0:r0 + BLOCK_ROWS]))
+    return _recombine(parity)
+
+
+def mxu_preplane_scan(planes: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """The same scan against a plane table built once (pir_tpu's
+    mxu_preplane_scan): planes (H, 8B) in {0, 1} (make_plane_table, uint8,
+    or pir_tpu's int8), bits (Q, H) {0, 1} -> (Q, B) uint8. The server
+    keeps no plane table: the bit-plane scan kernel (ops/planes_scan.py)
+    packs its own from the bytes."""
+    _check_exact_fp32(planes.device)
+    h, b8 = planes.shape
+    parity = torch.zeros((bits.shape[0], b8), dtype=torch.uint8, device=planes.device)
+    for r0 in range(0, h, BLOCK_ROWS):
+        parity ^= _block_parity(bits[:, r0:r0 + BLOCK_ROWS], planes[r0:r0 + BLOCK_ROWS])
+    return _recombine(parity)

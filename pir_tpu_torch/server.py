@@ -44,6 +44,10 @@ bytes. Multi-party batches raise ValueError, as in pir_tpu.
 
 ``apply_updates`` changes slots live: every cached table is patched by a
 row scatter into a clone, swapped in under the cache lock.
+
+``NativePirServer`` is the host engine on the native C++/AES-NI library
+(``native/``): the same answers from numpy rows, for a caller that names
+it (``PirConfig(engine="native")``).
 """
 
 from __future__ import annotations
@@ -87,6 +91,8 @@ from .models.pipeline import (
     fused_answer_batch,
     fused_compat_preplane_batch,
     fused_compat_root_batch,
+    fused_fast_answer_batch,
+    fused_fast_answer_storage,
     fused_fast_bits,
     fused_fast_overlap_step,
     fused_fast_root_batch_pertail,
@@ -222,6 +228,75 @@ def private_secret_shared_query(db: Database, query: QueryShare) -> SecretShared
                                                          expand_shared_query(db, query))
 
 
+class NativePirServer:
+    """The CPU engine on the native C++/AES-NI library (counterpart of
+    pir_tpu/server.py:NativePirServer): the same query semantics as the
+    host golden model and TorchPirServer, on numpy rows and bits from the
+    Database. A host engine by definition, chosen by name
+    (``PirConfig(engine="native")``); it builds its library at first use
+    (``native.load``, g++) and raises if it cannot."""
+
+    def __init__(self, db: Database):
+        from . import native
+
+        native.load()
+        self.db = db
+
+    def expand_shared_query(self, query: QueryShare) -> np.ndarray:
+        """(H,) uint8 selection bits, natural row order. Multi-party shares
+        have no C++ path (as in pir_tpu): the host golden model's numpy
+        expansion answers them with the same bits."""
+        from . import native
+
+        h = self.db.db_size // query.group_size
+        check_share(query, h)
+        if not query.is_two_party:
+            return expand_shared_query(self.db, query).astype(np.uint8)
+        if query.key_fast is not None:
+            return native.expand_fast_bits(query)
+        if query.is_keyword_based:
+            return native.eval_point_bits(query, 32, _keywords(self.db, h))
+        return native.expand_bits(query, num_bits_for_height(h), h)
+
+    def _rows(self, group_size: int) -> np.ndarray:
+        h = self.db.db_size // group_size
+        return self.db.data[: h * group_size].reshape(h, group_size * self.db.slot_bytes)
+
+    def _result(self, out: np.ndarray, group_size: int) -> SecretSharedQueryResult:
+        sb = self.db.slot_bytes
+        return SecretSharedQueryResult(sb, [Slot(out[c * sb:(c + 1) * sb].tobytes())
+                                            for c in range(group_size)])
+
+    def private_secret_shared_query_with_expanded_bits(
+        self, query: QueryShare, bits: np.ndarray
+    ) -> SecretSharedQueryResult:
+        """The native masked-XOR scan of the rows with (H,) bits in {0, 1}."""
+        from . import native
+
+        g = query.group_size
+        return self._result(native.scan_xor(self._rows(g), np.asarray(bits, dtype=np.uint8)), g)
+
+    def private_secret_shared_query(self, query: QueryShare) -> SecretSharedQueryResult:
+        return self.private_secret_shared_query_with_expanded_bits(
+            query, self.expand_shared_query(query))
+
+    def private_secret_shared_query_batch(
+        self, queries: list[QueryShare]
+    ) -> list[SecretSharedQueryResult]:
+        """A batch of one group size in ONE cache-blocked pass over the
+        table (native.scan_xor_batch); mixed group sizes per query."""
+        from . import native
+
+        if not queries:
+            return []
+        g = queries[0].group_size
+        if any(q.group_size != g for q in queries):
+            return [self.private_secret_shared_query(q) for q in queries]
+        bits = np.stack([self.expand_shared_query(q) for q in queries])
+        out = native.scan_xor_batch(self._rows(g), bits)
+        return [self._result(out[i], g) for i in range(len(queries))]
+
+
 class TorchPirServer:
     """Device-resident PIR server answering 2-party index batches of fast
     and of reference-exact (compat) keys, keyword batches, and single
@@ -308,6 +383,26 @@ class TorchPirServer:
 
         return self._cached(("words", group_size), build)
 
+    def _fast_storage_words(self, group_size: int, dkey) -> torch.Tensor:
+        """The natural word table's rows (_table) scattered into a per-query
+        fast expansion's storage order (dpf.device._fast_leaf_perm; zero rows
+        elsewhere), (flat, G * words) int32, cached per group size and
+        expansion geometry: the table of fast singles below the root route
+        (depth < 5), which is small (pir_tpu's _storage_tables words)."""
+        d, mp = dkey.plan.device_levels, dkey.plan.m_padded
+        n_blk = dkey.fcw_masks.shape[1] if dkey.fcw_masks.ndim == 4 else 1
+        key = ("storage words", group_size, d, mp, n_blk)
+
+        def build():
+            h = self.db.db_size // group_size
+            p = self._perms[key] = _fast_leaf_perm(d, h, mp, n_blk)
+            words = pack_table_u32(self.db.data, h, group_size)
+            flat = (mp << d) * 128 * n_blk
+            sc = scatter_rows_to_storage_order(words, p, flat)
+            return torch.from_numpy(sc.view(np.int32)).to(self.device)
+
+        return self._cached(key, build)
+
     def _kw_plane_table(self, group_size: int) -> torch.Tensor:
         """The rows' keywords as (32, ceil(H/32)) int32 branch-bit planes
         of the point walk (dpf.device.pack_point_bit_planes), cached."""
@@ -389,7 +484,8 @@ class TorchPirServer:
         Each table derives row-wise from ``db.data``: the natural word table
         through ``ops.scan.pack_rows_u32``, the stacked, classic and compat
         storage tables through their permutations, rows padded with zero
-        bytes to whole words. So each gets one device row scatter, O(changed
+        bytes to whole words, and the fast singles' storage word table
+        through both. So each gets one device row scatter, O(changed
         rows) uploaded. A patched table is a clone swapped in under the
         lock: a query holding the old table finishes on the old rows and
         never sees a torn row, and an open FastServingStream sees the new
@@ -411,7 +507,7 @@ class TorchPirServer:
         sb = self.db.slot_bytes
         patches = []
         for key in self._tables:
-            words = key[0] == "words"
+            words = key[0] in ("words", "storage words")
             if not (words or key in self._perms):
                 continue  # permutations and keyword planes
             g = key[1] if isinstance(key[0], str) else key[0]
@@ -421,7 +517,8 @@ class TorchPirServer:
             if not len(r):
                 continue
             if words:
-                patches.append((key, r, pack_rows_u32(self.db.data, r, g, sb).view(np.int32)))
+                at = self._perms[key][r] if key in self._perms else r
+                patches.append((key, at, pack_rows_u32(self.db.data, r, g, sb).view(np.int32)))
             else:
                 raw = self.db.data[: h * g].reshape(h, g * sb)[r]
                 patches.append((key, self._perms[key][r], pad_cols_u8(raw)))
@@ -507,9 +604,11 @@ class TorchPirServer:
     def private_secret_shared_query(self, query: QueryShare) -> SecretSharedQueryResult:
         """One answer share. A fast share of depth >= 5 rides the batch path
         (padded to MIN_BATCH, so the masked-XOR scan kernel reads the storage
-        table once); a compat share expands from one payload and scans the
-        natural table; a tiny domain's host bits, and a keyword or
-        multi-party share's point bits, scan the same table."""
+        table once); a shallower fast share with device levels expands from
+        one payload and scans the storage word table of its expansion
+        (_fast_storage_words) with no gather; a compat share expands from one
+        payload and scans the natural table; a tiny domain's host bits, and a
+        keyword or multi-party share's point bits, scan the same table."""
         if not is_index_share(query):
             return self.private_secret_shared_query_with_expanded_bits(
                 query, self._point_bits(query))
@@ -519,7 +618,11 @@ class TorchPirServer:
         g = query.group_size
         h = self.db.db_size // g
         payload, layout, dkey = self._index_payload(query, h)
-        if payload is not None and query.key_fast is None:
+        if payload is not None and query.key_fast is not None:
+            res = fused_fast_answer_storage(self._fast_storage_words(g, dkey),
+                                            u32_tensor(payload, self.device), layout)
+            return self._result_from_words(res, g)
+        if payload is not None:
             res = fused_answer(self._table(g), u32_tensor(payload, self.device),
                                self._perm(dkey.plan.num_bits, h), layout)
             return self._result_from_words(res, g)
@@ -536,8 +639,10 @@ class TorchPirServer:
         keyed = [self._index_payload(q, h) for q in queries]
         payload, layout, dkey = keyed[0]
         table = self._table(g)
-        if payload is not None and queries[0].key_fast is None:
+        if payload is not None:
             pays = u32_tensor(np.stack([k[0] for k in keyed]), self.device)
+            if queries[0].key_fast is not None:
+                return fused_fast_answer_batch(table, pays, self._fast_perm(dkey), layout)
             return fused_answer_batch(table, pays, self._perm(dkey.plan.num_bits, h), layout)
         return masked_xor_scan(table, torch.stack([self._bits(q, *k)
                                                    for q, k in zip(queries, keyed)]))

@@ -23,11 +23,13 @@ config a service answers on a ``TorchPirServer`` on the card (and raises
 when there is none); ``PirConfig(device="cpu")`` runs the same engine on
 the CPU, ``PirConfig(engine="mesh", mesh_tp=, mesh_dp=)`` (or mesh_tp *
 mesh_dp > 1) a ``MeshPirServer`` over a grid of devices (its serving
-stream emulated by the shell, as in pir_tpu), ``PirConfig(engine="host")``
-the numpy golden model. The cPIR
+stream emulated by the shell, as in pir_tpu), ``PirConfig(engine="native")``
+a ``NativePirServer`` (the C++/AES-NI host engine; its stream emulated
+too), ``PirConfig(engine="host")`` the numpy golden model. The cPIR
 scans and the AHE ASPIR proof checks' modexp batches run on the config's
 device too (the card unless ``device="cpu"``), or with
-``PirConfig(paillier_engine="python")`` in CPython on the host.
+``PirConfig(paillier_engine="native")`` on the native C++ engine, or with
+``paillier_engine="python"`` in CPython on the host.
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ from .aspir_shared import (
     new_authenticated_index_query_shares,
 )
 from .config import PirConfig, pick_engine
-from .crypto.paillier import device_modexp
+from .crypto.paillier import device_modexp, native_modexp
 from .database import Database, DBMetadata
 from .query import (
     QueryShare,
@@ -217,8 +219,10 @@ class PirService:
         self._audit_dead: dict[int, float] = {}  # timed-out nonce -> expiry
         self.config = (config or PirConfig()).validate()
         self.engine_name = pick_engine(self.config)
-        self._engine: TorchPirServer | MeshPirServer | None = None
-        if self.engine_name == "torch":
+        self._engine: TorchPirServer | MeshPirServer | srv.NativePirServer | None = None
+        if self.engine_name == "native":
+            self._engine = srv.NativePirServer(db)
+        elif self.engine_name == "torch":
             self._engine = TorchPirServer(
                 db, device=self.config.device,
                 min_device_nodes=self.config.min_device_nodes,
@@ -229,7 +233,7 @@ class PirService:
                 compat_w=self.config.mesh_compat_w, device=self.config.device,
             )
         # the BST's level databases, each answered by an engine of its own
-        self._bst_engines: dict[int, TorchPirServer] = {}
+        self._bst_engines: dict[int, TorchPirServer | srv.NativePirServer] = {}
         self._bst_lock = threading.Lock()
         self.metrics = ServerMetrics()
 
@@ -318,16 +322,18 @@ class PirService:
 
     def _bst_level_answer(self, level: int, share: QueryShare) -> SecretSharedQueryResult:
         """One BST level's boundary-key answer on the service's engine (a
-        TorchPirServer a level, built at first use, or the host golden)."""
+        TorchPirServer a level, or on the native engine a NativePirServer,
+        built at first use; or the host golden)."""
         level_db = self.bst.levels[level]
         if self._engine is None:
             return srv.private_secret_shared_query(level_db, share)
         with self._bst_lock:
             eng = self._bst_engines.get(level)
             if eng is None:
-                eng = self._bst_engines[level] = TorchPirServer(
-                    level_db, device=self.config.device,
-                    min_device_nodes=self.config.min_device_nodes)
+                eng = self._bst_engines[level] = (
+                    srv.NativePirServer(level_db) if self.engine_name == "native"
+                    else TorchPirServer(level_db, device=self.config.device,
+                                        min_device_nodes=self.config.min_device_nodes))
         return eng.private_secret_shared_query(share)
 
     def _metadata_flags(self) -> int:
@@ -480,8 +486,9 @@ class PirService:
         in-process operator call, deliberately not a wire opcode: the
         query protocol must not let clients mutate the table). Engines
         holding device-resident tables patch them in place
-        (TorchPirServer.apply_updates, MeshPirServer.apply_updates); the host engine reads db.data at
-        scan time, so the rows swap copy-on-write —
+        (TorchPirServer.apply_updates, MeshPirServer.apply_updates); the
+        host and native engines read db.data at scan time, so the rows swap
+        copy-on-write —
         in-flight scans finish on the old buffer and never see a torn
         row."""
         eng = self._engine
@@ -630,8 +637,9 @@ class PirService:
             q, chal = entry
             # the DDLEQ check's modexp batches follow the cPIR engine
             # (equal verdicts either way), in this handler's thread only
-            with device_modexp(enc.scan_engine(self.config.paillier_engine) == "torch",
-                               self.config.device):
+            engine = enc.scan_engine(self.config.paillier_engine)
+            with device_modexp(engine == "torch", self.config.device), \
+                    native_modexp(engine == "native"):
                 ok = auth_check(q.query0.row.pk, q, chal, proof)
             if not ok:
                 return OP_ASPIR_PROOF, struct.pack("<B", 0)

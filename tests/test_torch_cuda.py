@@ -1202,3 +1202,149 @@ def test_cuda_mesh_after_updates_matches_one_card(dev):
                 shares = [p[part] for p in pairs]
                 assert _rows_of(eng.private_secret_shared_query_batch(shares)) == \
                     _one_card_rows(single, shares), route
+
+
+# ---- the all-torch fast expansion and the per-query fast answers ----------------
+
+@pytest.mark.parametrize("leaf_bits,q", [(None, 35), (128, 35), (128, 8)])
+def test_cuda_all_xla_expand_route_matches_pertail(dev, leaf_bits, q):
+    """The per-query tail route with all_xla_expand (the whole walk in
+    plain torch) on the card: the bytes of the tail-kernel route and of
+    the CPU, one packed scan launch (the masked-XOR scan at Q <= 8) and no
+    tail kernel launch; every row recovered."""
+    from pir_tpu_torch.dpf.device import make_fast_payload_batch, u32_tensor
+    from pir_tpu_torch.models.pipeline import fused_fast_root_batch_pertail
+
+    db = generate_random_db(1 << 13, 8)
+    gpu = TorchPirServer(db, fast_stacked=False)
+    rng = np.random.default_rng(q)
+    idxs = [int(i) for i in rng.integers(0, db.db_size, size=q)]
+    pairs = tq.new_index_query_shares_batch(db.metadata(), idxs, 1, fast=True,
+                                            leaf_bits=leaf_bits, rand_bytes=rng.bytes)
+    k0 = pairs[0][0].key_fast
+    table = gpu._root_table_u8(1, k0.depth, k0.leaf_bits // 128, stacked=False)
+    answers = []
+    for part in (0, 1):
+        pay, layout = make_fast_payload_batch([p[part] for p in pairs])
+        before = (packed_scan.launches, masked_xor_scan.launches, fast_tail_expand.launches)
+        got = fused_fast_root_batch_pertail(table, u32_tensor(pay, dev), layout,
+                                            gpu.tail_levels, all_xla_expand=True)
+        torch.cuda.synchronize()
+        after = (packed_scan.launches, masked_xor_scan.launches, fast_tail_expand.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == ((1, 0, 0) if q > 8
+                                                               else (0, 1, 0))
+        assert torch.equal(got, fused_fast_root_batch_pertail(
+            table, u32_tensor(pay, dev), layout, gpu.tail_levels))
+        assert torch.equal(got.cpu(), fused_fast_root_batch_pertail(
+            table.cpu(), u32_tensor(pay, "cpu"), layout, gpu.tail_levels,
+            all_xla_expand=True))
+        answers.append(got.cpu().numpy())
+    rec = answers[0] ^ answers[1]
+    assert all(rec[i, :8].tobytes() == db.data[r].tobytes() for i, r in enumerate(idxs))
+
+
+def _per_query_fast(db, idxs, mdn, rng):
+    """Both shares of fast queries (128-bit leaves) as per-query payloads:
+    [(payloads (Q, total) uint32, layout, perm)] a share."""
+    from pir_tpu_torch.dpf import host as thost
+    from pir_tpu_torch.dpf.device import make_device_fast_key, pack_fast_payload
+
+    pairs = tq.new_index_query_shares_batch(db.metadata(), idxs, 1, fast=True, leaf_bits=128,
+                                            rand_bytes=rng.bytes)
+    out = []
+    for part in (0, 1):
+        keys = [make_device_fast_key(thost.server_initialize(p[part].prf_keys,
+                                                             p[part].key_fast.depth),
+                                     p[part].key_fast, mdn) for p in pairs]
+        packed = [pack_fast_payload(k) for k in keys]
+        out.append((np.stack([p for p, _ in packed]), packed[0][1], keys[0]))
+    return out
+
+
+def test_cuda_fused_fast_answers_match_cpu(dev):
+    """The six per-query fast answers on the card equal their CPU results;
+    the masked-XOR variants launch the masked-XOR scan kernel once, the
+    others the bit-plane scan kernel once; both shares recover every
+    row."""
+    from pir_tpu_torch.dpf.device import _fast_leaf_perm, scatter_rows_to_storage_order
+    from pir_tpu_torch.dpf.device import u32_tensor
+    from pir_tpu_torch.models import pipeline as tpipe
+    from pir_tpu_torch.ops.scan import pack_table_u32
+
+    h, slot = 1 << 13, 6
+    db = generate_random_db(h, slot)
+    rng = np.random.default_rng(17)
+    idxs = [0, h - 1, 4321, 77, 5000]
+    shares = _per_query_fast(db, idxs, 4, rng)
+    dkey = shares[0][2]
+    mp, d = dkey.plan.m_padded, dkey.plan.device_levels
+    assert d == 4
+    words = pack_table_u32(db.data, h, 1)
+    swords = scatter_rows_to_storage_order(words, _fast_leaf_perm(d, h, mp), (mp << d) * 128)
+    tables = {"words": words.view(np.int32), "u8": words.view(np.uint8),
+              "swords": swords.view(np.int32), "su8": swords.view(np.uint8)}
+    masked = {"masked_xor_scan": 1, "planes_scan": 0}
+    planes = {"masked_xor_scan": 0, "planes_scan": 1}
+    funcs = {  # name: (table, natural order, batch, launches)
+        "fused_fast_answer": ("words", True, False, masked),
+        "fused_fast_answer_batch": ("words", True, True, masked),
+        "fused_fast_answer_batch_mxu": ("u8", True, True, planes),
+        "fused_fast_answer_batch_preplane": ("u8", True, True, planes),
+        "fused_fast_answer_batch_storage": ("su8", False, True, planes),
+        "fused_fast_answer_storage": ("swords", False, False, masked),
+    }
+    kernels = {"masked_xor_scan": masked_xor_scan, "planes_scan": planes_scan}
+    for name, (tab, natural, batch, launches) in funcs.items():
+        fn = getattr(tpipe, name)
+        rows = []
+        for pays, layout, key in shares:
+            outs = []
+            for device in (dev, "cpu"):
+                t = torch.from_numpy(np.ascontiguousarray(tables[tab])).to(device)
+                perm = torch.from_numpy(key.perm).to(device)
+                before = {k: f.launches for k, f in kernels.items()}
+                if batch:
+                    p = u32_tensor(pays, device)
+                    got = fn(t, p, perm, layout) if natural else fn(t, p, layout)
+                    n_calls = 1
+                else:
+                    got = torch.stack([
+                        fn(t, u32_tensor(r, device), perm, layout) if natural
+                        else fn(t, u32_tensor(r, device), layout) for r in pays])
+                    n_calls = len(pays)
+                if device == dev:
+                    torch.cuda.synchronize()
+                    assert {k: f.launches - before[k] for k, f in kernels.items()} == {
+                        k: n * n_calls for k, n in launches.items()}, name
+                outs.append(got.cpu())
+            assert torch.equal(outs[0], outs[1]), name
+            rows.append(outs[0].numpy().view(np.uint8).reshape(len(idxs), -1)[:, :slot])
+        rec = rows[0] ^ rows[1]
+        assert all(rec[i].tobytes() == db.data[r].tobytes() for i, r in enumerate(idxs)), name
+
+
+def test_cuda_fast_routes_below_the_root_match_cpu_server(dev):
+    """Fast keys of depth 4 with device levels (min_device_nodes 2): a
+    single (the storage-order word table) and a batch of 3 (the per-query
+    batch path) on the card equal the CPU server's bytes, one masked-XOR
+    scan launch each, and recover."""
+    db = generate_random_db(2048, 3)
+    gpu = TorchPirServer(db, min_device_nodes=2)
+    cpu = TorchPirServer(db, device="cpu", min_device_nodes=2)
+    rng = np.random.default_rng(29)
+    idxs = [0, 2047, 1000]
+    pairs = tq.new_index_query_shares_batch(db.metadata(), idxs, 1, fast=True, leaf_bits=128,
+                                            rand_bytes=rng.bytes)
+    assert pairs[0][0].key_fast.depth == 4
+    for idx, pair in zip(idxs, pairs):
+        res = []
+        for s in pair:
+            before = masked_xor_scan.launches
+            res.append(gpu.private_secret_shared_query(s))
+            assert masked_xor_scan.launches == before + 1
+            assert res[-1].shares[0].data == cpu.private_secret_shared_query(s).shares[0].data
+        assert bytes(tq.recover(res)[0].data) == db.data[idx].tobytes()
+    assert any(k[0] == "storage words" for k in gpu._tables)
+    before = masked_xor_scan.launches
+    _check_servers(gpu, cpu, db, idxs, pairs)
+    assert masked_xor_scan.launches == before + 2

@@ -5,8 +5,9 @@ The same query (made by one package, carried across as wire bytes) on
 the same database gives equal ciphertext ints in both packages: the
 plain scan, the recursive scan, and the column pass over an encrypted
 row result; each package recovers the other's answers. The port's
-geometry checks raise as pir_tpu's do, and pir_tpu's native and "tpu"
-scan engines are refused by name. The port's engine "torch" (its device
+geometry checks raise as pir_tpu's do, and pir_tpu's "tpu" scan engine
+is refused by name (its native engine is ported:
+tests/test_torch_native.py). The port's engine "torch" (its device
 Montgomery engine, here its plain version with device="cpu") gives the
 ciphertexts of pir_tpu's engine "tpu" and of the CPython loop. 128-bit
 keys and the 2^10 x 3 B table of tests/test_encrypted.py.
@@ -156,7 +157,7 @@ def test_geometry_checks_raise_as_pir_tpu(ctx):
     both(lambda q: setattr(q.row, "db_width", DB_SIZE + 1), "exceed")
 
 
-@pytest.mark.parametrize("engine,item", [("native", "[18]"), ("tpu", "'torch'")])
+@pytest.mark.parametrize("engine,item", [("tpu", "'torch'")])
 def test_unported_scan_engines_raise(ctx, engine, item):
     sk_j, _, jdb, tdb = ctx
     q = _to_port_query(je.new_encrypted_query(jdb.metadata(), sk_j.public_key, 1, 2))
@@ -167,8 +168,8 @@ def test_unported_scan_engines_raise(ctx, engine, item):
         te.private_doubly_encrypted_query(tdb, dq, engine=engine)
     with pytest.raises(ValueError, match="unknown"):
         te.scan_engine("gpu")
-    assert [te.scan_engine(e) for e in (None, "python", "torch")] == ["torch", "python",
-                                                                      "torch"]
+    assert [te.scan_engine(e) for e in (None, "python", "torch", "native")] == [
+        "torch", "python", "torch", "native"]
 
 
 @pytest.mark.parametrize("group_size", [1, 3])

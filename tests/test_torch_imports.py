@@ -28,7 +28,7 @@ SLICE_MODULES = [
     "pir_tpu_torch/demo.py", "pir_tpu_torch/crypto/paillier.py",
     "pir_tpu_torch/utils/metrics.py", "pir_tpu_torch/crypto/mont.py",
     "pir_tpu_torch/benchmarks_paillier.py", "pir_tpu_torch/parallel/__init__.py",
-    "pir_tpu_torch/parallel/mesh.py",
+    "pir_tpu_torch/parallel/mesh.py", "pir_tpu_torch/native/__init__.py",
 ]
 
 

@@ -13,9 +13,10 @@ real sockets:
 * raw frames made by pir_tpu get byte-equal response frames from both
   packages' services, for every opcode whose answer is deterministic;
 * the port's engine choice: ``PirService()`` with no config and no GPU
-  raises, ``pick_engine`` resolves "auto" to "torch" and the mesh
+  raises, ``pick_engine`` resolves "auto" to "torch", the mesh
   configs to "mesh" (a mesh service on 2 x 2 CPU shards answers every
-  batch kind), pir_tpu's engines with no port are refused, a failure in the stream's kernel path
+  batch kind) and "native" to "native", pir_tpu's engines with no port
+  are refused, a failure in the stream's kernel path
   reaches the client as OP_ERROR (only the stream's refusal of a batch
   falls back to emulation), and concurrent first queries on one service
   are answered right.
@@ -397,8 +398,9 @@ def test_no_config_means_the_card():
 
 def test_pick_engine_and_refused_engines(tables):
     """pick_engine: "auto" is "torch"; the mesh configs resolve to "mesh"
-    as pir_tpu's do (its "tpu" is the port's "torch"); pir_tpu's engines
-    with no port are refused. A PirService over PirConfig(engine="mesh",
+    as pir_tpu's do (its "tpu" is the port's "torch"); "native" and
+    paillier_engine "native" resolve as named; pir_tpu's engines with no
+    port are refused. A PirService over PirConfig(engine="mesh",
     mesh_tp=2, mesh_dp=2, device="cpu") answers a client's fast, compat,
     keyword and 3-party batches and a stream, every row recovered."""
     from pir_tpu_torch.parallel.mesh import MeshPirServer
@@ -413,9 +415,11 @@ def test_pick_engine_and_refused_engines(tables):
         assert tcfg.pick_engine(tcfg.PirConfig(**kwargs)) == "mesh"
         jkw = dict(kwargs, engine="tpu") if kwargs.get("engine") == "torch" else kwargs
         assert jcfg.pick_engine(jcfg.PirConfig(**jkw)) == "mesh"
-    for kwargs, item in ((dict(engine="native"), "[18]"),
-                         (dict(paillier_engine="native"), "[18]"),
-                         (dict(paillier_engine="tpu"), "'torch'")):
+    # pir_tpu's native engines are ported: chosen by name, never by "auto"
+    assert tcfg.pick_engine(tcfg.PirConfig(engine="native")) == "native"
+    assert tcfg.pick_engine(tcfg.PirConfig(paillier_engine="native")) == "torch"
+    assert tcfg.PirConfig(paillier_engine="native").validate().paillier_engine == "native"
+    for kwargs, item in ((dict(paillier_engine="tpu"), "'torch'"),):
         with pytest.raises(ValueError, match=item.replace("[", r"\[").replace("]", r"\]")):
             tcfg.pick_engine(tcfg.PirConfig(**kwargs))
     for kwargs in (dict(engine="tpu"), dict(engine="bogus"), dict(paillier_engine="bogus"),
