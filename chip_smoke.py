@@ -17,7 +17,11 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
    and a probe of one Montgomery group product (csrc/mont.cuh group_mul)
    at each instance K, whose round's SASS it counts by pipe a lane,
    failing if a round does fewer wide products than kernels 9 and 10's
-   bound counts (--out: "mont_sass");
+   bound counts (--out: "mont_sass"); then measures with clock64 the
+   three latencies of the overlap probe's chain floor (one round of its
+   integer chain, one dependent wgmma m64n8k32 step, one st.async hop
+   over distributed shared memory seen by the peer; --out:
+   "chain_latencies");
 2. builds a 2^20-row x 1024-byte table (1 GiB) from --seed, in the
    storage orders of every path (stacked and classic for 1024-bit keys,
    classic for the stream's 128-bit keys, compat), and holds each kernel
@@ -35,8 +39,9 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
    and the bit-plane scan at Q = 1, 13, 64 and 65 on a 2^16-row slice of
    the natural table's bytes and at Q = 13, 64 and 130 on a whole
    2^20-row table of 3-byte slots (4-byte rows); and the overlap probe's
-   three kernels (integer chain, int8 mma chain, both) and its two-stream
-   run at 1, 7 and 256 rounds, with equal int32 words;
+   four kernels (integer chain, int8 wgmma chain, both in one body and
+   both with the integer chain in warps of its own) and its two-stream
+   run at 0, 1, 7 and 256 rounds, with equal int32 words;
 3. serves, both shares, through TorchPirServer: 3 batches of 4096
    shared-key fast queries on the stacked path, 3 batches of 1024
    reference-exact (compat) queries (the last one through the async
@@ -140,7 +145,8 @@ From the repository root, on a machine with one NVIDIA H100 and nvcc:
 5. times each kernel, its plain version and its PyTorch yardstick at the
    main paths' shapes (the masked-XOR scan at Q = 1 and Q = 8, the
    bit-plane scan at Q = 64 and Q = 1024 on the natural table's bytes,
-   the probe at 256 rounds and at PROBE_LONG_ITERS, kernel 9 on phase
+   the probe at 256 rounds and at PROBE_LONG_ITERS (beside its operations
+   bound, its chain floor from phase 1's latencies), kernel 9 on phase
    4d's encryption, CRT decryption and level-2 batches, kernel 10 on its
    grid and on a recursive query's level-2 scan (32 rows, one column,
    exponents of bits(N^2) mod N^3), both also at phase 4d (a)'s shapes
@@ -199,7 +205,7 @@ GOLDEN_POINTS = 4096  # host golden of a keyword or multi-party single: random r
 MP_PARTIES = 3
 TREE_KEYS = 1 << 16  # keyword search trees: a 256 x 256 sqrt tree, and a
 BST_KEYS = 1 << 12   # binary search tree of 12 levels
-PROBE_CHECK_ITERS = (1, 7, 256)  # overlap probe: rounds checked in phase 2
+PROBE_CHECK_ITERS = (0, 1, 7, 256)  # overlap probe: rounds checked in phase 2
 PROBE_LONG_ITERS = 16384  # rounds at which both probe chains take over 1 ms
 UPDATES = 4096  # live row updates of the 1 GiB tables
 # phase 4c, the serving shell: two PirServices on the 1 GiB table
@@ -579,6 +585,12 @@ def main() -> int:
         log(f"phase 1: {key.split(':')[0]} {kernel.group(0) if kernel else key}: "
             f"{ptxas_summary[key]}")
     log(f"phase 1: built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t:.2f} s")
+    # the overlap probe's chain floor: the latencies of its dependent paths
+    t = time.perf_counter()
+    chain_lat = ov.chain_latencies(dev)
+    log(f"phase 1: overlap probe latencies a step (clock64 cycles, globaltimer ns) {chain_lat} "
+        f"in {time.perf_counter() - t:.2f} s; a round of chain B is {ov.CRIT_STEPS} wgmma steps "
+        f"and one hop")
     # the fused kernel's dynamic shared memory: the larger of its roles'
     smem3 = (ctypes.c_int * 3)()
     _build.load("fused_scan_expand").pir_fused_smem_bytes(smem3)
@@ -781,19 +793,22 @@ def main() -> int:
     if any(e_ps.values()):
         fail("the bit-plane scan kernel disagrees with its plain version")
 
-    # overlap probe (kernel 8): the integer chain, the mma chain, both in
-    # one kernel, and the first two on two streams, at 1, 7 and 256 rounds
+    # overlap probe (kernel 8): the integer chain, the wgmma chain, both in
+    # one kernel in two placements, and the first two on two streams, at
+    # PROBE_CHECK_ITERS rounds
     t = time.perf_counter()
     pv, pa, pb = ov.make_inputs(args.seed, dev)
     e_probe = {}
     for iters in PROBE_CHECK_ITERS:
         want_v, want_m = ov.vpu_chain(pv, iters), ov.mxu_chain(pa, pb, iters)
         got_c, got_s = ov.mixed_probe(pv, pa, pb, iters), ov.streams(pv, pa, pb, iters)
+        got_cs = ov.mixed_split_probe(pv, pa, pb, iters)
         e_probe[iters] = {"A": err(ov.vpu_probe(pv, iters), want_v),
                           "B": err(ov.mxu_probe(pa, pb, iters), want_m),
                           "C": max(err(got_c[0], want_v), err(got_c[1], want_m)),
+                          "C_split": max(err(got_cs[0], want_v), err(got_cs[1], want_m)),
                           "streams": max(err(got_s[0], want_v), err(got_s[1], want_m))}
-    del want_v, want_m, got_c, got_s
+    del want_v, want_m, got_c, got_s, got_cs
     log(f"phase 2: overlap probe vs plain max_abs_err by rounds (tolerance 0, equal int32 "
         f"words) {e_probe} in {time.perf_counter() - t:.2f} s")
     if any(any(e.values()) for e in e_probe.values()):
@@ -841,6 +856,7 @@ def main() -> int:
                "fused_scan_expand": fused_scan_expand, "masked_xor_scan": masked_xor_scan,
                "planes_scan": planes_scan, "overlap_vpu": ov.vpu_probe,
                "overlap_mxu": ov.mxu_probe, "overlap_mixed": ov.mixed_probe,
+               "overlap_mixed_split": ov.mixed_split_probe,
                "mont_powmod": mont.mont_powmod, "mont_scan": mont.mont_scan}
     path_launches = {}  # path -> {kernel: launches in that path's run}
 
@@ -1384,12 +1400,14 @@ def main() -> int:
 
     # the overlap probe through its entry point, at the TPU probe's 256
     # rounds and at PROBE_LONG_ITERS (each run checks its kernels against
-    # the plain versions, then times A, B, C and the two streams)
+    # the plain versions, then times A, B, C in both placements and the
+    # two streams)
     reset_counts()
     t = time.perf_counter()
     probe = {it: ov.run(it, ov.REPS, dev, args.seed) for it in (ov.ITERS, PROBE_LONG_ITERS)}
     probe_s = time.perf_counter() - t
-    read_counts("overlap probe", ("overlap_vpu", "overlap_mxu", "overlap_mixed"))
+    read_counts("overlap probe", ("overlap_vpu", "overlap_mxu", "overlap_mixed",
+                                  "overlap_mixed_split"))
     for it, rec in probe.items():
         log(f"phase 3: overlap probe, {it} rounds: {json.dumps(rec)}; t_B / t_A = "
             f"{rec['mxu_ms'] / rec['vpu_ms']:.3f}")
@@ -1824,7 +1842,8 @@ def main() -> int:
 
     # overlap probe: the kernel times of the phase-3 runs (run() raised on
     # any kernel that disagreed), each chain's plain version and, for B,
-    # the same chain of torch._int_mm products; bounds for the whole card
+    # the same chain of torch._int_mm products; bounds for the whole card,
+    # and beside them each chain's floor from phase 1's latencies
     def int_mm_chain(iters):
         acc = torch.zeros((ov.M, ov.N), dtype=torch.int32, device=dev)
         for _ in range(iters):
@@ -1838,6 +1857,7 @@ def main() -> int:
         plain_ms["vpu"], want_v = cuda_ms(lambda: ov.vpu_chain(pv, iters), 1, warm=False)
         plain_ms["mxu"], want_m = cuda_ms(lambda: ov.mxu_chain(pa, pb, iters), 1, warm=False)
         plain_ms["mixed"], want_c = cuda_ms(lambda: ov.mixed(pv, pa, pb, iters), 1, warm=False)
+        plain_ms["mixed_split"] = plain_ms["mixed"]  # both placements' plain version is mixed
         lib_ms, lib_out = cuda_ms(lambda: int_mm_chain(iters), 1)
         e = {"mixed": max(err(want_c[0], want_v), err(want_c[1], want_m)),
              "library": err(lib_out, want_m)}
@@ -1849,22 +1869,30 @@ def main() -> int:
                  "mxu": {"bytes": bytes_ms["mxu"], "operations": ops_ms["mxu"]},
                  # the larger chain's time: the least if the units overlap fully
                  "mixed": {"bytes": sum(bytes_ms.values()), "operations": max(ops_ms.values())}}
+        bound["mixed_split"] = bound["mixed"]
+        floor = ov.chain_floor_ms(chain_lat, iters)
+        binds = {k: "chain" if floor[k] > max(bound[k].values())
+                 else max(bound[k], key=bound[k].get) for k in floor}
         rec = probe[iters]
-        probe_time[iters] = {"ms": {k: rec[f"{k}_ms"] for k in ("vpu", "mxu", "mixed")},
+        probe_time[iters] = {"ms": {k: rec[f"{k}_ms"] for k in ("vpu", "mxu", "mixed",
+                                                                "mixed_split")},
                              "streams_ms": rec["streams_ms"], "overlap": rec["overlap"],
+                             "overlap_split": rec["overlap_split"],
                              "streams_overlap": rec["streams_overlap"],
                              "max_active_clusters": rec["max_active_clusters"],
                              "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+                             "chain_floor_ms": floor, "binds": binds,
                              "plain_max_abs_err": e}
         del want_v, want_m, want_c, lib_out
         log(f"phase 5: overlap probe, {iters} rounds: kernels {probe_time[iters]['ms']} ms, "
-            f"two streams {rec['streams_ms']:.4f} ms, overlap {rec['overlap']:.4f}, streams "
-            f"overlap {rec['streams_overlap']:.4f}, t_B / t_A {rec['mxu_ms'] / rec['vpu_ms']:.3f}; "
-            f"plain {plain_ms} ms, torch._int_mm chain {lib_ms:.4f} ms, bounds {bound} "
-            f"(whole card; the grid fills {ov.PROBE_BLOCKS} of {sms} SMs), resident clusters "
-            f"of 8 {rec['max_active_clusters']} (two streams need "
-            f"{2 * ov.PROBE_BLOCKS // ov.CLUSTER}), plain and library against plain "
-            f"max_abs_err {e}")
+            f"two streams {rec['streams_ms']:.4f} ms, overlap {rec['overlap']:.4f} (split "
+            f"{rec['overlap_split']:.4f}), streams overlap {rec['streams_overlap']:.4f}, "
+            f"t_B / t_A {rec['mxu_ms'] / rec['vpu_ms']:.3f}; plain {plain_ms} ms, torch._int_mm "
+            f"chain {lib_ms:.4f} ms, bounds {bound} (whole card; the grid is {ov.PROBE_BLOCKS} "
+            f"blocks on {sms} SMs), chain floor {floor} ms, binds {binds}; residency "
+            f"{rec['max_active_clusters']} (clusters of {ov.CLUSTER}: a launch needs "
+            f"{ov.PROBE_BLOCKS // ov.CLUSTER}; pair: B + A blocks an SM, two streams need 1), "
+            f"plain and library against plain max_abs_err {e}")
         if any(e.values()):
             fail(f"the overlap probe's plain versions or library chain disagree at {iters} rounds")
 
@@ -2030,15 +2058,19 @@ def main() -> int:
             rec["ms"], chk["plain_ms"], rec["bound_ms"], None,
             max(chk["max_abs_err"], cpir["max_abs_err"][name])))
     # the probe at the TPU probe's 256 rounds (PROBE_LONG_ITERS: log, --out);
-    # only chain B has a PyTorch yardstick; max_abs_err from phase 2 (1, 7
-    # and 256 rounds; run() raised on any difference at PROBE_LONG_ITERS)
+    # only chain B has a PyTorch yardstick; max_abs_err from phase 2 (0, 1,
+    # 7 and 256 rounds; run() raised on any difference at PROBE_LONG_ITERS);
+    # beside the bound, the chain floor from phase 1's latencies and which
+    # of the two binds ("chain", or the bound's "bytes" or "operations")
     pt = probe_time[ov.ITERS]
-    for chain, label, line in (("vpu", "A", 110), ("mxu", "B", 113), ("mixed", "C", 116)):
-        kernels["kernels"].append(entry(
+    for chain, label, line in (("vpu", "A", 110), ("mxu", "B", 113), ("mixed", "C", 116),
+                               ("mixed_split", "C_split", 116)):
+        kernels["kernels"].append(dict(entry(
             f"overlap_{chain}", "pir_tpu_torch/csrc/overlap_probe.cu",
             f"benchmarks_overlap.py:{line}", pt["ms"][chain], pt["plain_ms"][chain],
             pt["bound_ms"][chain], pt["library_ms"] if chain == "mxu" else None,
-            max(e_[label] for e_ in e_probe.values())))
+            max(e_[label] for e_ in e_probe.values())),
+            chain_floor_ms=pt["chain_floor_ms"][chain], binds=pt["binds"][chain]))
     if args.out:
         summary = dict(kernels, card=smi, per_share_batch_s=per_batch,
                        split_s=split, path_launches=path_launches,
@@ -2064,7 +2096,7 @@ def main() -> int:
                        updates_s=upd_s, updates_split_s=split_u, permutations_s=perms_s,
                        after_updates_s=upd_serve, persistence_s=persist, service=svc,
                        cpir=cpir, mesh=mesh, rest=rest, mont_time=mont_time,
-                       mont_sass=mont_sass,
+                       mont_sass=mont_sass, chain_latencies=chain_lat,
                        elapsed_s=time.perf_counter() - T0)
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)

@@ -3,35 +3,44 @@
 Counterpart of ``benchmarks_overlap.py`` at the repository root, which
 asks the same of a TPU's VPU and MXU inside one Pallas kernel. On the
 card "vpu" means the integer pipes (shifts, logic, adds on 32-bit words)
-and "mxu" the int8 tensor cores (``mma.sync`` m16n8k32 s8). Three
-chains, each equal word for word to its TPU counterpart:
+and "mxu" the int8 tensor cores (``wgmma`` m64nNk32 s8). Three chains,
+each equal word for word to its TPU counterpart:
 
   A (``vpu_chain``): ITERS dependent rounds of ``vpu_round`` over a
     (64, 512) uint32 tile, 32 integer operations an element a round;
   B (``mxu_chain``): ITERS dependent int8 products
     ``acc = (a + (acc[:, :1] & 1)) @ b``, a (128, 4096), b (4096, 256),
     int32 accumulators from zero;
-  C (``mixed``): both chains in one kernel, on independent data.
+  C (``mixed``): both chains in one kernel, on independent data, in two
+    placements: ``mixed_probe`` runs the integer rounds inside the
+    warpgroup that issues the bulk products, between their commit and
+    their wait (the TPU's one body), ``mixed_split_probe`` in warps of
+    their own.
 
 If t_C ~ max(t_A, t_B) the units overlap; if t_C ~ t_A + t_B they take
 turns. ``overlap`` = (t_A + t_B - t_C) / min(t_A, t_B), as in the TPU
-probe; ``streams_overlap`` is the same with A's and B's kernels launched
-at once on two CUDA streams (``streams``) in place of C.
+probe; ``overlap_split`` is the same of the split placement, and
+``streams_overlap`` of A's and B's kernels launched at once on two CUDA
+streams (``streams``) in place of C.
 
 The plain torch versions (``vpu_round``, ``vpu_chain``, ``mxu_chain``,
 ``mixed``) hold uint32 words as int32 bit patterns and compute in int64,
 masked to 32 bits; the products are float64 (exact: |acc| <= 2^26). The
-kernel wrappers (``vpu_probe``, ``mxu_probe``, ``mixed_probe``) launch
-``csrc/overlap_probe.cu`` for CUDA tensors and run the plain version for
-CPU tensors.
+kernel wrappers (``vpu_probe``, ``mxu_probe``, ``mixed_probe``,
+``mixed_split_probe``) launch ``csrc/overlap_probe.cu`` for CUDA tensors
+and run the plain version for CPU tensors. ``chain_latencies`` measures
+on the card the three latencies of the chains' dependent paths, and
+``chain_floor_ms`` turns them into each chain's floor.
 
     python -m pir_tpu_torch.benchmarks_overlap [--iters N] [--reps N] [--device cpu]
 
-prints one JSON line: vpu_ms, mxu_ms, mixed_ms, overlap, streams_ms,
-streams_overlap, max_active_clusters (each kernel's clusters the card
-holds at once: A and B side by side on two streams need 16), and the
-run's device, iters, reps. It runs on the card unless ``--device cpu``
-(then the plain versions, timed on the host).
+prints one JSON line: vpu_ms, mxu_ms, mixed_ms, mixed_split_ms, overlap,
+overlap_split, streams_ms, streams_overlap, max_active_clusters (A's
+blocks an SM, each clustered kernel's clusters the card holds at once:
+a launch is PROBE_BLOCKS / CLUSTER of them, and the B + A block pairs an
+SM holds for the two-stream run), and the run's device, iters, reps. It
+runs on the card unless ``--device cpu`` (then the plain versions, timed
+on the host).
 """
 
 from __future__ import annotations
@@ -58,16 +67,23 @@ ROUND_OPS = 2 * V_OPS  # integer operations an element a round
 ROUND_INSTRS = 7 * V_OPS // 4
 C = 0x9E3779B9
 MASK32 = 0xFFFFFFFF
-# The kernels' grid: 64 blocks of one cluster of 8 per 16-row block of a,
-# each block one row of v, one block an SM (its shared memory): a launch
-# fills 64 SMs, 8 clusters.
+# The kernels' grid (csrc/overlap_probe.cu): B and C run 64 blocks, one an
+# SM, in 4 clusters of 16, one cluster a 64-row m-tile and 128-column
+# N-group of the product, its blocks the 16 slices of K, each block 512
+# words of v; A alone runs 128 blocks of 256 words.
 PROBE_BLOCKS = 64
-CLUSTER = 8
+CLUSTER = 16
+# dependent m64n8k32 steps of a round's critical tile (a K slice of 256)
+CRIT_STEPS = K // CLUSTER // 32
+# chain_latencies: repetitions of each probe, and its kernels' ids
+LATENCY_REPS = 1 << 14
+LATENCY_PROBES = ("int_round", "wgmma_step", "dsmem_hop")
 
 _ARGTYPES = {
     "vpu": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
     "mxu": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p],
     "mixed": [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p],
+    "mixed_split": [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -169,7 +185,7 @@ def vpu_probe(v: torch.Tensor, iters: int = ITERS) -> torch.Tensor:
 
 
 def mxu_probe(a: torch.Tensor, b: torch.Tensor, iters: int = ITERS) -> torch.Tensor:
-    """Chain B: the mma kernel for CUDA tensors, mxu_chain for CPU."""
+    """Chain B: the wgmma kernel for CUDA tensors, mxu_chain for CPU."""
     dev = check_operands(a=a, b=b)
     if dev.type == "cpu":
         return mxu_chain(a, b, iters)
@@ -179,40 +195,100 @@ def mxu_probe(a: torch.Tensor, b: torch.Tensor, iters: int = ITERS) -> torch.Ten
     return out
 
 
-def mixed_probe(v: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                iters: int = ITERS) -> tuple[torch.Tensor, torch.Tensor]:
-    """Chain C: both chains in one warp-specialised kernel for CUDA
-    tensors, mixed for CPU."""
+def _mixed(kind: str, wrapper, v, a, b, iters):
     dev = check_operands(v=v, a=a, b=b)
     if dev.type == "cpu":
         return mixed(v, a, b, iters)
     vo = torch.empty_like(v)
     mo = torch.empty((M, N), dtype=torch.int32, device=dev)
-    _launch("mixed", dev, [v.data_ptr(), a.data_ptr(), b.data_ptr(), vo.data_ptr(),
-                           mo.data_ptr()], iters)
-    _build.count_launch(mixed_probe)
+    _launch(kind, dev, [v.data_ptr(), a.data_ptr(), b.data_ptr(), vo.data_ptr(),
+                        mo.data_ptr()], iters)
+    _build.count_launch(wrapper)
     return vo, mo
+
+
+def mixed_probe(v: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                iters: int = ITERS) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chain C in one body: the integer rounds inside the warpgroup that
+    issues the bulk products, between their commit and their wait, for
+    CUDA tensors; mixed for CPU."""
+    return _mixed("mixed", mixed_probe, v, a, b, iters)
+
+
+def mixed_split_probe(v: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                      iters: int = ITERS) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chain C split: the integer rounds in warps of their own beside the
+    product warpgroups, for CUDA tensors; mixed for CPU."""
+    return _mixed("mixed_split", mixed_split_probe, v, a, b, iters)
 
 
 vpu_probe.launches = 0
 mxu_probe.launches = 0
 mixed_probe.launches = 0
+mixed_split_probe.launches = 0
 
 
 def max_active_clusters(device="cuda") -> dict:
-    """How many clusters of each kernel the card holds at once
-    (``cudaOccupancyMaxActiveClusters``); the two-stream run needs
-    2 x PROBE_BLOCKS / CLUSTER resident to run A and B side by side."""
+    """Residency on the card: "vpu", A's blocks an SM; "mxu", "mixed",
+    "mixed_split", the clusters of CLUSTER blocks of each kernel the card
+    holds at once (``cudaOccupancyMaxActiveClusters``; a launch needs
+    PROBE_BLOCKS / CLUSTER); "pair", the pairs of one B block and one A
+    block an SM holds by registers, shared memory and threads (the
+    two-stream run needs 1); "cluster", the cluster size."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError("cluster residency needs a CUDA device")
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 6)()
     fn = _build.load("overlap_probe").pir_overlap_max_clusters
     fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
     with torch.cuda.device(dev):
         err = fn(ctypes.addressof(out))
     _build.check(err, "overlap_probe max_clusters")
-    return dict(zip(("vpu", "mxu", "mixed"), out))
+    return dict(zip(("vpu", "mxu", "mixed", "mixed_split", "pair", "cluster"), out))
+
+
+def chain_latencies(device="cuda", reps: int = LATENCY_REPS) -> dict:
+    """The latencies of the chains' dependent paths, measured on the card
+    with clock64 and globaltimer over `reps` repetitions each:
+    "int_round", one element's round of A (28 dependent SHF, LOP3 and
+    IADD3 instructions) on one thread; "wgmma_step", one of CRIT_STEPS
+    dependent m64n8k32 s8 products, a group of them committed and waited
+    for as the critical tile runs them; "dsmem_hop", one 16-byte st.async
+    into a peer's shared memory, counted on its transaction mbarrier and
+    seen by the peer (half a round trip). Each {"cycles": per step,
+    "ns": per step}."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("the latency probes need a CUDA device")
+    fn = _build.load("overlap_probe").pir_overlap_latency
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    steps = {"int_round": reps, "wgmma_step": CRIT_STEPS * reps, "dsmem_hop": 2 * reps}
+    rng = np.random.default_rng(reps)
+    io = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, 512, dtype=np.int64)
+                          .astype(np.int32)).to(dev)
+    lat = {}
+    with torch.cuda.device(dev):
+        for which, name in enumerate(LATENCY_PROBES):
+            out = torch.zeros(3, dtype=torch.int64, device=dev)
+            err = fn(which, reps, io.data_ptr(), out.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
+            _build.check(err, f"overlap_probe latency {name}")
+            cycles, ns, bad = out.tolist()
+            if bad:
+                raise RuntimeError(f"the {name} probe read {bad} wrong words")
+            lat[name] = {"cycles": cycles / steps[name], "ns": ns / steps[name]}
+    return lat
+
+
+def chain_floor_ms(lat: dict, iters: int) -> dict:
+    """Each chain's floor in ms: `iters` rounds of its dependent path's
+    least latency (`lat` as chain_latencies gives it). A: one element's
+    round. B: CRIT_STEPS dependent products of the critical tile and one
+    hop of its row bits. C: the larger of the two."""
+    a = iters * lat["int_round"]["ns"] * 1e-6
+    b = iters * (CRIT_STEPS * lat["wgmma_step"]["ns"] + lat["dsmem_hop"]["ns"]) * 1e-6
+    return {"vpu": a, "mxu": b, "mixed": max(a, b), "mixed_split": max(a, b)}
 
 
 def streams(v: torch.Tensor, a: torch.Tensor, b: torch.Tensor, iters: int = ITERS,
@@ -279,10 +355,10 @@ def overlap_of(ta: float, tb: float, tc: float) -> float:
 
 
 def run(iters: int = ITERS, reps: int = REPS, device=None, seed: int = 0) -> dict:
-    """The probe: inputs from `seed`, each chain once checked against its
-    plain version (equal words; on the card), then A, B, C and the two
-    streams timed over `reps` calls after one warm-up call. Runs on the
-    card unless device="cpu"."""
+    """The probe: inputs from `seed`, each kernel once checked against its
+    plain version (equal words; on the card), then A, B, C in both
+    placements and the two streams timed over `reps` calls after one
+    warm-up call. Runs on the card unless device="cpu"."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("the overlap probe needs a CUDA device; pass device='cpu' "
@@ -292,12 +368,13 @@ def run(iters: int = ITERS, reps: int = REPS, device=None, seed: int = 0) -> dic
     v, a, b = make_inputs(seed, dev)
     ms = _timer(dev)
     calls = {"vpu": lambda: (vpu_probe(v, iters),), "mxu": lambda: (mxu_probe(a, b, iters),),
-             "mixed": lambda: mixed_probe(v, a, b, iters)}
+             "mixed": lambda: mixed_probe(v, a, b, iters),
+             "mixed_split": lambda: mixed_split_probe(v, a, b, iters)}
     if dev.type == "cuda":
         pair = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
         calls["streams"] = lambda: streams(v, a, b, iters, pair)
         want = {"vpu": (vpu_chain(v, iters),), "mxu": (mxu_chain(a, b, iters),)}
-        want["mixed"] = want["streams"] = want["vpu"] + want["mxu"]
+        want["mixed"] = want["mixed_split"] = want["streams"] = want["vpu"] + want["mxu"]
         for name, call in calls.items():  # also the warm-up call
             if not all(torch.equal(g, w) for g, w in zip(call(), want[name])):
                 raise RuntimeError(f"the {name} kernel disagrees with its plain version")
@@ -306,6 +383,7 @@ def run(iters: int = ITERS, reps: int = REPS, device=None, seed: int = 0) -> dic
             call()
     rec = {f"{name}_ms": ms(call, reps) for name, call in calls.items()}
     rec["overlap"] = overlap_of(rec["vpu_ms"], rec["mxu_ms"], rec["mixed_ms"])
+    rec["overlap_split"] = overlap_of(rec["vpu_ms"], rec["mxu_ms"], rec["mixed_split_ms"])
     if dev.type == "cuda":
         rec["streams_overlap"] = overlap_of(rec["vpu_ms"], rec["mxu_ms"], rec["streams_ms"])
         rec["max_active_clusters"] = max_active_clusters(dev)
@@ -327,7 +405,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     rec = run(args.iters, args.reps, args.device, args.seed)
     log(f"{rec['device']}: iters {args.iters}, serial sum {rec['vpu_ms'] + rec['mxu_ms']:.4f} "
-        f"ms, max {max(rec['vpu_ms'], rec['mxu_ms']):.4f} ms, mixed {rec['mixed_ms']:.4f} ms")
+        f"ms, max {max(rec['vpu_ms'], rec['mxu_ms']):.4f} ms, mixed {rec['mixed_ms']:.4f} ms, "
+        f"mixed_split {rec['mixed_split_ms']:.4f} ms")
     print(json.dumps(rec))
     return 0
 

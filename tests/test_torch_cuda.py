@@ -655,12 +655,84 @@ def test_overlap_probe_int8_wrap_of_a_plus_one(dev, iters):
 
 
 def test_overlap_probe_max_active_clusters(dev):
-    """Each kernel's resident clusters of 8: at least one, at most the
-    card's SMs / 8 (one block an SM)."""
+    """Each clustered kernel's resident clusters of CLUSTER: at least one,
+    at most two blocks an SM (its launch bounds); A's blocks an SM at
+    least one; the cluster size is the module's."""
     got = ov.max_active_clusters(dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert set(got) == {"vpu", "mxu", "mixed"}
-    assert all(1 <= n <= sms // 8 for n in got.values()), got
+    assert set(got) == {"vpu", "mxu", "mixed", "mixed_split", "pair", "cluster"}
+    assert got["cluster"] == ov.CLUSTER
+    assert all(1 <= got[k] <= 2 * sms // ov.CLUSTER for k in ("mxu", "mixed", "mixed_split")), got
+    assert got["vpu"] >= 1, got
+
+
+@pytest.mark.parametrize("iters", [0, 1, 7, 256])
+def test_overlap_probe_mixed_split_matches_plain(dev, iters):
+    """C split (integer warps of their own): equal words to mixed."""
+    v, a, b = ov.make_inputs(iters + 11, dev)
+    before = ov.mixed_split_probe.launches
+    vo, mo = ov.mixed_split_probe(v, a, b, iters)
+    torch.cuda.synchronize()
+    assert ov.mixed_split_probe.launches == before + 1
+    assert torch.equal(vo, ov.vpu_chain(v, iters))
+    assert torch.equal(mo, ov.mxu_chain(a, b, iters))
+
+
+def test_overlap_probe_zero_rounds_every_kernel(dev):
+    """0 rounds: every kernel and the two-stream run return v and zero
+    accumulators."""
+    v, a, b = ov.make_inputs(3, dev)
+    zero = torch.zeros((ov.M, ov.N), dtype=torch.int32, device=dev)
+    assert torch.equal(ov.vpu_probe(v, 0), v)
+    assert torch.equal(ov.mxu_probe(a, b, 0), zero)
+    for vo, mo in (ov.mixed_probe(v, a, b, 0), ov.mixed_split_probe(v, a, b, 0),
+                   ov.streams(v, a, b, 0)):
+        assert torch.equal(vo, v) and torch.equal(mo, zero)
+
+
+@pytest.mark.parametrize("iters", [1, 2, 7])
+def test_overlap_probe_int8_wrap_in_both_placements(dev, iters):
+    """a = 127 and -128 wrap when their row's bit is set (the a + 1
+    fragments), and rows whose column-0 parity flips every round (b's
+    column 0 odd only in row 0 of K, a's column 0 odd in those rows):
+    equal words in B and in both placements of C."""
+    v, a, b = ov.make_inputs(iters + 5, dev)
+    a[::3, ::5] = 127
+    a[1::3, ::7] = -128
+    b[:, 0] = 2 * (b[:, 0] // 2)
+    b[0, 0] = 1
+    a[::2, 0] = 1  # bit_t = (1 + bit_{t-1}) & 1: flips every round
+    want = ov.mxu_chain(a, b, iters)
+    assert torch.equal(ov.mxu_probe(a, b, iters), want)
+    assert torch.equal(ov.mixed_probe(v, a, b, iters)[1], want)
+    assert torch.equal(ov.mixed_split_probe(v, a, b, iters)[1], want)
+    if iters > 1:  # the flipping rows did flip
+        bits = [ov.mxu_chain(a, b, t)[::2, 0] & 1 for t in (iters - 1, iters)]
+        assert not torch.equal(bits[0], bits[1])
+
+
+def test_overlap_probe_cluster_size_launches_at_once(dev):
+    """The chosen cluster size launches, and the card holds every cluster
+    of a launch at once (PROBE_BLOCKS / CLUSTER), so no cluster waits for
+    another to finish; one B block and one A block fit an SM together."""
+    got = ov.max_active_clusters(dev)
+    need = ov.PROBE_BLOCKS // ov.CLUSTER
+    assert all(got[k] >= need for k in ("mxu", "mixed", "mixed_split")), got
+    assert got["pair"] >= 1, got
+    v, a, b = ov.make_inputs(4, dev)
+    assert torch.equal(ov.mxu_probe(a, b, 3), ov.mxu_chain(a, b, 3))
+
+
+def test_overlap_chain_latencies_on_the_card(dev):
+    """The three latency probes run and give positive cycles and ns a step;
+    the chain floor grows with the rounds."""
+    lat = ov.chain_latencies(dev, reps=256)
+    assert set(lat) == set(ov.LATENCY_PROBES)
+    assert all(x["cycles"] > 0 and x["ns"] > 0 for x in lat.values()), lat
+    # 28 dependent instructions take at least 28 cycles
+    assert lat["int_round"]["cycles"] >= ov.ROUND_INSTRS, lat
+    f1, f2 = ov.chain_floor_ms(lat, 256), ov.chain_floor_ms(lat, 512)
+    assert all(f2[k] > f1[k] > 0 for k in f1)
 
 
 def test_overlap_probe_rejects_what_the_kernels_cannot_read(dev):
@@ -681,6 +753,10 @@ def test_overlap_probe_rejects_what_the_kernels_cannot_read(dev):
         ov.vpu_probe(v, -1)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ov.streams(v.cpu(), a.cpu(), b.cpu())
+    with pytest.raises(ValueError, match="must be a"):
+        ov.mixed_split_probe(v, a, b[:, :128])
+    with pytest.raises(ValueError, match="iters"):
+        ov.mixed_split_probe(v, a, b, -1)
 
 
 @pytest.mark.parametrize("slot", [8, 3])

@@ -140,3 +140,44 @@ def test_the_probe_needs_a_card_unless_told_cpu(monkeypatch, capsys):
     assert rec["max_active_clusters"] is None
     with pytest.raises(ValueError, match="CUDA device"):
         ov.max_active_clusters("cpu")
+
+
+def test_mixed_split_takes_the_plain_version_on_the_cpu():
+    """Both placements of C have mixed as their plain version, and a CPU
+    call counts no launch."""
+    v, a, b = ov.make_inputs(4)
+    before = (ov.mixed_probe.launches, ov.mixed_split_probe.launches)
+    got = ov.mixed_split_probe(v, a, b, 3)
+    want = ov.mixed(v, a, b, 3)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (ov.mixed_probe.launches, ov.mixed_split_probe.launches) == before
+    with pytest.raises(ValueError, match="must be a"):
+        ov.mixed_split_probe(v, a, b[:, :128])
+    with pytest.raises(ValueError, match="different devices"):
+        ov.mixed_split_probe(v, a, torch.empty(b.shape, dtype=b.dtype, device="meta"))
+
+
+def test_run_on_the_cpu_times_both_placements():
+    rec = ov.run(2, 1, "cpu")
+    assert {"mixed_ms", "mixed_split_ms", "overlap", "overlap_split"} <= set(rec)
+    assert rec["overlap_split"] == ov.overlap_of(rec["vpu_ms"], rec["mxu_ms"],
+                                                 rec["mixed_split_ms"])
+
+
+def test_chain_floor_is_the_rounds_of_each_dependent_path():
+    """A: a round of one element; B: CRIT_STEPS dependent products and a
+    hop; C: the larger, in both placements; in ms."""
+    lat = {"int_round": {"cycles": 150.0, "ns": 80.0},
+           "wgmma_step": {"cycles": 30.0, "ns": 16.0},
+           "dsmem_hop": {"cycles": 400.0, "ns": 210.0}}
+    floor = ov.chain_floor_ms(lat, 1000)
+    assert floor["vpu"] == pytest.approx(1000 * 80.0 * 1e-6)
+    assert floor["mxu"] == pytest.approx(1000 * (ov.CRIT_STEPS * 16.0 + 210.0) * 1e-6)
+    assert floor["mixed"] == floor["mixed_split"] == max(floor["vpu"], floor["mxu"])
+    assert ov.CRIT_STEPS == ov.K // ov.CLUSTER // 32
+    assert ov.chain_floor_ms(lat, 0) == {k: 0.0 for k in floor}
+
+
+def test_chain_latencies_need_a_card():
+    with pytest.raises(ValueError, match="CUDA device"):
+        ov.chain_latencies("cpu")
