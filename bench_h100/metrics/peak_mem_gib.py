@@ -1,0 +1,5 @@
+"""peak_mem_gib: torch.cuda.max_memory_allocated over set-up and window, GiB."""
+
+
+def read(ctx):
+    return ctx.peak_bytes / (1 << 30) if ctx.peak_bytes else None
