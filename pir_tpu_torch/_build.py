@@ -23,6 +23,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from .utils.metrics import span
+
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("stacked_tail", "packed_scan", "compat_stage", "fast_tail", "fused_scan_expand",
@@ -98,10 +100,11 @@ def load(name: str) -> ctypes.CDLL:
         with _lock:
             lib = _libs.get(name)
             if lib is None:
-                path = _lib_path(name)
-                if not path.exists():
-                    build((name,))
-                lib = _libs[name] = ctypes.CDLL(str(path))
+                with span("pir.kernel_load", name):
+                    path = _lib_path(name)
+                    if not path.exists():
+                        build((name,))
+                    lib = _libs[name] = ctypes.CDLL(str(path))
     return lib
 
 
@@ -152,8 +155,9 @@ def load_host(name: str) -> ctypes.CDLL:
         with _lock:
             lib = _libs.get(key)
             if lib is None:
-                build_host(name)
-                lib = _libs[key] = ctypes.CDLL(str(host_lib_path(name)))
+                with span("pir.kernel_load", name):
+                    build_host(name)
+                    lib = _libs[key] = ctypes.CDLL(str(host_lib_path(name)))
     return lib
 
 

@@ -81,6 +81,7 @@ from ..ops.fused import fused_scan_expand
 from ..ops.packed_scan import packed_scan, unpack_words_t
 from ..ops.planes_scan import planes_scan
 from ..ops.xor_scan import masked_xor_scan
+from ..utils.metrics import span
 
 # queries per stacked step at most; the table's storage order follows
 # from it, so table build and dispatch share this one constant
@@ -288,20 +289,21 @@ def stacked_head(payloads: torch.Tensor, layout: FastRootLayout, shard=None):
     With shard = (index, levels) the walk starts at that row shard's
     subtree root (dpf.device.shard_prefix_walk) and the geometry is the
     subtree's: stacked_fast_geometry(depth - levels, n_blk)."""
-    depth = layout.depth - (shard[1] if shard else 0)
-    k, tail = stacked_fast_geometry(depth, layout.leaf_blocks)
-    head_levels = depth - tail
-    nw0 = max(1, (1 << head_levels) // 32)
-    if layout.shared_rk:
-        rk, rk_leaf = unpack_fast_root_payload(payloads[0], layout)[6:]
-        rk_head = rk
-    else:
-        rk_head, rkl_lanes = unpack_fast_root_payload_lanes_rk(payloads, layout)
-        rk = regroup_rk_stacked(rk_head, k, nw0)
-        rk_leaf = regroup_rk_stacked(rkl_lanes, k, nw0)
-    seeds, t, cw_s, cw_tl, cw_tr, fcw = expand_root_head_grouped(
-        payloads, layout, rk_head, head_levels, k, shard)
-    return seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, rk_leaf
+    with span("pir.head"):
+        depth = layout.depth - (shard[1] if shard else 0)
+        k, tail = stacked_fast_geometry(depth, layout.leaf_blocks)
+        head_levels = depth - tail
+        nw0 = max(1, (1 << head_levels) // 32)
+        if layout.shared_rk:
+            rk, rk_leaf = unpack_fast_root_payload(payloads[0], layout)[6:]
+            rk_head = rk
+        else:
+            rk_head, rkl_lanes = unpack_fast_root_payload_lanes_rk(payloads, layout)
+            rk = regroup_rk_stacked(rk_head, k, nw0)
+            rk_leaf = regroup_rk_stacked(rkl_lanes, k, nw0)
+        seeds, t, cw_s, cw_tl, cw_tr, fcw = expand_root_head_grouped(
+            payloads, layout, rk_head, head_levels, k, shard)
+        return seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, rk_leaf
 
 
 def stacked_words_t(packed: torch.Tensor, k: int, rows: int) -> torch.Tensor:
@@ -336,11 +338,13 @@ def fused_fast_root_batch_stacked(table_u8: torch.Tensor, payloads: torch.Tensor
     if qp != q:  # pad to the step group; sliced back before return
         payloads = torch.cat([payloads, payloads[:1].expand(qp - q, -1)])
     ops = stacked_head(payloads, layout, shard)
-    packed = fast_tail_expand_stacked(*ops, tail=tail, n_blk=layout.leaf_blocks)
-    words_t = stacked_words_t(packed, k, table_u8.shape[0])
-    if q <= MIN_BATCH:
-        return small_batch_scan(table_u8, words_t[:, :q])
-    return packed_scan(table_u8, words_t)[:q]
+    with span("pir.expand"):
+        packed = fast_tail_expand_stacked(*ops, tail=tail, n_blk=layout.leaf_blocks)
+    with span("pir.scan"):
+        words_t = stacked_words_t(packed, k, table_u8.shape[0])
+        if q <= MIN_BATCH:
+            return small_batch_scan(table_u8, words_t[:, :q])
+        return packed_scan(table_u8, words_t)[:q]
 
 
 def pertail_head(payloads: torch.Tensor, layout: FastRootLayout, tail_levels: int,
@@ -353,18 +357,19 @@ def pertail_head(payloads: torch.Tensor, layout: FastRootLayout, tail_levels: in
     own keys in one batched pass. With shard = (index, levels) the walk
     starts at that row shard's subtree root and depth is the subtree's,
     depth - levels (dpf.device.shard_prefix_walk)."""
-    depth = layout.depth - (shard[1] if shard else 0)
-    tail = max(0, min(tail_levels, depth - 5))
-    if layout.shared_rk:
-        rk, rk_leaf = unpack_fast_root_payload(payloads[0], layout)[6:]
-        rk_head = rk
-    else:  # lanes (11,8,3,16,Q) for the head; (Q,...,1) per query for the tail
-        rk_head, rkl = unpack_fast_root_payload_lanes_rk(payloads, layout)
-        rk = rk_head.permute(4, 0, 1, 2, 3)[..., None].contiguous()
-        rk_leaf = rkl.permute(3, 0, 1, 2)[..., None].contiguous()
-    seeds, t, cw_s, cw_tl, cw_tr, fcw = expand_root_head_lanes(
-        payloads, layout, rk_head, depth - tail, shard)
-    return (seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, rk_leaf), tail
+    with span("pir.head"):
+        depth = layout.depth - (shard[1] if shard else 0)
+        tail = max(0, min(tail_levels, depth - 5))
+        if layout.shared_rk:
+            rk, rk_leaf = unpack_fast_root_payload(payloads[0], layout)[6:]
+            rk_head = rk
+        else:  # lanes (11,8,3,16,Q) for the head; (Q,...,1) per query for the tail
+            rk_head, rkl = unpack_fast_root_payload_lanes_rk(payloads, layout)
+            rk = rk_head.permute(4, 0, 1, 2, 3)[..., None].contiguous()
+            rk_leaf = rkl.permute(3, 0, 1, 2)[..., None].contiguous()
+        seeds, t, cw_s, cw_tl, cw_tr, fcw = expand_root_head_lanes(
+            payloads, layout, rk_head, depth - tail, shard)
+        return (seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, rk_leaf), tail
 
 
 def pertail_words_t(packed: torch.Tensor, rows: int) -> torch.Tensor:
@@ -402,11 +407,13 @@ def fused_fast_root_batch_pertail(table_u8: torch.Tensor, payloads: torch.Tensor
         packed = expand_fast_root_lanes_full(payloads, layout, rk, rk_leaf)
     else:
         ops, tail = pertail_head(payloads, layout, tail_levels, shard)
-        packed = fast_tail_expand(*ops, levels=tail)
-    words_t = pertail_words_t(packed, table_u8.shape[0])
-    if payloads.shape[0] <= MIN_BATCH:
-        return small_batch_scan(table_u8, words_t)
-    return packed_scan(table_u8, words_t)
+        with span("pir.expand"):
+            packed = fast_tail_expand(*ops, levels=tail)
+    with span("pir.scan"):
+        words_t = pertail_words_t(packed, table_u8.shape[0])
+        if payloads.shape[0] <= MIN_BATCH:
+            return small_batch_scan(table_u8, words_t)
+        return packed_scan(table_u8, words_t)
 
 
 def check_overlap_layout(layout: FastRootLayout) -> None:
@@ -464,25 +471,26 @@ def compat_head(payloads: torch.Tensor, layout: CompatRootLayout, w: int, shard=
     With shard = (index, levels) the skip walk is followed by the walk
     down to that row shard's subtree (dpf.device.shard_prefix_walk,
     upper lanes kept), and the head starts there."""
-    split = 5 + w.bit_length() - 1
-    sk = layout.skip
-    seeds, t, cw_s, cw_tl, cw_tr, fcw, rk = unpack_compat_root_payload(payloads, layout)
-    seeds, t = _compat_skip_walk(seeds, t, cw_s, cw_tl, cw_tr, rk, sk)
-    if shard is not None:
-        index, levels = shard
-        x, t = shard_prefix_walk(
-            seeds.transpose(0, 1), t,
-            [(cw_s[:, i].transpose(0, 1), cw_tl[:, i:i + 1], cw_tr[:, i:i + 1])
-             for i in range(sk, sk + levels)], _rk_bit_first(rk), index, low_bit=False)
-        seeds = x.transpose(0, 1)
-        sk += levels
-    seeds, t = expand_planes_from_root(seeds, t, cw_s[:, sk:], cw_tl[:, sk:], cw_tr[:, sk:],
-                                       rk, split)
-    q = payloads.shape[0]
-    lv = sk + split
-    return (seeds.unsqueeze(2).contiguous(), t.reshape(q, 1, 1, w).contiguous(),
-            cw_s[:, lv:].contiguous(), cw_tl[:, lv:].contiguous(),
-            cw_tr[:, lv:].contiguous(), rk, fcw.contiguous())
+    with span("pir.head"):
+        split = 5 + w.bit_length() - 1
+        sk = layout.skip
+        seeds, t, cw_s, cw_tl, cw_tr, fcw, rk = unpack_compat_root_payload(payloads, layout)
+        seeds, t = _compat_skip_walk(seeds, t, cw_s, cw_tl, cw_tr, rk, sk)
+        if shard is not None:
+            index, levels = shard
+            x, t = shard_prefix_walk(
+                seeds.transpose(0, 1), t,
+                [(cw_s[:, i].transpose(0, 1), cw_tl[:, i:i + 1], cw_tr[:, i:i + 1])
+                 for i in range(sk, sk + levels)], _rk_bit_first(rk), index, low_bit=False)
+            seeds = x.transpose(0, 1)
+            sk += levels
+        seeds, t = expand_planes_from_root(seeds, t, cw_s[:, sk:], cw_tl[:, sk:], cw_tr[:, sk:],
+                                           rk, split)
+        q = payloads.shape[0]
+        lv = sk + split
+        return (seeds.unsqueeze(2).contiguous(), t.reshape(q, 1, 1, w).contiguous(),
+                cw_s[:, lv:].contiguous(), cw_tl[:, lv:].contiguous(),
+                cw_tr[:, lv:].contiguous(), rk, fcw.contiguous())
 
 
 def compat_stages(seeds, t, cw_s, cw_tl, cw_tr, rk, fcw, tails) -> torch.Tensor:
@@ -517,12 +525,14 @@ def fused_compat_root_batch(table_u8: torch.Tensor, payloads: torch.Tensor,
     """
     q = payloads.shape[0]
     ops = compat_head(payloads, layout, w, shard)
-    words = torch.cat([compat_stages(*(x[q0:q0 + q_chunk] for x in ops), tails)
-                       for q0 in range(0, q, q_chunk)])
-    rows = table_u8.shape[0]
-    if rows // 32 > words.shape[1]:  # zero bits for the XOR-neutral padded rows
-        words = torch.cat([words, words.new_zeros(q, rows // 32 - words.shape[1])], dim=1)
-    return packed_scan(table_u8, words.t().contiguous())
+    with span("pir.expand"):
+        words = torch.cat([compat_stages(*(x[q0:q0 + q_chunk] for x in ops), tails)
+                           for q0 in range(0, q, q_chunk)])
+    with span("pir.scan"):
+        rows = table_u8.shape[0]
+        if rows // 32 > words.shape[1]:  # zero bits for the XOR-neutral padded rows
+            words = torch.cat([words, words.new_zeros(q, rows // 32 - words.shape[1])], dim=1)
+        return packed_scan(table_u8, words.t().contiguous())
 
 
 def fused_compat_preplane_batch(table_u8: torch.Tensor, payloads: torch.Tensor,

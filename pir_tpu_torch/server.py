@@ -107,6 +107,7 @@ from .query import QueryShare, SecretSharedQueryResult
 from .slot import Slot
 from .utils import pad_tile
 from .utils.bits import num_bits_for_height
+from .utils.metrics import next_batch, span
 
 # The compat stage cascade (dpf.device.compat_stage_plan): at most this
 # many lane words per chunk (the head walks 5 + log2(w) levels, and w
@@ -354,7 +355,8 @@ class TorchPirServer:
         with self._lock:
             val = self._tables.get(key)
             if val is None:
-                val = self._tables[key] = build()
+                with span("pir.table"):
+                    val = self._tables[key] = build()
         return val
 
     def _storage_table(self, key, group_size: int, perm, flat: int,
@@ -542,6 +544,17 @@ class TorchPirServer:
             )
             for i in range(n)
         ]
+
+    def _answers(self, out_dev: torch.Tensor, group_size: int, n: int, batch: int):
+        """The zero-arg future of batch number `batch`'s results: the
+        (Q, row_bytes) device answers copied back, then sliced."""
+        def take() -> list[SecretSharedQueryResult]:
+            with span("pir.answers.copy", batch):
+                out = out_dev.cpu().numpy()
+            with span("pir.answers.slice", batch):
+                return self._slice_batch_results(out, group_size, n)
+
+        return take
 
     def _result_from_words(self, res_words: torch.Tensor,
                            group_size: int) -> SecretSharedQueryResult:
@@ -781,8 +794,9 @@ class TorchPirServer:
                     part = pad_tile(part, cap)
                 outs.append(self._dispatch_fast_root(part, shared_rk=False)[:take])
             return torch.cat(outs, dim=0)
-        pay, layout = make_fast_payload_batch(queries, shared_rk=shared_rk)
-        pay_t = u32_tensor(pay, self.device)
+        with span("pir.payload"):
+            pay, layout = make_fast_payload_batch(queries, shared_rk=shared_rk)
+            pay_t = u32_tensor(pay, self.device)
         if self.fast_stacked:
             return fused_fast_root_batch_stacked(self._root_table_u8(g, depth, n_blk), pay_t,
                                                  layout)
@@ -799,29 +813,33 @@ class TorchPirServer:
         table = self._compat_root_table_u8(g, nbd, w, tails)
         outs = []
         for i in range(0, len(queries), COMPAT_BATCH_CAP):
-            pay, layout = make_compat_payload_batch(queries[i:i + COMPAT_BATCH_CAP], height=h)
-            outs.append(fused_compat_root_batch(table, u32_tensor(pay, self.device), layout,
-                                                w=w, tails=tails, q_chunk=COMPAT_Q_CHUNK))
+            with span("pir.payload"):
+                pay, layout = make_compat_payload_batch(queries[i:i + COMPAT_BATCH_CAP],
+                                                        height=h)
+                pay_t = u32_tensor(pay, self.device)
+            outs.append(fused_compat_root_batch(table, pay_t, layout, w=w, tails=tails,
+                                                q_chunk=COMPAT_Q_CHUNK))
         return torch.cat(outs) if len(outs) > 1 else outs[0]
 
     def private_secret_shared_query_batch_async(self, queries: list[QueryShare]):
         """Dispatch a batch without waiting for the device; returns a
         zero-arg callable producing the results."""
-        self._validate_batch(queries)
-        g, n = queries[0].group_size, len(queries)
-        if queries[0].is_keyword_based:
-            words = self._keyword_query_batch(queries)
-            return lambda: [self._result_from_words(w, g) for w in words.cpu()]
-        if self._fast_root_applicable(queries):
-            out_dev = self._dispatch_fast_root(queries)
-        elif self._compat_applicable(queries):
-            out_dev = self._dispatch_compat(queries)
-        elif self._compat_preplane_applicable(queries):
-            out_dev = self._dispatch_compat_preplane(queries)
-        else:
-            words = self._dispatch_per_query(queries)
-            return lambda: [self._result_from_words(w, g) for w in words.cpu()]
-        return lambda: self._slice_batch_results(out_dev.cpu().numpy(), g, n)
+        with span("pir.dispatch", next_batch()) as root:
+            self._validate_batch(queries)
+            g, n = queries[0].group_size, len(queries)
+            if queries[0].is_keyword_based:
+                words = self._keyword_query_batch(queries)
+                return lambda: [self._result_from_words(w, g) for w in words.cpu()]
+            if self._fast_root_applicable(queries):
+                out_dev = self._dispatch_fast_root(queries)
+            elif self._compat_applicable(queries):
+                out_dev = self._dispatch_compat(queries)
+            elif self._compat_preplane_applicable(queries):
+                out_dev = self._dispatch_compat_preplane(queries)
+            else:
+                words = self._dispatch_per_query(queries)
+                return lambda: [self._result_from_words(w, g) for w in words.cpu()]
+            return self._answers(out_dev, g, n, root.arg)
 
     def private_secret_shared_query_batch(
         self, queries: list[QueryShare]
@@ -851,9 +869,9 @@ class FastServingStream:
         self._srv = server
         self._mode = None  # "stacked" | "fused", decided on the first submit
         self._shape = None  # (Q, group, depth) [+ layout in fused mode]
-        self._pending = None  # stacked: (out_dev, queries) not yet drained
+        self._pending = None  # stacked: (out_dev, queries, batch number) not yet drained
         self._words = None  # fused: the previous batch's selection words
-        self._prev = None  # fused: the previous batch's queries
+        self._prev = None  # fused: the previous batch's (queries, batch number)
         self._table_key = None
 
     def _table(self) -> torch.Tensor:
@@ -901,29 +919,29 @@ class FastServingStream:
             self._table(), self._words, payloads, self._shape[3], self._srv.tail_levels)
         return out_prev
 
-    def _future(self, out_dev: torch.Tensor, queries: list[QueryShare]):
-        g, n = queries[0].group_size, len(queries)
-        return lambda: self._srv._slice_batch_results(out_dev.cpu().numpy(), g, n)
+    def _future(self, out_dev: torch.Tensor, queries: list[QueryShare], batch: int):
+        return self._srv._answers(out_dev, queries[0].group_size, len(queries), batch)
 
     def submit(self, queries):
         """Dispatch a batch; returns a zero-arg callable resolving the
         previous batch's results (None for the first submit). A refused
         batch raises and leaves the pending batch answerable."""
-        queries = list(queries)
-        mode = self._mode or ("stacked" if self._srv.fast_stacked else "fused")
-        if mode == "fused":
-            pay = self._prepare(queries)
-            self._mode = mode
-            out_prev = self._step(pay)
-            prev, self._prev = self._prev, queries
-            return None if prev is None else self._future(out_prev, prev)
-        shape = self._check_uniform(queries)
-        if self._shape is not None and shape != self._shape:
-            raise ValueError(f"stream batches must keep one shape: {shape} != {self._shape}")
-        out_dev = self._srv._dispatch_fast_root(queries)
-        self._mode, self._shape = mode, shape
-        prev, self._pending = self._pending, (out_dev, queries)
-        return None if prev is None else self._future(*prev)
+        with span("pir.dispatch", next_batch()) as root:
+            queries = list(queries)
+            mode = self._mode or ("stacked" if self._srv.fast_stacked else "fused")
+            if mode == "fused":
+                pay = self._prepare(queries)
+                self._mode = mode
+                out_prev = self._step(pay)
+                prev, self._prev = self._prev, (queries, root.arg)
+                return None if prev is None else self._future(out_prev, *prev)
+            shape = self._check_uniform(queries)
+            if self._shape is not None and shape != self._shape:
+                raise ValueError(f"stream batches must keep one shape: {shape} != {self._shape}")
+            out_dev = self._srv._dispatch_fast_root(queries)
+            self._mode, self._shape = mode, shape
+            prev, self._pending = self._pending, (out_dev, queries, root.arg)
+            return None if prev is None else self._future(*prev)
 
     def flush(self):
         """Drain the last submitted batch: its results' future, or None
@@ -932,9 +950,9 @@ class FastServingStream:
         if self._mode == "stacked":
             if self._pending is None:
                 return None
-            (out, queries), self._pending = self._pending, None
+            prev, self._pending = self._pending, None
             self._shape = self._mode = None
-            return self._future(out, queries)
+            return self._future(*prev)
         if self._prev is None:
             return None
         zeros = torch.zeros((self._shape[0], self._shape[3].total), dtype=torch.int32,
@@ -942,4 +960,4 @@ class FastServingStream:
         out_last = self._step(zeros)
         prev, self._prev = self._prev, None
         self._words = self._shape = self._mode = None
-        return self._future(out_last, prev)
+        return self._future(out_last, *prev)

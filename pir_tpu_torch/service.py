@@ -73,7 +73,7 @@ from .query import (
 from .parallel.mesh import MeshPirServer
 from .server import TorchPirServer
 from .slot import new_slot_from_string
-from .utils.metrics import ServerMetrics
+from .utils.metrics import ServerMetrics, span_totals
 
 OP_METADATA = 1
 OP_QUERY = 2
@@ -753,7 +753,8 @@ class PirService:
                 raise ValueError("this service hosts no sqrt search tree")
             return OP_SQRTST_META, wire.serialize_sqrt_st_meta(self.sqrt_st)
         if opcode == OP_METRICS:
-            summary = dict(self.metrics.summary(), engine=self.engine_name)
+            summary = dict(self.metrics.summary(), engine=self.engine_name,
+                           spans=span_totals())
             return OP_METRICS, json.dumps(summary).encode()
         raise ValueError(f"unknown opcode {opcode}")
 

@@ -1,20 +1,34 @@
-"""Serving metrics and tracing (counterpart of ``pir_tpu/utils/metrics.py``).
+"""Serving metrics and the port's span recorder (counterpart of
+``pir_tpu/utils/metrics.py``, whose ``trace()`` has no counterpart here:
+a ``torch.profiler`` run around any block carries the spans below).
 
 ``ServerMetrics`` is copied: queries/sec, effective scan GB/s and
 latency percentiles of a service. It takes a lock around its updates and
-its summary, since a service's handler threads record at once. ``trace(dirname)`` records a
-``torch.profiler`` trace of a block, CPU and CUDA activities, and writes
-it to `dirname` as a Chrome trace; it adds no spans or counters of its
-own.
+its summary, since a service's handler threads record at once.
+
+``span(name, arg=None)`` times a stretch of the serving path under a
+``pir.*`` name. Always on: each span adds its self time (its duration
+less what its child spans on the same thread cover) and one count to a
+process-wide total under its name; ``span_totals()`` snapshots them,
+``reset_spans()`` clears them. While a ``torch.profiler`` records, a span
+adds nothing to the totals (a profiled host runs slower) and enters a
+``record_function`` range instead, so it lands in the Chrome trace as a
+``user_annotation`` event on the profiler's clock beside the kernels it
+launches. The range is named ``<name>#<arg>``: ``arg`` is the batch's
+number (``next_batch()``, which a batch's root span takes and its child
+spans inherit) or a library's name, so one batch's dispatch and answer
+spans share it (torch's trace export drops a range's ``args`` string).
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
+import itertools
 import threading
 import time
 from dataclasses import dataclass, field
+
+import torch
 
 
 @dataclass
@@ -60,21 +74,77 @@ class ServerMetrics:
         }
 
 
-@contextlib.contextmanager
-def trace(dirname: str | None):
-    """Record a torch.profiler trace around a block (CPU, and CUDA when a
-    card is present) and export it to `dirname`/trace.json; a no-op if
-    dirname is None."""
-    if not dirname:
-        yield
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+_profiling = torch.autograd._profiler_enabled
+_clock = time.perf_counter_ns
+_totals: dict[str, list] = {}  # name -> [self ns, count]
+_totals_lock = threading.Lock()
+_batches = itertools.count(1)
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(dirname, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(dirname, "trace.json"))
+
+class _Stack(threading.local):
+    def __init__(self):
+        self.open = []  # this thread's open spans, innermost last
+
+
+_stack = _Stack()
+
+
+def next_batch() -> int:
+    """A new batch number, unique in the process (the root span's arg)."""
+    return next(_batches)
+
+
+class span:
+    """Context manager timing a block under `name` (see the module
+    docstring). A class, not a generator: it runs ~10 times a batch."""
+
+    __slots__ = ("name", "arg", "_t0", "_inner", "_range")
+
+    def __init__(self, name: str, arg=None):
+        self.name = name
+        self.arg = arg
+        self._inner = 0
+        self._range = None
+
+    def __enter__(self) -> "span":
+        open_ = _stack.open
+        if self.arg is None and open_:
+            self.arg = open_[-1].arg
+        if _profiling():
+            label = self.name if self.arg is None else f"{self.name}#{self.arg}"
+            self._range = torch.profiler.record_function(
+                label, None if self.arg is None else str(self.arg))
+            self._range.__enter__()
+        open_.append(self)
+        self._t0 = _clock()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        dt = _clock() - self._t0
+        open_ = _stack.open
+        open_.pop()
+        if open_:
+            open_[-1]._inner += dt
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            return
+        own = dt - self._inner
+        with _totals_lock:
+            total = _totals.get(self.name)
+            if total is None:
+                _totals[self.name] = [own, 1]
+            else:
+                total[0] += own
+                total[1] += 1
+
+
+def span_totals() -> dict[str, dict]:
+    """{name: {"seconds": self seconds, "count": spans}} of every span
+    closed with no profiler recording since the last reset_spans()."""
+    with _totals_lock:
+        return {name: {"seconds": ns / 1e9, "count": n} for name, (ns, n) in _totals.items()}
+
+
+def reset_spans() -> None:
+    with _totals_lock:
+        _totals.clear()
