@@ -500,6 +500,7 @@ def main() -> int:
         make_fast_payload_batch,
         point_eval_operands,
         u32_tensor,
+        unpack_compat_root_payload,
         unpack_key_payload,
     )
     from pir_tpu_torch.keyword import new_private_bst, new_private_sqrt_st
@@ -514,6 +515,7 @@ def main() -> int:
         stacked_head,
         stacked_words_t,
     )
+    from pir_tpu_torch.ops import compat_head as head_op
     from pir_tpu_torch.ops.compat_stage import compat_stage, compat_stage_plain
     from pir_tpu_torch.ops.expand import (
         fast_tail_expand_stacked,
@@ -682,7 +684,25 @@ def main() -> int:
         return (seeds, t_, cw_s[:, off:off + tl].contiguous(), cw_tl[:, off:off + tl].contiguous(),
                 cw_tr[:, off:off + tl].contiguous(), rk, fcw)
 
+    def head_operands(pay_t, layout):
+        """The head kernel's operands from a payload batch, as
+        models.pipeline.compat_head unpacks them."""
+        seeds, t_, cw_s, cw_tl, cw_tr, _, rk = unpack_compat_root_payload(pay_t, layout)
+        return (seeds.contiguous(), t_.contiguous(), cw_s, cw_tl.contiguous(),
+                cw_tr.contiguous(), rk)
+
     _, cpairs = batch_shares(c_qc, compat=True)
+    # the head kernel against the plain walk on the slice's payloads
+    hpay, hlayout = make_compat_payload_batch([p[0] for p in cpairs], height=HEIGHT)
+    hops = head_operands(u32_tensor(hpay, dev), hlayout)
+    h_got = head_op.compat_head(*hops, skip=hlayout.skip, w=cw_w)
+    h_want = head_op.compat_head_plain(*hops, skip=hlayout.skip, w=cw_w)
+    e_head = [max(err(h_got[0], h_want[0]), err(h_got[1], h_want[1]))]
+    del hops, h_got, h_want
+    log(f"phase 2: compat head kernel vs plain walk max_abs_err {e_head[0]} ({c_qc} queries, "
+        f"skip {hlayout.skip}, {c_split} levels; tolerance 0, equal bytes)")
+    if e_head[0]:
+        fail("the compat head kernel disagrees with its plain version")
     cops = compat_ops([p[0] for p in cpairs])
     seeds_c, t_c = cops[0], cops[1]
     e_compat = []
@@ -852,7 +872,8 @@ def main() -> int:
         return times
 
     counted = {"stacked_tail": fast_tail_expand_stacked, "packed_scan": packed_scan,
-               "compat_stage": compat_stage, "fast_tail": fast_tail_expand,
+               "compat_head": head_op.compat_head, "compat_stage": compat_stage,
+               "fast_tail": fast_tail_expand,
                "fused_scan_expand": fused_scan_expand, "masked_xor_scan": masked_xor_scan,
                "planes_scan": planes_scan, "overlap_vpu": ov.vpu_probe,
                "overlap_mxu": ov.mxu_probe, "overlap_mixed": ov.mixed_probe,
@@ -937,7 +958,7 @@ def main() -> int:
                 f"{times[0]:.4f} s + {times[1]:.4f} s for the two shares = "
                 f"{COMPAT_BATCH / times[0]:.0f} / {COMPAT_BATCH / times[1]:.0f} queries/s; "
                 f"all {COMPAT_BATCH} recovered (indices 0 and {HEIGHT - 1} among them)")
-    read_counts("compat", ("compat_stage", "packed_scan"))
+    read_counts("compat", ("compat_head", "compat_stage", "packed_scan"))
 
     # one compat share batch again, stage by stage, each stage synchronised
     split_c = {}
@@ -1515,8 +1536,8 @@ def main() -> int:
         check_recovered(idx0, [rows_of(x) for x in first], f"{mode} stream, first batch",
                         rows=(old_data if mode == "stacked" else db.data)[np.asarray(idx0)])
         check_recovered(idx1, [rows_of(x) for x in last], f"{mode} stream, second batch")
-    read_counts("after updates", ("stacked_tail", "fast_tail", "compat_stage", "packed_scan",
-                                  "masked_xor_scan", "fused_scan_expand"))
+    read_counts("after updates", ("stacked_tail", "fast_tail", "compat_head", "compat_stage",
+                                  "packed_scan", "masked_xor_scan", "fused_scan_expand"))
     log(f"phase 4b: after the updates, per share (s): {upd_serve}; fast batches of {BATCH} "
         f"on both fast paths, a compat batch of {COMPAT_BATCH}, a fast and a compat single "
         f"and one step of each stream all recover the new rows (the stacked stream's first "
@@ -1658,6 +1679,26 @@ def main() -> int:
         fail("the stacked tail disagrees at the main path's shapes")
     del ops, packed, words_t, tail_out
     cscan = time_scan(table_c, cwords_t, "compat path")
+
+    # compat head: the walk of one 1024-query share batch (the compat cell's
+    # shape: w 128, skip 1), kernel and plain walk; the bound is its AES
+    # blocks (2 a prefix level, 3 a node of the split root-start levels)
+    hops = head_operands(cpay_t, clayout)
+    head_ms, head_out = cuda_ms(lambda: head_op.compat_head(*hops, skip=clayout.skip, w=cw_w),
+                                20)
+    head_plain_ms, head_plain = cuda_ms(
+        lambda: head_op.compat_head_plain(*hops, skip=clayout.skip, w=cw_w), 1, warm=False)
+    e_head.append(max(err(head_out[0], head_plain[0]), err(head_out[1], head_plain[1])))
+    head_blocks = COMPAT_BATCH * (2 * clayout.skip + 3 * ((1 << c_split) - 1))
+    head_bytes = sum(x.numel() * 4 for x in hops + head_out)
+    head_bound = {"bytes": head_bytes / HBM_BYTES_PER_S * 1e3,
+                  "operations": aes_ms(head_blocks)}
+    del hops, head_out, head_plain
+    log(f"phase 5: compat head per {COMPAT_BATCH}-query share batch ({head_blocks} AES blocks, "
+        f"1 launch): kernel {head_ms:.4f} ms, plain walk {head_plain_ms:.4f} ms, bounds "
+        f"{head_bound}, max_abs_err {e_head[-1]}")
+    if e_head[-1]:
+        fail("the compat head kernel disagrees at the timing shape")
 
     # compat stage: each stage over one 1024-query share batch in slices of
     # q_chunk, as the server runs it; kernel and plain version on one such
@@ -2028,6 +2069,10 @@ def main() -> int:
         entry("compat_stage", "pir_tpu_torch/csrc/compat_stage.cu",
               "pir_tpu/ops/pallas_expand.py:361", compat_slice_ms, compat_plain_ms,
               compat_slice_bound, None, max(e_compat)),
+        # no Pallas counterpart: it replaces the jnp walk XLA fuses on the TPU
+        entry("compat_head", "pir_tpu_torch/csrc/compat_stage.cu",
+              "pir_tpu/models/pipeline.py:583", head_ms, head_plain_ms, head_bound, None,
+              max(e_head)),
         entry("fast_tail", "pir_tpu_torch/csrc/fast_tail.cu",
               "pir_tpu/ops/pallas_expand.py:425", pt_ms, pt_plain_ms, pt_bound, None,
               max(e_pt, e_pt_shared, e_pt_distinct)),
@@ -2075,6 +2120,8 @@ def main() -> int:
         summary = dict(kernels, card=smi, per_share_batch_s=per_batch,
                        split_s=split, path_launches=path_launches,
                        compat_per_share_batch_s=per_compat_batch, compat_split_s=split_c,
+                       compat_head={"ms": head_ms, "plain_ms": head_plain_ms,
+                                    "bound_ms": head_bound, "blocks": head_blocks},
                        compat_stage_ms=stage_ms, compat_stage_batch_bound_ms=compat_bound,
                        compat_stage_bound_ms=stage_bound_ms,
                        compat_stage_slice_ms=stage_slice_ms,
@@ -2275,7 +2322,8 @@ def service_phase(db, keywords, seed, config, counting, rows_of, sync) -> dict:
     # fast batches (stacked path), compat batches, fast and compat singles
     for label, n, fast, needs in (
             ("fast batch", SVC_FAST_BATCH, True, ("stacked_tail", "packed_scan")),
-            ("compat batch", SVC_COMPAT_BATCH, False, ("compat_stage", "packed_scan"))):
+            ("compat batch", SVC_COMPAT_BATCH, False,
+             ("compat_head", "compat_stage", "packed_scan"))):
         for b in range(SVC_BATCHES):
             idx = [int(i) for i in rng.integers(0, height, n)]
             t = time.perf_counter()
@@ -2678,7 +2726,7 @@ def mesh_phase(db, seed, counting, rows_of, single, sync, depth, n_blk) -> dict:
     idx = rows(MESH_COMPAT_BATCH)
     route("compat root", engines["stacked"], idx,
           new_index_query_shares_batch(md, idx, 1, rand_bytes=keygen_rng.bytes),
-          ("compat_stage", "packed_scan"))
+          ("compat_head", "compat_stage", "packed_scan"))
     idx = rows(MESH_PREFIX_BATCH)
     route("fast distinct-key (host prefix)", engines["stacked"], idx,
           [new_fast_index_query_shares(md, i, 1, rand_bytes=keygen_rng.bytes) for i in idx],
@@ -2732,7 +2780,8 @@ def mesh_phase(db, seed, counting, rows_of, single, sync, depth, n_blk) -> dict:
         svc_s = {}
         for label, n, fast, needs in (
                 ("fast batch", MESH_FAST_BATCH, True, ("stacked_tail", "packed_scan")),
-                ("compat batch", MESH_COMPAT_BATCH, False, ("compat_stage", "packed_scan"))):
+                ("compat batch", MESH_COMPAT_BATCH, False,
+                 ("compat_head", "compat_stage", "packed_scan"))):
             idx = rows(n)
             reset_counts()
             t1 = time.perf_counter()

@@ -31,6 +31,33 @@
 // each block rebuilds its query's three tree keys, correction words and
 // t bits from the mask operands into shared memory once. Seed outputs
 // are staged in shared memory and written as 32-byte runs.
+//
+// The second entry, compat_head_kernel, walks the head that feeds the
+// first stage. It replaces no Pallas kernel: on the TPU the same walk is
+// jnp under XLA's fusion (pir_tpu/models/pipeline.py:583-632,
+// _compat_skip_walk and fused_compat_root_batch*_fn, with
+// pir_tpu/dpf/device.py expand_planes_from_root), which eager torch
+// cannot fuse: there every bitsliced gate was a launch of its own, ~17,000
+// a 1,024-query batch. Per query it walks the one-child prefix (the dead
+// skip levels, all left, then a mesh shard's path bits) and expands the
+// split = 5 + log2(w) root-start levels in full, leaving the first stage's
+// input planes: seeds (Q,8,1,16,W) and t (Q,1,1,W), node order as
+// expand_planes_from_root leaves it (first 5 levels' branches in the
+// word's bits, later ones in the lane word). What bounds it on an H100:
+// AES again. At the serving shape (Q 1,024, w 128, skip 1) a batch is
+// 12.58 M blocks, 0.27 ms at 356 integer operations a block at 16.75
+// Tops/s, against 64.5 MiB of output planes, 0.02 ms at 3.35 TB/s. Design:
+// one block a query, 2^g warps (g <= 3). The block expands the first
+// 5 + g levels breadth first in shared memory (level l by its first 2^l
+// threads) until each thread holds one node; thread (warp v, lane j)
+// holds the node whose first 5 branches are j and next g are v, so the
+// lanes of a warp are the bits of one output word. Each thread then walks
+// its r = split - 5 - g level subtree depth first in registers
+// (for_each_tail_leaf, 2^r - 1 expansions, none repeated) and at every
+// leaf the warps re-bitslice with __ballot_sync; the block's 2^g warps
+// hold 2^g adjacent lane words, which it stores as runs of 2^g words a
+// plane. The breadth-first levels leave threads idle (3 AES blocks of
+// latency a level); the depth-first part is ~95% of the blocks.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -106,6 +133,99 @@ compat_stage_kernel(CompatArgs a, uint32_t* __restrict__ out_s, uint32_t* __rest
   }
 }
 
+constexpr int kHeadWarps = 1 << pir_compat::kHeadGroupBits;
+
+// One block a query, 32 << head_group_bits(split) threads.
+__global__ void __launch_bounds__(32 * kHeadWarps)
+compat_head_kernel(pir_compat::HeadArgs a, uint32_t* __restrict__ out_s,
+                   uint32_t* __restrict__ out_t) {
+  __shared__ pir_tail::AesLaneTable table;
+  __shared__ pir_compat::HeadConsts consts;
+  __shared__ uint32_t node_s[32 * kHeadWarps][4];
+  __shared__ uint32_t node_t[32 * kHeadWarps];
+  __shared__ uint32_t stage[kHeadWarps][128];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int q = blockIdx.x;
+  const int g = pir_compat::head_group_bits(a.split);
+
+  for (int i = tid; i < 2048; i += blockDim.x) pir_tail::fill_lane_table(table, i);
+  for (int i = tid; i < pir_compat::kHeadItems; i += blockDim.x)
+    pir_compat::fill_head(consts, a, q, i);
+  __syncthreads();
+  const pir_tail::AesLanes tb = pir_tail::lanes_of(table, lane);
+
+  if (tid == 0) {
+    uint32_t s[4], t;
+    pir_compat::head_root(tb, consts, a, q, s, &t);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) node_s[0][i] = s[i];
+    node_t[0] = t;
+  }
+  // breadth first: node n of level l (its branches, first level least
+  // significant) has children n and n + 2^l
+  const int bf = 5 + g;
+#pragma unroll 1
+  for (int l = 0; l < bf; ++l) {
+    const int n = 1 << l;
+    const bool act = tid < n;
+    uint32_t s[4], t = 0;
+    __syncthreads();
+    if (act) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i] = node_s[tid][i];
+      t = node_t[tid];
+    }
+    __syncthreads();
+    if (act) {
+      uint32_t sl[4], tl, sr[4], tr;
+      pir_compat::head_children(tb, consts, a.prefix + l, s, t, true, true, sl, &tl, sr, &tr);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        node_s[tid][i] = sl[i];
+        node_s[tid + n][i] = sr[i];
+      }
+      node_t[tid] = tl;
+      node_t[tid + n] = tr;
+    }
+  }
+  __syncthreads();
+  uint32_t st[4], t0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) st[i] = node_s[tid][i];
+  t0 = node_t[tid];
+
+  // depth first below; each leaf's 2^g lane words go out as runs: thread
+  // tid stores lane word li = tid % 2^g of plane rows r0 + 32 m
+  const int r = a.split - bf;
+  const int base = a.prefix + bf;
+  const size_t w = (size_t)1 << (a.split - 5);
+  const int li = tid & ((1 << g) - 1);
+  const int r0 = tid >> g;
+  uint32_t* out_q = out_s + (size_t)q * 128 * w;
+  pir_tail::for_each_tail_leaf(
+      tb, &consts.q.keys[0][0], r, st, t0,
+      [&](int d, uint32_t cwb[4], uint32_t* tcl, uint32_t* tcr) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) cwb[i] = consts.cw[base + d][i];
+        *tcl = consts.tcw[base + d][0];
+        *tcr = consts.tcw[base + d][1];
+      },
+      [&](int c, const uint32_t* s, uint32_t t) {
+        const int lw0 = pir_compat::head_words(g, r, c);
+        const uint32_t tword = __ballot_sync(0xFFFFFFFFu, t);
+        if (lane == 0) out_t[(size_t)q * w + lw0 + warp] = tword;
+        pir_tail::ballot_planes(s, stage[warp]);
+        __syncthreads();
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          out_q[(size_t)(r0 + 32 * m) * w + lw0 + li] = stage[li][r0 + 32 * m];
+        __syncthreads();
+      });
+}
+
 }  // namespace
 
 // Pointers are device addresses of contiguous uint32 (int32) tensors with
@@ -138,5 +258,33 @@ extern "C" int pir_compat_stage(const void* seeds, const void* t, const void* cw
     compat_stage_kernel<true><<<grid, kThreads, 0, st>>>(a, os, ot);
   else
     compat_stage_kernel<false><<<grid, kThreads, 0, st>>>(a, os, ot);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pointers are device addresses of contiguous uint32 (int32) tensors with
+// the shapes of HeadArgs; d = cw_s.shape[1] >= prefix + split, split =
+// 5 + log2(w) with w the output's lane words, prefix + split <=
+// kMaxHeadLevels. out_s receives the seeds (Q,8,1,16,w), out_t the t bits
+// (Q,1,1,w). Returns cudaGetLastError() after the launch.
+extern "C" int pir_compat_head(const void* seeds, const void* t, const void* cw_s,
+                               const void* cw_tl, const void* cw_tr, const void* rk, void* out_s,
+                               void* out_t, int q_n, int d, int prefix, int path, int split,
+                               void* stream) {
+  pir_compat::HeadArgs a;
+  a.seeds = static_cast<const uint32_t*>(seeds);
+  a.t = static_cast<const uint32_t*>(t);
+  a.cw_s = static_cast<const uint32_t*>(cw_s);
+  a.cw_tl = static_cast<const uint32_t*>(cw_tl);
+  a.cw_tr = static_cast<const uint32_t*>(cw_tr);
+  a.rk = static_cast<const uint32_t*>(rk);
+  a.d = d;
+  a.prefix = prefix;
+  a.path = path;
+  a.split = split;
+  if (split < 5 || prefix < 0 || prefix + split > d || prefix + split > pir_compat::kMaxHeadLevels)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 32 << pir_compat::head_group_bits(split);
+  compat_head_kernel<<<q_n, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<uint32_t*>(out_s), static_cast<uint32_t*>(out_t));
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,9 @@
 ``fused_fast_answer*_fn``, and of the root-start batch paths
 ``stacked_fast_geometry``, ``fused_fast_root_batch_stacked_fn``,
 ``fused_fast_root_batch_pallas_fn`` (its ``all_xla_expand`` switch too),
-``fused_fast_overlap_step_fn``, ``_compat_skip_walk`` and
-``fused_compat_root_batch_pallas_fn`` in ``pir_tpu/models/pipeline.py``).
+``fused_fast_overlap_step_fn`` and ``fused_compat_root_batch_pallas_fn``
+in ``pir_tpu/models/pipeline.py``; its ``_compat_skip_walk`` lives in
+``ops/compat_head.py``).
 
 Single queries and small batches (per-query key payloads): breadth-first
 expansion from the host prefix (plain torch, ``dpf/device.py``) -> leaf
@@ -30,7 +31,7 @@ ahead in the serving stream, the fused scan + tail kernel
 in lanes instead of the head walk and the tail kernel (batch-shared keys).
 
 Reference-exact (compat) keys, against the cascade's storage table:
-batched head walk (plain torch) -> compat-stage kernel once per stage
+head-walk kernel (``ops/compat_head.py``) -> compat-stage kernel once per stage
 (``ops/compat_stage.py``) -> the same packed scan kernel. On a table of
 5 device levels, too shallow for a stage (pir_tpu's
 ``fused_compat_root_batch_fn``): the whole walk in plain torch -> the
@@ -53,11 +54,9 @@ from ..dpf.device import (
     FastPayloadLayout,
     FastRootLayout,
     PayloadLayout,
-    _children,
     _leaf_select_bits,
     _leaf_stage,
     _level_step,
-    _prf_triple,
     _rk_bit_first,
     _unpack_bits,
     expand_fast_root_lanes_full,
@@ -67,13 +66,14 @@ from ..dpf.device import (
     expand_root_head_grouped,
     expand_root_head_lanes,
     regroup_rk_stacked,
-    shard_prefix_walk,
     unpack_compat_root_payload,
     unpack_fast_payload,
     unpack_fast_root_payload,
     unpack_fast_root_payload_lanes_rk,
     unpack_key_payload,
 )
+from ..ops.compat_head import compat_head as walk_compat_head
+from ..ops.compat_head import compat_skip_walk
 from ..ops.compat_stage import compat_stage
 from ..ops.expand import fast_tail_expand_stacked
 from ..ops.fast_tail import fast_tail_expand
@@ -446,50 +446,21 @@ def fused_fast_overlap_step(table_u8: torch.Tensor, words_prev_t: torch.Tensor,
     return out_prev, pertail_words_t(packed, table_u8.shape[0])
 
 
-def _compat_skip_walk(seeds, t, cw_s, cw_tl, cw_tr, rk, skip: int):
-    """Walk `skip` dead leading levels keeping only the left child, for
-    Q queries: seeds (Q,8,16,1), t (Q,1), cw_s (Q,d,8,16,1), cw_tl /
-    cw_tr (Q,d), rk (Q,11,8,3,16,1).
-
-    The planes are root-shaped: lane bit 0 holds the seed, and the high
-    lane bits carry garbage that the first in-word packing level of
-    expand_planes_from_root masks away (see CompatRootLayout)."""
-    x = seeds.transpose(0, 1)
-    rk_b = _rk_bit_first(rk)
-    for k in range(skip):
-        out = _prf_triple(x, rk_b)
-        x, t, _, _ = _children(out, t, cw_s[:, k].transpose(0, 1), cw_tl[:, k:k + 1],
-                               cw_tr[:, k:k + 1])
-    return x.transpose(0, 1), t
-
-
 def compat_head(payloads: torch.Tensor, layout: CompatRootLayout, w: int, shard=None):
     """Unpack, skip walk and root-start head of 5 + log2(w) levels for a
     batch of compat payloads (Q, total) -> the first stage's operands and
     the rest: seeds (Q,8,1,16,w), t (Q,1,1,w), then cw_s (Q,d',8,16,1),
     cw_tl / cw_tr (Q,d') for the stage levels, rk (Q,11,8,3,16,1), fcw (Q,).
     With shard = (index, levels) the skip walk is followed by the walk
-    down to that row shard's subtree (dpf.device.shard_prefix_walk,
-    upper lanes kept), and the head starts there."""
+    down to that row shard's subtree, and the head starts there. The walk
+    is one launch of the head kernel (ops/compat_head.py)."""
     with span("pir.head"):
-        split = 5 + w.bit_length() - 1
-        sk = layout.skip
         seeds, t, cw_s, cw_tl, cw_tr, fcw, rk = unpack_compat_root_payload(payloads, layout)
-        seeds, t = _compat_skip_walk(seeds, t, cw_s, cw_tl, cw_tr, rk, sk)
-        if shard is not None:
-            index, levels = shard
-            x, t = shard_prefix_walk(
-                seeds.transpose(0, 1), t,
-                [(cw_s[:, i].transpose(0, 1), cw_tl[:, i:i + 1], cw_tr[:, i:i + 1])
-                 for i in range(sk, sk + levels)], _rk_bit_first(rk), index, low_bit=False)
-            seeds = x.transpose(0, 1)
-            sk += levels
-        seeds, t = expand_planes_from_root(seeds, t, cw_s[:, sk:], cw_tl[:, sk:], cw_tr[:, sk:],
-                                           rk, split)
-        q = payloads.shape[0]
-        lv = sk + split
-        return (seeds.unsqueeze(2).contiguous(), t.reshape(q, 1, 1, w).contiguous(),
-                cw_s[:, lv:].contiguous(), cw_tl[:, lv:].contiguous(),
+        seeds, t = walk_compat_head(seeds.contiguous(), t.contiguous(), cw_s,
+                                    cw_tl.contiguous(), cw_tr.contiguous(), rk,
+                                    skip=layout.skip, w=w, shard=shard)
+        lv = layout.skip + (shard[1] if shard is not None else 0) + 5 + w.bit_length() - 1
+        return (seeds, t, cw_s[:, lv:].contiguous(), cw_tl[:, lv:].contiguous(),
                 cw_tr[:, lv:].contiguous(), rk, fcw.contiguous())
 
 
@@ -547,7 +518,7 @@ def fused_compat_preplane_batch(table_u8: torch.Tensor, payloads: torch.Tensor,
     (Q, B) uint8."""
     nbd, sk = layout.device_bits, layout.skip
     seeds, t, cw_s, cw_tl, cw_tr, fcw, rk = unpack_compat_root_payload(payloads, layout)
-    seeds, t = _compat_skip_walk(seeds, t, cw_s, cw_tl, cw_tr, rk, sk)
+    seeds, t = compat_skip_walk(seeds, t, cw_s, cw_tl, cw_tr, rk, sk)
     seeds, t = expand_planes_from_root(seeds, t, cw_s[:, sk:], cw_tl[:, sk:], cw_tr[:, sk:],
                                        rk, nbd)
     packed = _leaf_select_bits(seeds.transpose(0, 1), t, fcw[:, None])  # (Q, NW)

@@ -7,6 +7,7 @@ table, the compat stage, and whole batches through both servers. Every
 comparison is on equal bytes (tolerance 0).
 """
 
+import functools
 import json
 import os
 
@@ -29,6 +30,7 @@ from pir_tpu_torch import query as tq
 from pir_tpu_torch.dpf import device as tdev
 from pir_tpu_torch.dpf import host as thost
 from pir_tpu_torch.models.pipeline import compat_head
+from pir_tpu_torch.ops import compat_head as head_op
 from pir_tpu_torch.ops.compat_stage import compat_stage, compat_stage_plain
 from pir_tpu_torch import server as tsrv_mod
 from pir_tpu_torch.server import TorchPirServer
@@ -176,6 +178,72 @@ def _jax_head(payloads, layout, w, max_tail):
                                             cw_tr[sk:sk + split], rk, split)
 
     return jax.jit(jax.vmap(head))(jnp.asarray(payloads))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_shard_head(layout, w, levels):
+    """pir_tpu's sharded compat root step's head (parallel/mesh.py
+    make_sharded_compat_root_step): skip walk, the shard's prefix walk
+    with the shard index traced (one compile a geometry), root-start
+    levels."""
+    split = 5 + w.bit_length() - 1
+    sk = layout.skip
+
+    def head(payload, index):
+        seeds, t, cw_s, cw_tl, cw_tr, _, rk = jdev.unpack_compat_root_payload(payload, layout)
+        seeds, t = jpipe._compat_skip_walk(seeds, t, cw_s, cw_tl, cw_tr, rk, sk)
+        for lv in range(levels):
+            s_l, t_l, s_r, t_r = jdev._children(jdev._prf_triple(seeds, rk), t, cw_s[sk + lv],
+                                                cw_tl[sk + lv], cw_tr[sk + lv])
+            m = jnp.uint32(0) - ((index >> (levels - 1 - lv)) & 1).astype(jnp.uint32)
+            seeds, t = s_l ^ ((s_l ^ s_r) & m), t_l ^ ((t_l ^ t_r) & m)
+        lo = sk + levels
+        return jdev.expand_planes_from_root(seeds, t, cw_s[lo:lo + split], cw_tl[lo:lo + split],
+                                            cw_tr[lo:lo + split], rk, split)
+
+    return jax.jit(jax.vmap(head, in_axes=(0, None)))
+
+
+@pytest.mark.parametrize("height,w,index,levels", [
+    (1 << 8, 2, 0, 1), (1 << 8, 2, 1, 1), (1 << 8, 2, 2, 2), (1 << 8, 2, 3, 2),
+])
+def test_compat_head_shard_prefix_matches_pir_tpu(height, w, index, levels):
+    """The port's head with shard = (index, levels) on the CPU (the plain
+    walk: skip, the moved prefix walk, root-start levels) equals pir_tpu's
+    sharded step's head; skip 1 (power of two) and 0, both path bits."""
+    db = generate_random_db(height, SLOT)
+    idxs = [0, 150, height - 1]
+    pairs = [jq.new_index_query_shares(db.metadata(), i, 1, 2) for i in idxs]
+    shares = to_port([p[0] for p in pairs])
+    pay, layout = tdev.make_compat_payload_batch(shares, height=height)
+    seeds, t, cw_s, cw_tl, cw_tr, rk, _ = compat_head(tdev.u32_tensor(pay, "cpu"), layout, w,
+                                                      shard=(index, levels))
+    js, jt = _jax_shard_head(layout, w, levels)(jnp.asarray(pay), jnp.int32(index))
+    assert (_u32(seeds[:, :, 0]) == np.asarray(js)).all()
+    assert (_u32(t).reshape(len(idxs), w) == np.asarray(jt)).all()
+    lv = layout.skip + levels + 5 + w.bit_length() - 1
+    assert cw_s.shape[1] == cw_tl.shape[1] == cw_tr.shape[1] == layout.num_bits - lv
+
+
+def test_compat_head_rejects_what_the_kernel_does_not_take():
+    height, w = 1 << 11, 8
+    shares = to_port([jq.new_index_query_shares(generate_random_db(height, SLOT).metadata(),
+                                                5, 1, 2)[0]])
+    pay, layout = tdev.make_compat_payload_batch(shares, height=height)
+    seeds, t, cw_s, cw_tl, cw_tr, _, rk = tdev.unpack_compat_root_payload(
+        tdev.u32_tensor(pay, "cpu"), layout)
+    ops = (seeds, t, cw_s, cw_tl, cw_tr, rk)
+    with pytest.raises(ValueError, match="power of two"):
+        head_op.compat_head(*ops, skip=1, w=6)
+    with pytest.raises(ValueError, match="exceed"):
+        head_op.compat_head(*ops, skip=1, w=8, shard=(0, 4))  # 1 + 4 + 8 > 12 levels
+    with pytest.raises(ValueError, match="prefix"):
+        head_op.compat_head(*ops, skip=1, w=8, shard=(2, 1))
+    with pytest.raises(ValueError, match="cw_tl"):
+        head_op.compat_head(seeds, t, cw_s, cw_tl[:, :3], cw_tr, rk, skip=1, w=8)
+    with pytest.raises(ValueError, match="rk"):
+        head_op.compat_head(seeds, t, cw_s, cw_tl, cw_tr, rk.to(torch.int64), skip=1, w=8)
+    assert head_op.compat_head.launches == 0  # the CPU runs the plain walk
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ from pir_tpu_torch import server as server_mod
 from pir_tpu_torch.crypto import mont
 from pir_tpu_torch.database import generate_random_db
 from pir_tpu_torch.keyword import new_private_bst, new_private_sqrt_st, pad_to_sqrt
+from pir_tpu_torch.ops.compat_head import compat_head, compat_head_plain
 from pir_tpu_torch.ops.compat_stage import compat_stage, compat_stage_plain
 from pir_tpu_torch.ops.expand import (
     fast_tail_expand_stacked,
@@ -265,6 +266,61 @@ def test_compat_stage_kernel_structured_seeds(dev, pattern, w, tail, emit_bits):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _head_operands(dev, seed, q, d):
+    """Root seeds as bits (bit 0 of each word, the payload unpack's form;
+    the upper bits random, which the kernel must not read), t and every
+    other operand 0/~0 masks."""
+    rng = np.random.default_rng(seed)
+
+    def masks(*shape):
+        return rng.integers(0, 2, size=shape).astype(np.uint32) * FULL
+
+    ops = (_words(rng, q, 8, 16, 1) & ~np.uint32(1) | rng.integers(0, 2, size=(q, 8, 16, 1),
+                                                                   dtype=np.uint32),
+           masks(q, 1), masks(q, d, 8, 16, 1), masks(q, d), masks(q, d),
+           masks(q, 11, 8, 3, 16, 1))
+    return [torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(dev) for x in ops]
+
+
+def _head_check(ops, skip, w, shard):
+    before = compat_head.launches
+    got = compat_head(*ops, skip=skip, w=w, shard=shard)
+    torch.cuda.synchronize()
+    assert compat_head.launches == before + 1
+    want = compat_head_plain(*ops, skip=skip, w=w, shard=shard)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("w", [8, 32, 128])
+@pytest.mark.parametrize("skip", [0, 1])
+@pytest.mark.parametrize("shard", [None, (0, 1), (1, 1), (2, 2), (1, 2)])
+@pytest.mark.parametrize("q", [1, 7, 64, 1024])
+def test_compat_head_kernel_matches_plain(dev, q, shard, skip, w):
+    """The head kernel's seeds and t equal the plain walk's byte for
+    byte: 1, 4 and 8 warps a block (w 8, 32, 128), skip 0 and 1, no
+    shard prefix or one of 1 or 2 levels with both path bits."""
+    split = 5 + w.bit_length() - 1
+    d = skip + (shard[1] if shard else 0) + split + 2
+    _head_check(_head_operands(dev, q + w + skip, q, d), skip, w, shard)
+
+
+@pytest.mark.parametrize("pattern", ["zeros", "ones"])
+@pytest.mark.parametrize("w,skip,shard", [(128, 1, None), (32, 0, (1, 1)), (8, 1, (2, 2))])
+def test_compat_head_kernel_structured_seeds(dev, pattern, w, skip, shard):
+    """All-zero and all-ones seeds, t and correction words (round key 0
+    zero too): every node of a level sees the same correction, and with
+    zeros the first round looks the seed bytes up at table word 0."""
+    q = 16
+    d = skip + (shard[1] if shard else 0) + 5 + w.bit_length() - 1
+    ops = _head_operands(dev, 60 + w, q, d)
+    fill = 0 if pattern == "zeros" else -1
+    for x in ops[:5]:
+        x.fill_(fill)
+    ops[0] &= 1  # the unpack's seed bits
+    ops[5][:, 0] = 0
+    _head_check(ops, skip, w, shard)
+
+
 @pytest.mark.parametrize("q", [1, 3, 8])
 @pytest.mark.parametrize("c", [1, 3, 256, 257])
 def test_masked_xor_scan_kernel_matches_plain(dev, q, c):
@@ -309,6 +365,10 @@ def test_wrappers_reject_strided_cuda_operands(dev):
     ops[0] = ops[0].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         compat_stage(*ops, tail=1, emit_bits=True)
+    ops = _head_operands(dev, 3, 2, 9)
+    ops[3] = ops[3].t().contiguous().t()
+    with pytest.raises(ValueError, match="contiguous"):
+        compat_head(*ops, skip=1, w=8)
     table_w = torch.zeros((16, 64), dtype=torch.int32, device=dev)
     bits = torch.zeros((2, 64), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
@@ -360,7 +420,7 @@ def test_cuda_server_compat_matches_cpu_server(dev, monkeypatch):
         idxs = [int(i) for i in rng.integers(0, db.db_size, size=n)]
         idxs[0], idxs[-1] = 0, db.db_size - 1
         pairs = tq.new_index_query_shares_batch(db.metadata(), idxs, 1, rand_bytes=rng.bytes)
-        before = compat_stage.launches
+        before = compat_stage.launches, compat_head.launches
         out = []
         for part in (0, 1):
             batch = [p[part] for p in pairs]
@@ -368,7 +428,7 @@ def test_cuda_server_compat_matches_cpu_server(dev, monkeypatch):
             c = cpu.private_secret_shared_query_batch(batch)
             assert [r.shares[0].data for r in g] == [r.shares[0].data for r in c]
             out.append(g)
-        assert compat_stage.launches > before
+        assert compat_stage.launches > before[0] and compat_head.launches > before[1]
         for i, (a, b) in enumerate(zip(*out)):
             assert bytes(tq.recover([a, b])[0].data) == db.data[idxs[i]].tobytes()
 
@@ -1171,9 +1231,9 @@ def test_mont_scan_kernel_at_the_served_windows(dev, shape):
 
 MESH_ROWS = (1 << 14) + 700  # depth 8 at 128-bit leaves, 15 compat device levels
 MESH_KERNELS = {"stacked_tail": fast_tail_expand_stacked, "packed_scan": packed_scan,
-                "compat_stage": compat_stage, "fast_tail": fast_tail_expand,
-                "fused_scan_expand": fused_scan_expand, "masked_xor_scan": masked_xor_scan,
-                "planes_scan": planes_scan}
+                "compat_stage": compat_stage, "compat_head": compat_head,
+                "fast_tail": fast_tail_expand, "fused_scan_expand": fused_scan_expand,
+                "masked_xor_scan": masked_xor_scan, "planes_scan": planes_scan}
 
 
 def _mesh_db():
@@ -1211,7 +1271,7 @@ def _mesh_routes(db, rng, tp):
     return routes + [
         ("fast root, stacked", rows, fast(40), True, {"stacked_tail", "packed_scan"}),
         ("fast root, per-query tail", rows, fast(40), False, {"fast_tail", "packed_scan"}),
-        ("compat root", rows, compat, True, {"compat_stage", "packed_scan"})]
+        ("compat root", rows, compat, True, {"compat_head", "compat_stage", "packed_scan"})]
 
 
 def _one_card_rows(single, shares):
