@@ -1,9 +1,8 @@
 """The control of the comparison that decides ``correct``: the plain
-reference put in the program's place, with one guarantee of the
-configuration broken (its rows one byte narrower than stated, the last
-byte of every row left out), served through the same front end, window
-and comparison as a run of the cell. Its runs have to come out not
-correct.
+reference of the configuration's protocol put in the program's place, with
+one guarantee of the configuration broken (the protocol's ``answers`` with
+``broken``), served through the same front end, window and comparison as a
+run of the cell. Its runs have to come out not correct.
 
     python3 bench_h100/control.py --workload <cell> --seeds <n>,<n>,... --seconds <s>
 
@@ -25,29 +24,23 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 
 
-class _Result:
-    """An answer in the port's result shape (shares[0].data)."""
-
-    def __init__(self, data: bytes):
-        self.shares = [self]
-        self.data = data
-
-
-class ControlSystem:
-    """make_system for harness.run_cell: shares are pool positions, and each
-    batch is answered from the reference's narrow-row answers."""
+class System:
+    """The control's system, a stand-in for ``systems/<protocol>.py``:
+    shares are pool positions, and each batch is answered from the
+    protocol's reference answers with the guarantee broken."""
 
     # seconds a batch takes, so that a window compares about as many
     # answers as a run of the program does
     period = 0.25
 
     def __init__(self, config: dict, table, device, seed: int, pool, sample):
-        import reference
+        import named
 
-        width = config["row_bytes"] - 1
-        ref = reference.answers(config, seed, pool, sample, device, width=width)
-        self.answers = {int(p): ref["share0"][i].tobytes() for i, p in enumerate(sample)}
-        self.zero = bytes(config["row_bytes"])
+        protocol = named.module("protocols", config["protocol"])
+        ref = protocol.answers(config, seed, pool, sample, device, broken=True)
+        served = ref[protocol.SERVED]
+        self.answers = {int(p): served[i].tobytes() for i, p in enumerate(sample)}
+        self.zero = bytes(served.shape[1])
 
     def shares(self, pool, server: int = 0) -> list:
         return list(range(len(pool.targets)))
@@ -60,10 +53,15 @@ class ControlSystem:
         class Entry(system.Entry):
             def dispatch(self, batch):
                 time.sleep(outer.period)
-                res = [_Result(outer.answers.get(p, outer.zero)) for p in batch]
+                res = [outer.answers.get(p, outer.zero) for p in batch]
                 self.ready.append(lambda: res)
 
         return Entry()
+
+
+def answer_bytes(result: bytes) -> bytes:
+    """The control's answers are their bytes."""
+    return result
 
 
 def main(argv=None) -> int:
@@ -72,9 +70,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--seconds", type=float, default=3.0)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--period", type=float, default=ControlSystem.period)
+    ap.add_argument("--period", type=float, default=System.period)
     args = ap.parse_args(argv)
-    ControlSystem.period = args.period
+    System.period = args.period
     sys.path[:0] = [HERE, ROOT]
     import check
     import harness
@@ -82,7 +80,7 @@ def main(argv=None) -> int:
     bad = 0
     for seed in (int(s) for s in args.seeds.split(",")):
         res = harness.run_cell(ROOT, args.workload, seed, args.seconds, False, args.device,
-                               time.perf_counter(), make_system=ControlSystem)
+                               time.perf_counter(), system=sys.modules[__name__])
         bad += res["correct"]
         print(json.dumps({"workload": args.workload, "seed": seed, "correct": res["correct"],
                           "checks": res["checks"]}), flush=True)

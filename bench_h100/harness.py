@@ -5,7 +5,8 @@ Everything that belongs to one configuration, traffic mix or metric is a
 file found by the name ``BENCHMARK.json`` gives it: ``configs/<name>.json``
 (the path the configuration names), ``traffic/<name>.json`` and
 ``metrics/<name>.py`` (a reader: ``read(ctx)`` returns the metric's value,
-or None when it finds nothing to read). A mix names the files of its entry
+or None when it finds nothing to read). A configuration names the files of
+its protocol (``protocols/`` and ``systems/``), a mix those of its entry
 (``entries/``) and its loop (``loops/``); see ``named``.
 """
 
@@ -25,8 +26,6 @@ import torch
 import check
 import named
 import peaks
-import reference
-import system
 import traffic
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -89,28 +88,31 @@ def sync(device: torch.device) -> None:
 
 
 def run_cell(root: str, name: str, seed: int, seconds: float, traced: bool, device,
-             t_start: float, wrap_entry=None, log=None, sizes=None, make_system=None) -> dict:
+             t_start: float, wrap_entry=None, log=None, sizes=None, system=None) -> dict:
     """One run of cell `name`; returns the result line's dict. wrap_entry,
     if given, wraps the system's entry (the tests plant faults there);
     sizes, if given, updates the configuration and the mix (the tests
-    shrink them to the CPU); make_system(config, table, device, seed,
-    pool, sample), if given, stands in for system.System (the control)."""
+    shrink them to the CPU); system, if given, is a module with ``System``
+    and ``answer_bytes`` that stands in for the configuration's
+    ``systems/<protocol>.py`` (the control)."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     spec = load_spec(root)
     cell, config, mix = load_cell(spec, root, name)
     if sizes:
         config, mix = {**config, **sizes.get("config", {})}, {**mix, **sizes.get("mix", {})}
     dev = torch.device(device)
+    protocol = named.module("protocols", config["protocol"])
+    system = system or named.module("systems", config["protocol"])
 
     torch.zeros(1, device=dev)
     log(f"set-up: device ready at {time.perf_counter() - t_start:.3f} s")
     table = traffic.make_table(config, seed, dev).cpu().numpy()
     log(f"set-up: table at {time.perf_counter() - t_start:.3f} s")
-    pool = traffic.make_pool(config, mix, seed, dev)
+    pool = protocol.make_pool(config, mix, seed, dev)
     draws = traffic.make_draws(mix, seed)
     sample = traffic.make_sample(mix, seed)
     log(f"set-up: query pool at {time.perf_counter() - t_start:.3f} s")
-    sut = (make_system or system.System)(config, table, dev, seed, pool, sample)
+    sut = system.System(config, table, dev, seed, pool, sample)
     del table
     shares = sut.shares(pool, 0)
     batches = [[shares[i] for i in d] for d in draws]
@@ -118,7 +120,8 @@ def run_cell(root: str, name: str, seed: int, seconds: float, traced: bool, devi
     entry = sut.entry(mix["entry"])
     if wrap_entry is not None:
         entry = wrap_entry(entry)
-    loop = named.module("loops", mix["loop"]).make(entry, batches, keep, mix)
+    loop = named.module("loops", mix["loop"]).make(entry, batches, keep, mix,
+                                                   system.answer_bytes)
     log(f"set-up: shares at {time.perf_counter() - t_start:.3f} s")
     gc.collect()
     gc.freeze()
@@ -163,8 +166,8 @@ def run_cell(root: str, name: str, seed: int, seconds: float, traced: bool, devi
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    ref = reference.answers(config, seed, pool, sample, dev)
-    checks = check.compare(kept, draws, sample, ref, missing)
+    ref = protocol.answers(config, seed, pool, sample, dev)
+    checks = protocol.compare(kept, draws, sample, ref, missing)
     log(f"reference: {len(sample)} queries, {len(kept)} answers compared in "
         f"{time.perf_counter() - t_ref:.3f} s")
 

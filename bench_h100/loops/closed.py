@@ -3,7 +3,8 @@ as fewer than the mix's ``in_flight`` are out, then takes the oldest
 batch's answers.
 
 A loop keeps, for the comparison, the answers at the positions ``keep`` of
-each draw (``kept``: (draw, position, answer bytes)), counts the queries
+each draw (``kept``: (draw, position, answer bytes), the bytes by the
+``answer_bytes`` of the system that answered), counts the queries
 dispatched (``dispatched``) and those never answered (``missing``).
 ``step(stats, span)`` serves one step of the loop into ``stats``
 (harness.Stats), with ``span(name)`` a context around each call into the
@@ -14,13 +15,11 @@ import contextlib
 import time
 from collections import deque
 
-import system
-
 
 class Loop:
-    def __init__(self, entry, batches: list, keep: list, in_flight: int):
+    def __init__(self, entry, batches: list, keep: list, in_flight: int, answer_bytes):
         self.entry, self.batches, self.keep = entry, batches, keep
-        self.in_flight = in_flight
+        self.in_flight, self.answer_bytes = in_flight, answer_bytes
         self.k = 0
         self.pending = deque()  # (batch number, dispatch time)
         self.kept = []
@@ -54,7 +53,7 @@ class Loop:
         self.missing += max(0, len(self.batches[d]) - len(res))
         for pos in self.keep[d]:
             if pos < len(res):
-                self.kept.append((d, int(pos), system.answer_bytes(res[pos])))
+                self.kept.append((d, int(pos), self.answer_bytes(res[pos])))
 
     def drain(self) -> None:
         results = self.entry.drain()
@@ -66,5 +65,5 @@ class Loop:
         self.pending.clear()
 
 
-def make(entry, batches: list, keep: list, mix: dict) -> Loop:
-    return Loop(entry, batches, keep, mix["in_flight"])
+def make(entry, batches: list, keep: list, mix: dict, answer_bytes) -> Loop:
+    return Loop(entry, batches, keep, mix["in_flight"], answer_bytes)

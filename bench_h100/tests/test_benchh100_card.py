@@ -8,7 +8,9 @@ import sys
 
 import pytest
 
-from benchh100_util import BENCH, COMPAT, FAST, ROOT
+from benchh100_util import BENCH, ROOT
+
+import harness  # noqa: E402
 
 
 @pytest.fixture
@@ -21,7 +23,7 @@ def card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("traced", [0, 1])
-@pytest.mark.parametrize("cell", [FAST, COMPAT])
+@pytest.mark.parametrize("cell", [c["name"] for c in harness.load_spec(ROOT)["workloads"]])
 def test_short_run_on_the_card(card, cell, traced):
     out = subprocess.run([sys.executable, os.path.join(BENCH, "run.py"), "--workload", cell,
                           "--seed", str(2**31 + 101), "--seconds", "3", "--trace", str(traced)],

@@ -70,8 +70,8 @@ def test_a_fault_is_not_correct(cell, fault):
 
 @pytest.mark.parametrize("cell", [FAST, COMPAT])
 def test_the_control_is_not_correct(cell, monkeypatch):
-    monkeypatch.setattr(control.ControlSystem, "period", 0.01)
-    res = run_small(cell, seconds=0.3, make_system=control.ControlSystem)
+    monkeypatch.setattr(control.System, "period", 0.01)
+    res = run_small(cell, seconds=0.3, system=control)
     assert res["correct"] is False
     checks = res["checks"]
     assert checks["mismatched"]["value"] == checks["checked"]["value"] > 0

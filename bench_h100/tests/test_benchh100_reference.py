@@ -13,9 +13,11 @@ import torch
 from benchh100_util import BENCH, ROOT
 
 import dpf_ref  # noqa: E402
+import named  # noqa: E402
 import peaks  # noqa: E402
-import reference  # noqa: E402
 import traffic  # noqa: E402
+
+DPF2 = named.module("protocols", "dpf2")
 
 GOLDEN = os.path.join(ROOT, "tests", "vectors", "dpf_golden.json")
 
@@ -130,17 +132,16 @@ def test_reference_against_the_port_on_the_cpu(style, rows, row_bytes, clients, 
     with one client's PRF keys or each client's own."""
     from pir_tpu_torch.server import TorchPirServer
 
-    import system
-
+    system = named.module("systems", "dpf2")
     config = {"rows": rows, "row_bytes": row_bytes, "group_size": 1, "keys": style,
               "server_options": {}, **extra}
     mix = {"pool": 24, "clients": clients}
     seed = 2**33 + 5
     table = traffic.make_table(config, seed, "cpu").numpy()
-    pool = traffic.make_pool(config, mix, seed, "cpu")
+    pool = DPF2.make_pool(config, mix, seed, "cpu")
     assert len({tuple(k) for k in pool.prf_keys}) == clients
     idx = np.arange(mix["pool"])
-    ref = reference.answers(config, seed, pool, idx, "cpu")
+    ref = DPF2.answers(config, seed, pool, idx, "cpu")
     assert (ref["rows"] == table[pool.targets]).all()
     assert ((ref["share0"] ^ ref["share1"]) == ref["rows"]).all()
     for s in (0, 1):
@@ -153,9 +154,9 @@ def test_reference_against_the_port_on_the_cpu(style, rows, row_bytes, clients, 
 
 def test_one_client_pool_is_the_batch_layout():
     config = {"rows": 1 << 12, "row_bytes": 8, "keys": "fast", "leaf_bits": 128}
-    one = traffic.make_pool(config, {"pool": 16}, 9, "cpu")
+    one = DPF2.make_pool(config, {"pool": 16}, 9, "cpu")
     assert len(one.prf_keys) == 1 and (one.client == 0).all()
-    many = traffic.make_pool(config, {"pool": 16, "clients": 4}, 9, "cpu")
+    many = DPF2.make_pool(config, {"pool": 16, "clients": 4}, 9, "cpu")
     assert np.bincount(many.client).tolist() == [4, 4, 4, 4]
     assert (many.targets == one.targets).all()
 

@@ -35,9 +35,15 @@ def test_config_file(entry):
     assert config["name"] == entry["name"]
     assert config["source"] == entry["source"] and len(entry["source"]) <= 200
     assert config["reduced"] == entry["reduced"] == []
-    assert config["keys"] in ("fast", "compat")
-    # the source's shape, named in its file: 2^20 rows of its record width
-    assert config["rows"] == 1 << 20 and config["row_bytes"] in (3, 256)
+    # the protocol's files, and what its configurations state
+    protocol = named.module("protocols", config["protocol"])
+    assert callable(named.module("systems", config["protocol"]).System)
+    assert set(protocol.CONFIG_KEYS) <= set(config)
+    assert all(type(config[k]) is int and config[k] > 0 for k in ("rows", "row_bytes"))
+    if config["protocol"] == "dpf2":
+        assert config["keys"] in ("fast", "compat")
+        if config["keys"] == "fast":
+            assert type(config["leaf_bits"]) is int and config["leaf_bits"] % 128 == 0
 
 
 @pytest.mark.parametrize("cell", SPEC["workloads"], ids=lambda e: e["name"])

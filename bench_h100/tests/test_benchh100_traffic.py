@@ -8,6 +8,7 @@ import torch
 from benchh100_util import COMPAT, FAST, ROOT, SIZES
 
 import harness  # noqa: E402
+import named  # noqa: E402
 import traffic  # noqa: E402
 
 SPEC = harness.load_spec(ROOT)
@@ -16,7 +17,7 @@ SPEC = harness.load_spec(ROOT)
 def _inputs(cell: str, seed: int):
     _, config, mix = harness.load_cell(SPEC, ROOT, cell)
     config, mix = {**config, **SIZES[cell]["config"]}, {**mix, **SIZES[cell]["mix"]}
-    pool = traffic.make_pool(config, mix, seed, "cpu")
+    pool = named.module("protocols", config["protocol"]).make_pool(config, mix, seed, "cpu")
     return (traffic.make_table(config, seed, "cpu").numpy(), pool,
             traffic.make_draws(mix, seed), traffic.make_sample(mix, seed), mix)
 
