@@ -461,8 +461,15 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _u32_tensor(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)).to(device)
+def upload_words(a: np.ndarray, device) -> torch.Tensor:
+    """uint32 words -> their int32 bit pattern on `device`. To a CUDA
+    device through pinned memory, enqueued on the current stream without
+    waiting for it, so a batch's uploads do not wait for the scans queued
+    before them."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def lane_words(L: int, G: int) -> int | None:
@@ -679,9 +686,9 @@ def _consts(mods: list[int], Lp: int, dev) -> tuple:
             else np.zeros(1, np.int64))
 
     def table(field):
-        return _u32_tensor(np.stack([getattr(c, field) for c in ctxs])[rows], dev)
+        return upload_words(np.stack([getattr(c, field) for c in ctxs])[rows], dev)
 
-    return (table("n_words"), _u32_tensor(np.array([c.n0inv for c in ctxs])[rows], dev),
+    return (table("n_words"), upload_words(np.array([c.n0inv for c in ctxs])[rows], dev),
             table("r2_words"), table("one_words"))
 
 
@@ -825,8 +832,8 @@ def paillier_scan_words(ebits: list, emat: np.ndarray, mod: int, e_max: int,
         return [1] * w
     L = words_for_modulus(mod)
     word_ctx(mod)  # refuses an even modulus
-    bases = _u32_tensor(ints_to_words([b % mod for b in ebits], L), dev)
-    out = mont_scan(bases, _u32_tensor(emat, dev), mod, max(1, e_max), row_chunk, col_chunk)
+    bases = upload_words(ints_to_words([b % mod for b in ebits], L), dev)
+    out = mont_scan(bases, upload_words(emat, dev), mod, max(1, e_max), row_chunk, col_chunk)
     return words_to_ints(out.cpu().numpy())
 
 
@@ -862,8 +869,8 @@ def _powmod_rows(bases, exps, mods, e_max, batch_chunk, device):
     out: list = []
     for lo in range(0, len(bases), batch_chunk):
         hi = min(len(bases), lo + batch_chunk)
-        b = _u32_tensor(ints_to_words([bases[i] % mods[i] for i in range(lo, hi)], L), dev)
-        e = _u32_tensor(pack_exponents(exps[lo:hi], e_max), dev)
+        b = upload_words(ints_to_words([bases[i] % mods[i] for i in range(lo, hi)], L), dev)
+        e = upload_words(pack_exponents(exps[lo:hi], e_max), dev)
         out.extend(words_to_ints(mont_powmod(b, e, mods[lo:hi], e_max).cpu().numpy()))
     return out
 

@@ -12,7 +12,10 @@ Three scan engines (``scan_engine``): None and ``"torch"`` run the
 batched Montgomery multi-exponentiation of ``crypto/mont.py`` (kernel 10)
 on ``device=`` (None is the card, and raises with no CUDA; ``"cpu"`` the
 plain version), as pir_tpu's ``"tpu"`` engine runs
-``tpu_paillier_scan``; ``"native"`` runs the threaded C++ scan on the
+``tpu_paillier_scan``: level-1 queries through
+``TorchPirServer.private_encrypted_query_batch_async``, the given
+server's (its exponent matrix cached on its device) or one made for the
+call; ``"native"`` runs the threaded C++ scan on the
 host (``native.paillier_scan``, ``nprocs`` threads, all cores by
 default), as pir_tpu's ``"native"`` engine does, and raises if its
 library does not build; ``"python"`` runs the CPython loop, pir_tpu's
@@ -95,12 +98,17 @@ class DoublyEncryptedQueryResult:
 # Client: query generation
 # --------------------------------------------------------------------------
 
+def sqrt_grid(dbmd: DBMetadata, group_size: int = 1) -> tuple[int, int]:
+    """(width, height) of the default square-root grid (query.go:118-127)."""
+    height = int(math.ceil(math.sqrt(dbmd.db_size)))
+    return dbmd.get_dimensions_for_database(height, group_size)
+
+
 def new_encrypted_query(
     dbmd: DBMetadata, pk: PublicKey, group_size: int, index: int
 ) -> EncryptedQuery:
     """query.go:118-127: sqrt-grid default dimensions."""
-    height = int(math.ceil(math.sqrt(dbmd.db_size)))
-    width, height = dbmd.get_dimensions_for_database(height, group_size)
+    width, height = sqrt_grid(dbmd, group_size)
     return new_encrypted_query_with_dimensions(pk, width, height, group_size, index)
 
 
@@ -117,8 +125,7 @@ def new_doubly_encrypted_query(
     dbmd: DBMetadata, pk: PublicKey, group_size: int, index: int
 ) -> DoublyEncryptedQuery:
     """query.go:152-221."""
-    height = int(math.ceil(math.sqrt(dbmd.db_size)))
-    width, height = dbmd.get_dimensions_for_database(height, group_size)
+    width, height = sqrt_grid(dbmd, group_size)
     return new_doubly_encrypted_query_with_dimensions(
         dbmd, pk, width, height, group_size, index
     )
@@ -171,48 +178,40 @@ def scan_engine(engine: str | None) -> str:
     raise ValueError(f"unknown cPIR scan engine {engine!r}")
 
 
-def _level1_exponents(db: Database, dim_width: int, dim_height: int, num_cts: int):
+def _level1_exponents(db: Database, dim_width: int, dim_height: int, num_cts: int,
+                      rows=None):
     """The level-1 exponent matrix (pir_tpu/encrypted.py:234-262) straight
     from the database's bytes: (dim_height, dim_width * num_cts, EW) uint32
     words, slot (row, col)'s chunk j at column col * num_cts + j, each
     chunk the big-endian int of its ceil(slot_bytes / num_cts) bytes
     (Slot.to_int_array); slots past the database keep exponent 0, the
-    identity. Returns (matrix, e_max = 8 bytes a chunk, bytes a chunk)."""
+    identity. With `rows`, only those grid rows, in their order (the rows
+    an update touches). Returns (matrix, e_max = 8 bits a chunk byte,
+    bytes a chunk)."""
     per = max(1, -(-db.slot_bytes // num_cts))
     ew = max(1, -(-per // 4))
-    n = dim_height * dim_width
-    live = min(n, db.db_size)
-    out = np.zeros((n, num_cts, 4 * ew), dtype=np.uint8)
-    data = np.asarray(db.data[:live], dtype=np.uint8)
+    rows = np.arange(dim_height) if rows is None else np.asarray(rows, dtype=np.int64)
+    slots = (rows[:, None] * dim_width + np.arange(dim_width)).ravel()
+    live = slots < db.db_size
+    out = np.zeros((len(slots), num_cts, 4 * ew), dtype=np.uint8)
+    data = np.asarray(db.data, dtype=np.uint8)[slots[live]]
     for j in range(num_cts):
         start, end = j * per, min(db.slot_bytes, (j + 1) * per)
         if start < end:  # little-endian bytes of the chunk's big-endian int
-            out[:live, j, :end - start] = data[:, start:end][:, ::-1]
-    words = out.view("<u4").astype(np.uint32).reshape(dim_height, dim_width * num_cts, ew)
+            out[live, j, :end - start] = data[:, start:end][:, ::-1]
+    words = out.view("<u4").astype(np.uint32).reshape(len(rows), dim_width * num_cts, ew)
     return words, 8 * -(-db.slot_bytes // num_cts), per
 
 
-def private_encrypted_query(
-    db: Database, query: EncryptedQuery, nprocs: int | None = None,
-    engine: str | None = None, device=None,
-) -> EncryptedQueryResult:
-    """The AHE scan (db.go:176-271).
-
-    Slots are packed into ceil(slot_bytes / (|N|-2)) plaintext chunks;
-    answer[col][chunk] = sum_row Enc(bit_row) * chunk(row, col).
-
-    `engine` is resolved by scan_engine; "torch" (and None) scans the
-    exponent matrix on `device` (None: the card) with the layout's bound of 8 bits a chunk
-    byte. `nprocs` is the reference's goroutine fan-out (db.go:193-261):
-    the "native" engine's thread count (None: all cores); the others
-    accept it unused.
-    """
+def check_encrypted_query(db: Database, query: EncryptedQuery) -> int:
+    """Raise ValueError unless `query` may be answered over `db`; returns
+    the plaintext chunks a slot (num_cts). Served queries are
+    attacker-controlled: the scan's work and allocations are O(width *
+    height * num_cts), so the geometry must be bounded by the database it
+    claims to address (the wire layer bounds only byte counts; same DoS
+    class as wire._need)."""
     pk = query.pk
     dim_width, dim_height = query.db_width, query.db_height
-    # served queries are attacker-controlled: the scan's work and
-    # allocations are O(width * height * num_cts), so the geometry must
-    # be bounded by the database it claims to address (the wire layer
-    # bounds only byte counts; same DoS class as wire._need)
     if dim_height != len(query.ebits):
         raise ValueError("query height does not match its ebits vector")
     if dim_width < 1 or dim_height < 1:
@@ -228,16 +227,39 @@ def private_encrypted_query(
         raise ValueError("paillier modulus too small for any plaintext")
     if pk.n.bit_length() > MAX_PAILLIER_BITS:
         raise ValueError("paillier modulus exceeds the serving bound")
-    num_cts = max(1, math.ceil(db.slot_bytes / msg_space_bytes(pk)))
+    return max(1, math.ceil(db.slot_bytes / msg_space_bytes(pk)))
 
+
+def private_encrypted_query(
+    db: Database, query: EncryptedQuery, nprocs: int | None = None,
+    engine: str | None = None, device=None, server=None,
+) -> EncryptedQueryResult:
+    """The AHE scan (db.go:176-271).
+
+    Slots are packed into ceil(slot_bytes / (|N|-2)) plaintext chunks;
+    answer[col][chunk] = sum_row Enc(bit_row) * chunk(row, col).
+
+    `engine` is resolved by scan_engine; "torch" (and None) is a batch of
+    one through TorchPirServer.private_encrypted_query_batch_async:
+    `server`'s (a TorchPirServer over `db`, its exponent matrix cached on
+    its device) when given, else a server's on `device` (None: the card)
+    made for the call; 8 bits a chunk byte bound the exponents. `nprocs`
+    is the reference's goroutine fan-out (db.go:193-261): the "native"
+    engine's thread count (None: all cores); the others accept it unused.
+    """
     if scan_engine(engine) == "torch":
-        from .crypto.mont import paillier_scan_words
+        if server is None:
+            from .crypto.mont import resolve_device
+            from .server import TorchPirServer
 
-        emat, e_max, per = _level1_exponents(db, dim_width, dim_height, num_cts)
-        out = paillier_scan_words([ct.c for ct in query.ebits], emat, pk.n2, e_max, device)
-        slots = [EncryptedSlot([Ciphertext(out[col * num_cts + j], ENC_LEVEL_ONE)
-                                for j in range(num_cts)]) for col in range(dim_width)]
-        return EncryptedQueryResult(slots, pk, db.slot_bytes, per)
+            server = TorchPirServer(db, device=resolve_device(device))
+        elif server.db is not db:
+            raise ValueError("the server serves another database")
+        return server.private_encrypted_query_batch_async([query])()[0]
+    pk = query.pk
+    dim_width, dim_height = query.db_width, query.db_height
+    num_cts = check_encrypted_query(db, query)
+
     if scan_engine(engine) == "native":
         from . import native
 

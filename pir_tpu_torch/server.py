@@ -42,6 +42,11 @@ keyword batch runs one point walk for its queries and scans with the
 bit-plane scan kernel (``ops/planes_scan.py``) the natural table's
 bytes. Multi-party batches raise ValueError, as in pir_tpu.
 
+Single-server cPIR (``private_encrypted_query_batch_async``): level-1
+Paillier queries (``encrypted.py``) scan with kernel 10 (``crypto/mont.py``)
+the level-1 exponent matrix, built from the table; that of the table's
+own square-root grid is cached on the device beside the DPF tables.
+
 ``apply_updates`` changes slots live: every cached table is patched by a
 row scatter into a clone, swapped in under the cache lock.
 
@@ -57,6 +62,15 @@ import threading
 import numpy as np
 import torch
 
+from . import encrypted as enc
+from .crypto.mont import (
+    ints_to_words,
+    mont_scan,
+    upload_words,
+    word_ctx,
+    words_for_modulus,
+    words_to_ints,
+)
 from .database import Database
 from .dpf import host as dpf_host
 from .dpf.device import (
@@ -479,6 +493,104 @@ class TorchPirServer:
         return self._storage_table(("preplane", group_size, device_bits), group_size,
                                    lambda: _compat_leaf_perm_root(device_bits, h), flat, flat)
 
+    def _level1_exponents(self, width: int, height: int, num_cts: int) -> torch.Tensor:
+        """The cPIR level-1 exponent matrix of a (width, height) grid of
+        num_cts chunks a slot (encrypted._level1_exponents), (height, width
+        * num_cts, EW) int32 words on the device.
+
+        The geometry and num_cts (the key size) are the client's, so a
+        cache keyed by them would let clients fill the device. Only the
+        database's own square-root grid (encrypted.new_encrypted_query's)
+        is cached, one entry, replaced when a key asks for another
+        num_cts; any other grid is built for the call and freed with it."""
+        def build():
+            return upload_words(enc._level1_exponents(self.db, width, height, num_cts)[0],
+                                self.device)
+
+        if (width, height) != enc.sqrt_grid(self.db.metadata()):
+            with span("pir.table"):
+                return build()
+        key = ("cpir", width, height, num_cts)
+        with self._lock:
+            val = self._tables.get(key)
+            if val is None:
+                for old in [k for k in self._tables if k[0] == "cpir"]:
+                    del self._tables[old]
+                with span("pir.table"):
+                    val = self._tables[key] = build()
+        return val
+
+    def private_encrypted_query_batch_async(self, queries: list[enc.EncryptedQuery]):
+        """Dispatch a batch of level-1 cPIR queries (single-server Paillier,
+        db.go:176-271) to kernel 10 without waiting for the device; returns
+        a zero-arg callable producing their EncryptedQueryResults, the
+        ciphertexts of private_encrypted_query's CPython engine.
+
+        Every query is checked as the single query is
+        (encrypted.check_encrypted_query, and an odd N^2) before any is
+        launched. Each query's ebits go up as words, then one ``mont_scan``
+        under its own modulus N^2 reads the exponent matrix of its
+        geometry (``_level1_exponents``: cached for the table's own grid).
+        On the card the copy back is enqueued behind the batch's
+        own scans, so the future waits for them alone and not for a batch
+        dispatched after it; it turns the words into ciphertexts.
+
+        Spans: ``pir.dispatch`` (the batch's root: the checks),
+        ``pir.table`` (a matrix built), ``pir.cpir.bases`` (the ebits to
+        words, their upload), ``pir.cpir.scan`` (the plan, the constants,
+        the launches, the copy back's enqueue); in the future
+        ``pir.answers.copy`` (the wait for the scans and the copy back) and
+        ``pir.cpir.results`` (words to ints, the results)."""
+        with span("pir.dispatch", next_batch()) as root:
+            if not queries:
+                raise ValueError("empty batch")
+            cts = []
+            for q in queries:
+                cts.append(enc.check_encrypted_query(self.db, q))
+                word_ctx(q.pk.n2)  # refuses an even modulus
+            sb = self.db.slot_bytes
+            per = [max(1, -(-sb // c)) for c in cts]
+            emats = [self._level1_exponents(q.db_width, q.db_height, c)
+                     for q, c in zip(queries, cts)]
+            with span("pir.cpir.bases"):
+                bases = [upload_words(ints_to_words([ct.c % q.pk.n2 for ct in q.ebits],
+                                                    words_for_modulus(q.pk.n2)), self.device)
+                         for q in queries]
+            with span("pir.cpir.scan"):
+                outs = [mont_scan(b, e, q.pk.n2, 8 * p)
+                        for q, b, e, p in zip(queries, bases, emats, per)]
+                shapes = [o.shape for o in outs]
+                flat = torch.cat([o.flatten() for o in outs])
+                ready = None
+                if self.device.type == "cuda":
+                    # the copy back is enqueued now, behind this batch's
+                    # scans and ahead of the next batch's
+                    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+                    host.copy_(flat, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(torch.cuda.current_stream(self.device))
+                    flat = host
+        batch = root.arg
+
+        def take() -> list[enc.EncryptedQueryResult]:
+            with span("pir.answers.copy", batch):
+                if ready is not None:
+                    ready.synchronize()
+                words = flat.numpy()
+            with span("pir.cpir.results", batch):
+                results, off = [], 0
+                for q, c, p, (w, L) in zip(queries, cts, per, shapes):
+                    out = words_to_ints(words[off:off + w * L].reshape(w, L))
+                    off += w * L
+                    slots = [enc.EncryptedSlot([enc.Ciphertext(out[col * c + j],
+                                                               enc.ENC_LEVEL_ONE)
+                                                for j in range(c)])
+                             for col in range(q.db_width)]
+                    results.append(enc.EncryptedQueryResult(slots, q.pk, sb, p))
+                return results
+
+        return take
+
     def apply_updates(self, updates: dict[int, bytes]) -> None:
         """Apply slot updates ``{index: new_bytes}`` to the database and to
         every cached table (counterpart of pir_tpu/server.py:apply_updates).
@@ -486,9 +598,10 @@ class TorchPirServer:
         Each table derives row-wise from ``db.data``: the natural word table
         through ``ops.scan.pack_rows_u32``, the stacked, classic and compat
         storage tables through their permutations, rows padded with zero
-        bytes to whole words, and the fast singles' storage word table
-        through both. So each gets one device row scatter, O(changed
-        rows) uploaded. A patched table is a clone swapped in under the
+        bytes to whole words, the fast singles' storage word table
+        through both, and the cPIR exponent matrices by grid row. So each
+        gets one device row scatter, O(changed rows) uploaded. A patched
+        table is a clone swapped in under the
         lock: a query holding the old table finishes on the old rows and
         never sees a torn row, and an open FastServingStream sees the new
         table at its next dispatch. The database swaps its rows copy-on-write
@@ -509,6 +622,14 @@ class TorchPirServer:
         sb = self.db.slot_bytes
         patches = []
         for key in self._tables:
+            if key[0] == "cpir":
+                _, w, h, num_cts = key
+                r = np.unique(idxs // w)
+                r = r[r < h]
+                if len(r):
+                    vals = enc._level1_exponents(self.db, w, h, num_cts, r)[0]
+                    patches.append((key, r, vals.view(np.int32)))
+                continue
             words = key[0] in ("words", "storage words")
             if not (words or key in self._perms):
                 continue  # permutations and keyword planes

@@ -590,10 +590,13 @@ class PirService:
             return OP_QUERY, wire.serialize_shared_result(res)
         if opcode == OP_ENCRYPTED_QUERY:
             q = wire.deserialize_encrypted_query(payload)
+            # the torch engine answers through the service's TorchPirServer,
+            # whose exponent matrix stays on its device
+            server = self._engine if isinstance(self._engine, TorchPirServer) else None
             with self.metrics.timed_query(scan):
                 res = enc.private_encrypted_query(
                     self.db, q, engine=self.config.paillier_engine,
-                    device=self.config.device,
+                    device=self.config.device, server=server,
                 )
             return OP_ENCRYPTED_QUERY, wire.serialize_encrypted_result(res)
         if opcode == OP_ENCRYPTED_QUERY_REC:

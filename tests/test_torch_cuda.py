@@ -1106,6 +1106,34 @@ def test_paillier_engine_torch_with_no_device_runs_on_the_card(dev):
     assert ints("torch") == ints(None) == ints("python")
 
 
+def test_cuda_cpir_batches_in_flight_match_the_python_engine(dev):
+    """TorchPirServer.private_encrypted_query_batch_async on the card: two
+    batches in flight under three moduli (256 and 1024 bits), taken in
+    either order, give the CPython engine's ciphertexts; the exponent
+    matrix is built once, and after apply_updates a batch reads the new
+    rows."""
+    from pir_tpu_torch import encrypted as enc
+    from pir_tpu_torch.crypto import paillier
+    from pir_tpu_torch.utils.metrics import reset_spans, span_totals
+
+    db = generate_random_db(1 << 12, 3)
+    srv = TorchPirServer(db, device=dev)
+    keys = [paillier.keygen(256), paillier.keygen(256), paillier.keygen(1024)]
+    qs = [enc.new_encrypted_query(db.metadata(), keys[k][1], 1, row)
+          for k, row in ((0, 3), (1, 40), (2, 63), (2, 0), (0, 17))]
+    reset_spans()
+    first = srv.private_encrypted_query_batch_async(qs[:3])
+    second = srv.private_encrypted_query_batch_async(qs[3:])
+    got = second() + first()
+    want = [enc.private_encrypted_query(db, q, engine="python") for q in qs[3:] + qs[:3]]
+    assert [[c.c for c in s.cts] for r in got for s in r.slots] == \
+        [[c.c for c in s.cts] for r in want for s in r.slots]
+    assert span_totals()["pir.table"]["count"] == 1
+    srv.apply_updates({63 * 64 + 5: b"xyz"})
+    res = srv.private_encrypted_query_batch_async([qs[2]])()[0]
+    assert bytes(enc.recover_encrypted(res, keys[2][0])[5].data) == b"xyz"
+
+
 def test_mont_wrappers_reject_bad_operands(dev):
     m = (1 << 255) - 19
     b = torch.zeros((4, 8), dtype=torch.int32, device=dev)
